@@ -1,0 +1,91 @@
+# ------------------------------------------------------------------
+"""Least time one H100 SXM could take for each kernel's work: the larger
+of the bytes it must move (each input read once, each output written
+once) over the HBM rate and its float32 operations over the peak rate
+outside the tensor cores (NVIDIA's H100 SXM data sheet, 700 W).
+
+    python -m idee_tpu_torch.kernels.bounds
+
+prints the bounds at the shapes of the bench configuration (batch 1,
+200x200, 6 variables; Mamba and Swin_3D defaults of config.py) for every
+kernel of the port, ported or still to port.
+"""
+# ------------------------------------------------------------------
+
+import json
+from typing import Tuple
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+
+# float32 operations per element of the fused scan: 8 mul, 3 add, 1 div,
+# 2 exp (recurrence, skip term and silu gating)
+SCAN_OPS_PER_ELEMENT = 14
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> Tuple[float, str]:
+    """(least ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_ops / PEAK_FP32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def fused_scan_fwd(L: int, M: int, with_h: bool = False):
+    """fused_selective_scan_n1 forward: reads delta, u, B, C, z [L, M] and
+    A, D [M]; writes y (and h)."""
+    n_bytes = 4 * (5 * L * M + 2 * M + (2 if with_h else 1) * L * M)
+    return bound_ms(n_bytes, SCAN_OPS_PER_ELEMENT * L * M)
+
+
+def linear_scan(L: int, M: int):
+    """h_t = a_t h_{t-1} + b_t: reads a, b, writes h; 2 ops per element."""
+    return bound_ms(4 * 3 * L * M, 2 * L * M)
+
+
+def window_attention_fwd(BW: int, n: int, G: int, hd: int):
+    """softmax(q k^T scale + bias + mask) v over BW windows of n tokens and
+    G heads of width hd: reads q, k, v, writes o (the [G, n, n] bias and
+    the small mask bank are negligible); 4 n^2 hd flops per window-head
+    for the two products."""
+    qkvo = 4 * 4 * BW * n * G * hd
+    return bound_ms(qkvo, 4 * n * n * hd * BW * G)
+
+
+def window_attention_bwd(BW: int, n: int, G: int, hd: int):
+    """Reads q, k, v, g, writes dq, dk, dv; recomputes the scores, then
+    four products: 10 n^2 hd flops per window-head."""
+    return bound_ms(7 * 4 * BW * n * G * hd, 10 * n * n * hd * BW * G)
+
+
+# bench shapes, batch 1, 200x200, 6 variables x 16 channels:
+# stage 0 window (2,4,4): 10,000 windows of 32 tokens;
+# stage 1 window (8,1,1): 40,000 windows of 8 tokens;
+# Swin_3D: 2 heads per variable of width 8 -> G = 12
+BENCH = {
+    "selective_scan_fused_n1_fwd": [("stage0", fused_scan_fwd, (32, 960_000)),
+                                    ("stage1", fused_scan_fwd, (8, 3_840_000))],
+    "linear_scan": [("stage0", linear_scan, (32, 960_000)),
+                    ("stage1", linear_scan, (8, 3_840_000))],
+    "window_attention_fwd": [("stage0", window_attention_fwd,
+                              (10_000, 32, 12, 8)),
+                             ("stage1", window_attention_fwd,
+                              (40_000, 8, 12, 8))],
+    "window_attention_bwd": [("stage0", window_attention_bwd,
+                              (10_000, 32, 12, 8)),
+                             ("stage1", window_attention_bwd,
+                              (40_000, 8, 12, 8))],
+}
+
+
+def main():
+    for name, rows in BENCH.items():
+        for stage, fn, shape in rows:
+            ms, by = fn(*shape)
+            print(json.dumps({"kernel": name, "stage": stage,
+                              "shape": shape, "bound_ms": ms,
+                              "bound_by": by}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,108 @@
+# ------------------------------------------------------------------
+"""Loss functions, forward (counterpart of idee_tpu/losses.py; reference
+models/losses.py).
+
+The inverse-frequency weighting is the reference's
+  w = log((hist / sum(hist)) ** -0.5 + 1.1) indexed by the target class
+(reference: models/losses.py:82-87,115-120). The anomaly L1 constrains the
+quantized features to the 'normal' code vq_0 outside extreme regions.
+"""
+# ------------------------------------------------------------------
+
+import torch
+
+
+def bce_with_logits(logits, targets):
+    """Elementwise binary cross entropy on logits."""
+    return (torch.clamp(logits, min=0.0) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def _inv_freq_weights(hist):
+    """log((hist/total)^-0.5 + 1.1); zero-count classes get weight 0 (the
+    reference leaves them +inf, but no pixel gathers them)."""
+    frac = hist / torch.clamp(hist.sum(), min=1.0)
+    pos = frac > 0
+    w = torch.log(torch.where(pos, frac, torch.ones_like(frac)) ** -0.5 + 1.1)
+    return torch.where(pos, w, torch.zeros_like(w))
+
+
+def _capped_inv_freq_weights(hist, cap):
+    """min(1/frac, cap), zero-count classes weight 0."""
+    frac = hist / torch.clamp(hist.sum(), min=1.0)
+    pos = frac > 0
+    w = torch.clamp(1.0 / torch.where(pos, frac, torch.ones_like(frac)),
+                    max=cap)
+    return torch.where(pos, w, torch.zeros_like(w))
+
+
+def bce_loss_synthetic(pred, target, weighting: str = "reference",
+                       weight_cap: float = 100.0, focal_gamma: float = 2.0):
+    """Frequency-weighted BCE, mean-reduced (reference: losses.py:98-124).
+    pred: logits [N, C, H, W]; target: {0,1} [N, C, H, W]. ``weighting``:
+    "reference", "capped" or "focal" (see idee_tpu/losses.py)."""
+    target = target.float()
+    hist = torch.stack([(target == 0).sum(), (target == 1).sum()]).float()
+    if weighting in ("capped", "focal"):
+        w = _capped_inv_freq_weights(hist, weight_cap)
+    else:
+        w = _inv_freq_weights(hist)
+    weights = w.detach()[target.long()]
+    if weighting == "focal":
+        p = torch.sigmoid(pred)
+        p_t = p * target + (1.0 - p) * (1.0 - target)
+        weights = weights * (1.0 - p_t) ** focal_gamma
+    return torch.mean(bce_with_logits(pred, target) * weights)
+
+
+def anomaly_l1_loss_synthetic(z_q, mask_extreme_loss, vq0):
+    """Driver-supervision L1 (reference: losses.py:127-168).
+    z_q [N, V, C, T, H, W]; mask_extreme_loss [N, H, W]; vq0 [C]."""
+    z_q = z_q.float()
+    mask = mask_extreme_loss.float()[:, None, None, None, :, :]
+    weights = 1.0 - torch.clamp(mask, 0.0, 1.0)
+    target = vq0.detach()[None, None, :, None, None, None]
+    l1 = (z_q - target).abs() * weights
+    return l1.sum() / torch.broadcast_to(weights, z_q.shape).sum()
+
+
+def anomaly_l1_lfq(s_q, w_pix, w_out, b_out):
+    """The anomaly L1 on the 1-bit LFQ latent, without building z_q.
+
+    With vq_0 = b_out - w_out and z_q = s_q*w_out + b_out (s_q = +/-1),
+    |z_q_c - vq0_c| = |(s_q + 1) * w_c|, so
+      loss = sum_m w_m * |s_q_m + 1| * sum_c|w_c| / (C * sum_m w_m).
+    s_q [N, T, H, W, V]; w_pix [N, H, W] (1 - mask); w_out, b_out [C].
+    Forward only in this slice (the custom backward of
+    idee_tpu/losses.py:174-182 comes with training)."""
+    N, T, H, W, V = s_q.shape
+    C = w_out.shape[0]
+    abs_w = w_out.abs().sum()
+    pos = (s_q > 0).float()
+    sp = torch.einsum("nthwv,nhw->", pos, w_pix)
+    den = C * T * V * w_pix.sum()
+    return 2.0 * sp * abs_w / den
+
+
+def total_loss_synthetic(out, mask_extreme, mask_extreme_loss,
+                         lambda_anomaly, weighting: str = "reference",
+                         weight_cap: float = 100.0, focal_gamma: float = 2.0):
+    """BCE(joint) + lambda_anomaly * anomaly_L1 + sum_v BCE(head_v) +
+    loss_z_q (reference: train_synthetic.py:182-201).
+    Returns (loss, dict of components)."""
+    target = mask_extreme.float()[:, None]  # [N, 1, H, W]
+    loss_bce = bce_loss_synthetic(out.z, target, weighting, weight_cap,
+                                  focal_gamma)
+    if out.loss_anomaly is not None:
+        loss_anom = out.loss_anomaly
+    else:
+        loss_anom = anomaly_l1_loss_synthetic(out.z_q, mask_extreme_loss,
+                                              out.vq0)
+    loss_var = torch.stack([
+        bce_loss_synthetic(out.y[:, v], target, weighting, weight_cap,
+                           focal_gamma)
+        for v in range(out.y.shape[1])]).sum()
+    loss = loss_bce + lambda_anomaly * loss_anom + loss_var + out.loss_z_q
+    return loss, {"loss": loss, "loss_bce": loss_bce,
+                  "loss_anomaly": loss_anom, "loss_var": loss_var,
+                  "loss_z_q": out.loss_z_q}

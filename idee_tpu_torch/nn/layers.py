@@ -1,0 +1,228 @@
+# ------------------------------------------------------------------
+"""Shared layers: per-variable (grouped) 3D convolution, dense and
+LayerNorm on packed activations, a plain channels-last Conv3d, DropPath,
+dropout, and the weight-init schemes.
+
+Counterpart of idee_tpu/nn/layers.py. Layout at every module boundary is
+the JAX package's: channels-last ``[N, D, H, W, C]``, and for the grouped
+modules the packed ``[..., V*C]`` with variable v owning channels
+``[v*C, (v+1)*C)``. Parameter shapes are the JAX package's too (per-variable
+weights stacked on axis 0, e.g. ``GroupedConv3d.kernel [V, kd, kh, kw, Cin,
+Cout]``), so its weights carry across unchanged. Inside, the grouped
+modules are grouped ``F.conv3d`` / batched ``einsum`` over ``[..., V, C]``:
+the block-diagonal dense forms of the JAX package answer the TPU's tiling
+and are not ported.
+
+Initializers fill a tensor in place from an explicit ``torch.Generator``
+(``init(tensor, generator)``); modules are built on the CPU and moved.
+"""
+# ------------------------------------------------------------------
+
+import math
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+Init = Callable[[torch.Tensor, Optional[torch.Generator]], None]
+
+# stddev of a unit normal truncated at +/-2 (flax variance_scaling's
+# correction for its truncated_normal distribution)
+_TRUNC_STD = 0.87962566103423978
+
+
+def reference_init(mean: float = 0.02, std: float = 0.02) -> Init:
+    """Normal(mean, std) (reference: models/build.py:110)."""
+
+    def init(t, generator=None):
+        with torch.no_grad():
+            t.normal_(mean, std, generator=generator)
+
+    return init
+
+
+def lecun_normal_init(fan_in: int) -> Init:
+    """Normal(0, 1/sqrt(fan_in)) with the per-group fan-in of the stacked
+    [V, ...] parameter shapes."""
+    return reference_init(0.0, fan_in ** -0.5)
+
+
+def trunc_normal_init(std: float = 0.02) -> Init:
+    """Truncated normal at +/-2 std (timm trunc_normal_ semantics)."""
+
+    def init(t, generator=None):
+        with torch.no_grad():
+            nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+
+    return init
+
+
+def flax_default_init(fan_in: int) -> Init:
+    """flax's default kernel init (lecun_normal: variance_scaling(1, fan_in,
+    truncated_normal)), used by plain Conv/Dense layers when the model's
+    init scheme leaves kernel_init unset."""
+    return trunc_normal_init(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+def dropout(x, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None):
+    """Elementwise dropout drawing its mask from ``generator``."""
+    if rate == 0.0 or not train:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def drop_path(x, rate: float, train: bool,
+              generator: Optional[torch.Generator] = None):
+    """Stochastic depth per sample (timm DropPath semantics)."""
+    if rate == 0.0 or not train:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def _pad_channels_first(x, padding, mode: str):
+    """x [N, C, D, H, W]; padding ((dlo, dhi), (hlo, hhi), (wlo, whi))."""
+    (dl, dh), (hl, hh), (wl, wh) = (tuple(p) for p in padding)
+    pad = (wl, wh, hl, hh, dl, dh)
+    if not any(pad):
+        return x
+    return F.pad(x, pad, mode="replicate" if mode == "replicate"
+                 else "constant")
+
+
+class Conv3d(nn.Module):
+    """Plain 3D convolution on channels-last [N, D, H, W, C] with optional
+    replicate padding (torch Conv3d(padding_mode='replicate') semantics).
+    Weight in torch's own layout [out, in, kd, kh, kw]."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Tuple[int, int, int] = (3, 3, 3),
+                 strides: Tuple[int, int, int] = (1, 1, 1),
+                 padding: Sequence[Tuple[int, int]] = ((1, 1), (1, 1),
+                                                       (1, 1)),
+                 padding_mode: str = "zeros", use_bias: bool = True,
+                 kernel_init: Optional[Init] = reference_init(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kd, kh, kw = kernel_size
+        self.strides = tuple(strides)
+        self.padding = tuple(tuple(p) for p in padding)
+        self.padding_mode = padding_mode
+        self.weight = nn.Parameter(torch.empty(features, in_features,
+                                               kd, kh, kw))
+        init = kernel_init or flax_default_init(kd * kh * kw * in_features)
+        init(self.weight, generator)
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def forward(self, x):
+        xc = _pad_channels_first(x.permute(0, 4, 1, 2, 3), self.padding,
+                                 self.padding_mode)
+        y = F.conv3d(xc, self.weight, self.bias, stride=self.strides)
+        return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class GroupedConv3d(nn.Module):
+    """Per-variable (grouped) 3D convolution on packed activations:
+    [N, D, H, W, V*in_features] -> [N, D', H', W', V*features].
+    Parameters kernel [V, kd, kh, kw, Cin, Cout], bias [V, Cout]."""
+
+    def __init__(self, n_groups: int, in_features: int, features: int,
+                 kernel_size: Tuple[int, int, int] = (3, 3, 3),
+                 strides: Tuple[int, int, int] = (1, 1, 1),
+                 padding: Sequence[Tuple[int, int]] = ((1, 1), (1, 1),
+                                                       (1, 1)),
+                 padding_mode: str = "zeros", use_bias: bool = True,
+                 kernel_init: Optional[Init] = reference_init(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kd, kh, kw = kernel_size
+        self.n_groups = n_groups
+        self.strides = tuple(strides)
+        self.padding = tuple(tuple(p) for p in padding)
+        self.padding_mode = padding_mode
+        self.kernel = nn.Parameter(torch.empty(n_groups, kd, kh, kw,
+                                               in_features, features))
+        init = kernel_init or lecun_normal_init(kd * kh * kw * in_features)
+        init(self.kernel, generator)
+        self.bias = (nn.Parameter(torch.zeros(n_groups, features))
+                     if use_bias else None)
+
+    def forward(self, x):
+        V, kd, kh, kw, cin, cout = self.kernel.shape
+        xc = _pad_channels_first(x.permute(0, 4, 1, 2, 3), self.padding,
+                                 self.padding_mode)
+        # [V, kd, kh, kw, Cin, Cout] -> grouped-conv weight [V*Cout, Cin, ...]
+        w = self.kernel.permute(0, 5, 4, 1, 2, 3).reshape(V * cout, cin,
+                                                          kd, kh, kw)
+        b = self.bias.reshape(V * cout) if self.bias is not None else None
+        y = F.conv3d(xc, w, b, stride=self.strides, groups=V)
+        return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class GroupedDense(nn.Module):
+    """Per-variable (unshared) Dense on packed [..., V*in] -> [..., V*out].
+    Parameters kernel [V, in, out], bias [V, out]."""
+
+    def __init__(self, n_groups: int, in_features: int, features: int,
+                 use_bias: bool = True,
+                 kernel_init: Optional[Init] = reference_init(),
+                 bias_init: Optional[Init] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(n_groups, in_features,
+                                               features))
+        (kernel_init or lecun_normal_init(in_features))(self.kernel,
+                                                        generator)
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(n_groups, features))
+            if bias_init is not None:
+                bias_init(self.bias, generator)
+        else:
+            self.bias = None
+
+    def forward(self, x):
+        V, fin, fout = self.kernel.shape
+        lead = x.shape[:-1]
+        y = torch.einsum("...vi,vio->...vo", x.reshape(*lead, V, fin),
+                         self.kernel).reshape(*lead, V * fout)
+        if self.bias is not None:
+            y = y + self.bias.reshape(V * fout)
+        return y
+
+
+class GroupedLayerNorm3d(nn.Module):
+    """LayerNorm over each C-sized group of a packed [..., V*C] activation
+    (torch nn.LayerNorm(C) per variable); affine scale/bias [V, C]."""
+
+    def __init__(self, n_groups: int, features: int, affine: bool = True,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.n_groups, self.features, self.eps = n_groups, features, eps
+        if affine:
+            self.scale = nn.Parameter(torch.ones(n_groups, features))
+            self.bias = nn.Parameter(torch.zeros(n_groups, features))
+        else:
+            self.scale = self.bias = None
+
+    def forward(self, x):
+        V, C = self.n_groups, self.features
+        lead = x.shape[:-1]
+        xv = x.reshape(*lead, V, C)
+        mu = xv.mean(-1, keepdim=True)
+        d = xv - mu
+        # two-pass moments: no E[x^2]-mu^2 cancellation
+        var = (d * d).mean(-1, keepdim=True)
+        y = d * torch.rsqrt(var + self.eps)
+        if self.scale is not None:
+            y = y * self.scale + self.bias
+        return y.reshape(*lead, V * C)
