@@ -38,6 +38,15 @@ def fused_scan_fwd(L: int, M: int, with_h: bool = False):
     return bound_ms(n_bytes, SCAN_OPS_PER_ELEMENT * L * M)
 
 
+def fused_scan_bwd(L: int, M: int):
+    """The fused scan's whole backward, as one pass could do it: reads
+    delta, u, B, C, z, h and the output gradient [L, M] and A, D [M];
+    writes ddelta, du, dB, dC, dz [L, M] and dA, dD [M]. About 30 float32
+    operations per element (the recomputed exp, the sigmoid, the reverse
+    recurrence and the products of JAX's _fused_bwd)."""
+    return bound_ms(4 * (12 * L * M + 4 * M), 30 * L * M)
+
+
 def linear_scan(L: int, M: int):
     """h_t = a_t h_{t-1} + b_t: reads a, b, writes h; 2 ops per element."""
     return bound_ms(4 * 3 * L * M, 2 * L * M)
@@ -65,8 +74,14 @@ def window_attention_bwd(BW: int, n: int, G: int, hd: int):
 BENCH = {
     "selective_scan_fused_n1_fwd": [("stage0", fused_scan_fwd, (32, 960_000)),
                                     ("stage1", fused_scan_fwd, (8, 3_840_000))],
+    "fused_scan_bwd": [("stage0", fused_scan_bwd, (32, 960_000)),
+                       ("stage1", fused_scan_bwd, (8, 3_840_000))],
+    # the reverse scans of the train step's backward; L=200 is no model
+    # window, the long-sequence check of the kernel (the TPU's two-level
+    # _scan_pallas_2d shape)
     "linear_scan": [("stage0", linear_scan, (32, 960_000)),
-                    ("stage1", linear_scan, (8, 3_840_000))],
+                    ("stage1", linear_scan, (8, 3_840_000)),
+                    ("long", linear_scan, (200, 1_000_000))],
     "window_attention_fwd": [("stage0", window_attention_fwd,
                               (10_000, 32, 12, 8)),
                              ("stage1", window_attention_fwd,

@@ -1,5 +1,5 @@
 # ------------------------------------------------------------------
-"""Loss functions, forward (counterpart of idee_tpu/losses.py; reference
+"""Loss functions (counterpart of idee_tpu/losses.py; reference
 models/losses.py).
 
 The inverse-frequency weighting is the reference's
@@ -66,22 +66,45 @@ def anomaly_l1_loss_synthetic(z_q, mask_extreme_loss, vq0):
     return l1.sum() / torch.broadcast_to(weights, z_q.shape).sum()
 
 
+class _AnomalyL1LFQ(torch.autograd.Function):
+    """Value and custom backward of idee_tpu/losses.py::anomaly_l1_lfq
+    (:162-185): the exact derivatives of the uncollapsed L1 with vq_0 held
+    constant, which autograd of the collapsed form would not give (it sees
+    no path to s_q through ``s_q > 0``, doubles w_out's and drops
+    b_out's)."""
+
+    @staticmethod
+    def forward(ctx, s_q, w_pix, w_out, b_out):
+        N, T, H, W, V = s_q.shape
+        C = w_out.shape[0]
+        abs_w = w_out.abs().sum()
+        pos = (s_q > 0).float()
+        # sum over tokens of w_m * [s_q_m = +1]
+        sp = torch.einsum("nthwv,nhw->", pos, w_pix)
+        den = C * T * V * w_pix.sum()
+        ctx.save_for_backward(pos, w_pix, w_out, sp, abs_w, den)
+        return 2.0 * sp * abs_w / den
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, w_pix, w_out, sp, abs_w, den = ctx.saved_tensors
+        # d/ds_q |s_q+1|*abs_w = pos*abs_w  (sign(0) = 0)
+        ds_q = (g * abs_w / den) * pos * w_pix[:, None, :, :, None]
+        # d/dw_c and d/db_c of |s_q*w_c + b_c - vq0_c| with vq0 constant
+        # both reduce to sign(w_c) summed over tokens where s_q = +1
+        dwb = (g * sp / den) * torch.sign(w_out)
+        return ds_q, None, dwb, dwb
+
+
 def anomaly_l1_lfq(s_q, w_pix, w_out, b_out):
     """The anomaly L1 on the 1-bit LFQ latent, without building z_q.
 
     With vq_0 = b_out - w_out and z_q = s_q*w_out + b_out (s_q = +/-1),
     |z_q_c - vq0_c| = |(s_q + 1) * w_c|, so
       loss = sum_m w_m * |s_q_m + 1| * sum_c|w_c| / (C * sum_m w_m).
-    s_q [N, T, H, W, V]; w_pix [N, H, W] (1 - mask); w_out, b_out [C].
-    Forward only in this slice (the custom backward of
-    idee_tpu/losses.py:174-182 comes with training)."""
-    N, T, H, W, V = s_q.shape
-    C = w_out.shape[0]
-    abs_w = w_out.abs().sum()
-    pos = (s_q > 0).float()
-    sp = torch.einsum("nthwv,nhw->", pos, w_pix)
-    den = C * T * V * w_pix.sum()
-    return 2.0 * sp * abs_w / den
+    s_q [N, T, H, W, V]; w_pix [N, H, W] (1 - mask, no gradient); w_out,
+    b_out [C]. Gradients: the JAX package's custom VJP."""
+    return _AnomalyL1LFQ.apply(s_q, w_pix, w_out, b_out)
 
 
 def total_loss_synthetic(out, mask_extreme, mask_extreme_loss,

@@ -7,7 +7,8 @@ Each window's flattened token sequence goes through a mamba_ssm.Mamba
 v1-style block: in_proj -> causal depthwise conv1d -> silu -> x_proj
 (dt/B/C) -> softplus(dt_proj) -> selective scan with A = -exp(A_log), skip
 D, silu(z) gating -> out_proj. With d_state=1 the scan is the fused CUDA
-kernel of kernels/selective_scan.py.
+kernel of kernels/selective_scan.py; a larger d_state goes through its
+linear-scan kernel.
 """
 # ------------------------------------------------------------------
 
@@ -19,7 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from idee_tpu_torch.kernels.selective_scan import fused_selective_scan_n1
+from idee_tpu_torch.kernels.selective_scan import (fused_selective_scan_n1,
+                                                   linear_scan)
 from idee_tpu_torch.nn.cnn3d import (GroupedProjHead, pack_variables,
                                      unpack_variables)
 from idee_tpu_torch.nn.layers import (GroupedDense, GroupedLayerNorm3d, Init,
@@ -27,6 +29,19 @@ from idee_tpu_torch.nn.layers import (GroupedDense, GroupedLayerNorm3d, Init,
                                       reference_init)
 from idee_tpu_torch.nn.swin3d import (PackedPatchEmbed3D, get_window_size,
                                       window_partition, window_reverse)
+
+
+def selective_scan(u, delta, A, B, C, D, z):
+    """Selective scan of a single tower through the linear-scan kernel.
+
+    u, delta, z: [B, L, d]; A: [d, n]; B, C: [B, L, n]; D: [d]
+    h_t = exp(delta_t A) h_{t-1} + delta_t B_t u_t;  y_t = C_t . h_t + D u_t
+    """
+    dA = torch.exp(delta[..., None] * A)                     # [B, L, d, n]
+    dBu = (delta * u)[..., None] * B[:, :, None, :]          # [B, L, d, n]
+    h = linear_scan(dA, dBu, axis=1)
+    y = torch.einsum("bldn,bln->bld", h, C) + u * D
+    return y * F.silu(z)
 
 
 def selective_scan_packed(u, delta, A, B, C, D, z, n_groups: int):
@@ -38,21 +53,29 @@ def selective_scan_packed(u, delta, A, B, C, D, z, n_groups: int):
     B_, L, M = u.shape
     d = M // n_groups
     n = A.shape[-1]
-    if n != 1:
-        raise NotImplementedError(
-            "d_state > 1 is not ported yet (ROADMAP.md, open items: the "
-            "general d_state branch with the linear-scan kernel)")
 
-    # fused path over [L, B_*M]: the huge windows*channels axis is minor,
-    # which is what the kernel's coalesced loads need
-    def fold(t):  # [B_, L, M] -> [L, B_*M]
-        return t.transpose(0, 1).reshape(L, B_ * M)
+    if n == 1:
+        # fused path over [L, B_*M]: the huge windows*channels axis is
+        # minor, which is what the kernel's coalesced loads need
+        def fold(t):  # [B_, L, M] -> [L, B_*M]
+            return t.transpose(0, 1).reshape(L, B_ * M)
 
-    B_rep = fold(B[..., 0].repeat_interleave(d, dim=2))
-    C_rep = fold(C[..., 0].repeat_interleave(d, dim=2))
-    y = fused_selective_scan_n1(fold(delta), fold(u), B_rep, C_rep, fold(z),
-                                A[:, 0].repeat(B_), D.repeat(B_))
-    return y.reshape(L, B_, M).transpose(0, 1)
+        B_rep = fold(B[..., 0].repeat_interleave(d, dim=2))
+        C_rep = fold(C[..., 0].repeat_interleave(d, dim=2))
+        y = fused_selective_scan_n1(fold(delta), fold(u), B_rep, C_rep,
+                                    fold(z), A[:, 0].repeat(B_),
+                                    D.repeat(B_))
+        return y.reshape(L, B_, M).transpose(0, 1)
+
+    # general d_state: per-variable B/C broadcast over that variable's
+    # d_inner channels, scan with a trailing state axis
+    B_rep = B.repeat_interleave(d, dim=2)                    # [B_, L, M, n]
+    dA = torch.exp(delta[..., None] * A)                     # [B_, L, M, n]
+    dBu = (delta * u)[..., None] * B_rep
+    h = linear_scan(dA, dBu, axis=1)                         # [B_, L, M, n]
+    C_rep = C.repeat_interleave(d, dim=2)
+    y = torch.sum(h * C_rep, dim=-1) + u * D
+    return y * F.silu(z)
 
 
 class PackedMambaSSM(nn.Module):

@@ -7,8 +7,10 @@ time, pixel) is projected to one scalar s, and sign(s) is the code: the
 index in {0, 1} is the anomaly bit. The quantizer runs in float32.
 
 Only the 1-bit path the composite model uses is ported: ``quantize_packed``
-with the eval branch and the training branch's forward (straight-through
-sign, entropy and commitment losses).
+with the eval branch and the training branch (straight-through sign,
+entropy and commitment losses, all under autograd).
+``freeze_project_out`` detaches the output projection exactly where the JAX
+package stops its gradient: in ``out_proj_params``.
 """
 # ------------------------------------------------------------------
 

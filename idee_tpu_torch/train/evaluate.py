@@ -15,8 +15,9 @@ from idee_tpu_torch import resolve_device
 from idee_tpu_torch.config import Config
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.synthetic import SyntheticCube, SyntheticDataset
-from idee_tpu_torch.models.interop import load_flax_npz, load_flax_params
+from idee_tpu_torch.models.interop import load_flax_params
 from idee_tpu_torch.models.vq_model import build_model
+from idee_tpu_torch.train.checkpoint import load_pretrained_weights
 from idee_tpu_torch.train.metrics import (EvaluatorAnomalySynthetic,
                                           EvaluatorSynthetic,
                                           majority_vote_from_device)
@@ -61,9 +62,10 @@ def test_synthetic(cfg: Config, cube: Optional[SyntheticCube] = None,
     if params is not None:
         model.load_state_dict(_state_dict(cfg, params))
     elif cfg.en_de_pretrained:
-        # the JAX package's params as a flax-path-keyed .npz
-        model.load_state_dict(load_flax_params(
-            cfg, load_flax_npz(cfg.en_de_pretrained)))
+        # the JAX package's params as a flax-path-keyed .npz, or a
+        # checkpoint of the port's trainer
+        model.load_state_dict(load_pretrained_weights(cfg,
+                                                      cfg.en_de_pretrained))
     else:
         log_string(logger, "WARNING: no pretrained model (en_de_pretrained "
                            "unset); evaluating a random initialization")

@@ -1,7 +1,7 @@
 # ------------------------------------------------------------------
-"""Eval step with device-resident epoch metrics (counterpart of
-idee_tpu/train/steps.py; reference validation loop,
-train_synthetic.py:235-282).
+"""Train and eval steps with device-resident epoch metrics (counterpart of
+idee_tpu/train/steps.py; reference training and validation loops,
+train_synthetic.py:170-282).
 
 Everything the evaluators need accumulates on the device across the epoch:
 the extreme-evaluator counters (evaluator_synthetic semantics), the loss
@@ -94,16 +94,55 @@ def _accumulate(metrics, comps, out, batch, t0: float, delta_t: int,
                    t_index, delta_t)
 
 
+def make_train_step(model, cfg: Config, t0: float = 0.0,
+                    steps_per_epoch: int = 0):
+    """step(state, metrics, batch) -> (state, metrics): forward with
+    train=True and the mask, total_loss_synthetic, backward, one optimizer
+    step, then the metric updates on detached outputs (JAX
+    ``_train_step_body``). Nothing waits for the device.
+
+    t0: absolute timestep of the dataset's first timeline slot.
+    steps_per_epoch enables the anomaly-L1 curriculum
+    (cfg.anomaly_warmup_epochs / anomaly_ramp_epochs): lambda_anomaly ramps
+    linearly from 0 over the ramp epochs after the warmup ones."""
+    warm = cfg.anomaly_warmup_epochs * steps_per_epoch
+    ramp = max(cfg.anomaly_ramp_epochs * steps_per_epoch, 1)
+    use_ramp = warm > 0 or cfg.anomaly_ramp_epochs > 0
+    bce = _bce_kwargs(cfg)
+
+    def step(state, metrics, batch):
+        # no module reads .training (train= is explicit); set for clarity
+        model.train()
+        lam = cfg.lambda_anomaly
+        if use_ramp:
+            lam = lam * min(max((state.step - warm) / ramp, 0.0), 1.0)
+        out = model(batch["x"], train=True,
+                    mask_extreme_loss=batch["mask_extreme_loss"],
+                    generator=state.generator)
+        loss, comps = losses.total_loss_synthetic(
+            out, batch["mask_extreme"], batch["mask_extreme_loss"], lam,
+            **bce)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        with torch.no_grad():
+            _accumulate(metrics, {k: v.detach() for k, v in comps.items()},
+                        out, batch, t0, cfg.delta_t)
+        return state, metrics
+
+    return step
+
+
 def make_eval_step(model, cfg: Config, t0: float = 0.0):
     """step(metrics, batch) -> metrics: one forward of ``model``
     in eval mode under inference_mode, with the loss and the metric
     updates on the device. t0: absolute timestep of the dataset's first
     timeline slot."""
-    model.eval()
     bce = _bce_kwargs(cfg)
 
     @torch.inference_mode()
     def step(metrics, batch):
+        model.eval()
         out = model(batch["x"], train=False,
                     mask_extreme_loss=batch["mask_extreme_loss"])
         _, comps = losses.total_loss_synthetic(

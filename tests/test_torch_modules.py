@@ -173,9 +173,15 @@ def test_packed_mamba_ssm():
 
 
 def test_packed_mamba_ssm_dstate_above_one_is_not_ported():
-    mod = mamba.PackedMambaSSM(3, 8, d_state=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mod(torch.zeros(2, 8, 24))
+    """The d_state > 1 branch, once a NotImplementedError, now runs through
+    the linear-scan op and matches the JAX module."""
+    V, dm = 3, 8
+    x = _x((6, 32, V * dm))
+    jmod = jm.PackedMambaSSM(n_groups=V, d_model=dm, d_state=2)
+    p = _flax(jmod, x, std=0.1)
+    got = _port(mamba.PackedMambaSSM(V, dm, d_state=2), p)(
+        torch.from_numpy(x))
+    _close(got, _apply(jmod, p, x))
 
 
 @pytest.mark.parametrize("shift,shape", [

@@ -89,11 +89,11 @@ def test_plain_matches_xla_composition(ref, L, M):
 
 def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     args = _torch(_inputs(8, 300))
-    before = ss.launches
+    before = ss.launches[ss.FUSED_FWD]
     y = ss.fused_selective_scan_n1(*args)
     y_plain, _ = ss.fused_selective_scan_n1_plain(*args)
     assert torch.equal(y, y_plain)
-    assert ss.launches == before
+    assert ss.launches[ss.FUSED_FWD] == before
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "A_shape"])
@@ -142,10 +142,10 @@ def cuda():
 @pytest.mark.parametrize("L,M", [(32, 960_000), (8, 3_840_000)])
 def test_kernel_matches_plain_on_card(cuda, L, M, return_h):
     args = _torch(_inputs(L, M, seed=7), cuda)
-    before = ss.launches
+    before = ss.launches[ss.FUSED_FWD]
     got = ss.fused_selective_scan_n1(*args, return_h=return_h)
     torch.cuda.synchronize()
-    assert ss.launches == before + 1
+    assert ss.launches[ss.FUSED_FWD] == before + 1
     y_ref, h_ref = ss.fused_selective_scan_n1_plain(*args)
     y = got[0] if return_h else got
     torch.testing.assert_close(y, y_ref, rtol=RTOL, atol=ATOL)

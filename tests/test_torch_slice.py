@@ -35,6 +35,8 @@ from idee_tpu_torch.data.fake import make_fake_cube, write_cube_npz
 from idee_tpu_torch.kernels import selective_scan as ss
 from idee_tpu_torch.models.interop import load_flax_params, save_flax_npz
 from idee_tpu_torch.models.vq_model import build_model
+from idee_tpu_torch.cli.train_synthetic import main as train_cli
+from idee_tpu_torch.train.driver import train_synthetic as port_train
 from idee_tpu_torch.train.evaluate import test_synthetic as port_test
 
 torch.set_num_threads(1)
@@ -92,7 +94,8 @@ def test_port_imports_nothing_of_jax():
             for f in files for m in banned.finditer(f.read_text())]
     assert not hits, hits
     code = ("import sys, idee_tpu_torch.train.evaluate, "
-            "idee_tpu_torch.cli.test_synthetic; "
+            "idee_tpu_torch.cli.test_synthetic, idee_tpu_torch.train.driver, "
+            "idee_tpu_torch.cli.train_synthetic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'idee_tpu')]; "
             "assert not bad, bad")
@@ -107,6 +110,19 @@ def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch, cube,
         idee_tpu_torch.resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_test(_tiny_config(dir_log=str(tmp_path)), cube=cube)
+    train_cfg = _tiny_config(dir_log=str(tmp_path), times_train=(1, 12),
+                             times_val=(13, N_TIME), n_epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_train(train_cfg, train_cube=cube.time_slice(1, 12),
+                   val_cube=cube.time_slice(13, N_TIME))
+    root = tmp_path / "synthetic_fake"
+    write_cube_npz(str(root), cube)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli(["--root_synthetic", str(root), "--dir_log",
+                   str(tmp_path), "--variables", str(VARS),
+                   "--in_channels_dynamic", "3", "--x_max", "16",
+                   "--y_max", "16", "--times_train", "(1, 12)",
+                   "--times_val", f"(13, {N_TIME})"])
     assert idee_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
@@ -214,9 +230,9 @@ def test_vq_model_forward_on_card_matches_cpu(cuda):
     with torch.inference_mode():
         want = model(x)
         model.to(cuda)
-        before = ss.launches
+        before = ss.launches[ss.FUSED_FWD]
         got = model(x.to(cuda))
         torch.cuda.synchronize()
-    assert ss.launches == before + 3
+    assert ss.launches[ss.FUSED_FWD] == before + 3
     torch.testing.assert_close(got.z.cpu(), want.z, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.y.cpu(), want.y, rtol=1e-4, atol=1e-4)
