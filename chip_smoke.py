@@ -5,35 +5,45 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. build    the card's name and power limit, then nvcc builds every kernel
-              of the main paths from the sources in this checkout, one nvcc
-              per source, all started together
-  2. kernel   each kernel against its plain PyTorch version at the shapes the
-              main paths give it (max abs error, stated tolerance), then both
-              timed with CUDA events beside the card's least possible time:
-              the fused scan forward, the linear scan forward and reverse
-              (plus a long L=200 check), and the fused scan's backward
-              through its autograd Function against autograd of the plain
-              forward
-  3. main     synthetic evaluation (train.evaluate.test_synthetic) with the
-              Mamba encoder at the bench width: 6 variables x 1 channel,
-              delta_t=8, 200x200, batch 1, random weights from a seed. The
-              launch counters are zeroed just before and read just after;
-              then steady-state steps/s, a profile, and one forward of the
-              same weights and batch with the plain scan for comparison
-  4. train    synthetic training (train.driver.train_synthetic) at the same
-              width for 2 epochs, counters zeroed around it; checkpoints,
-              history and a resumed third epoch; steady train steps/s, peak
-              memory, a profile of one train step, and one train step's
-              gradients with the kernels against the plain scans
-  5. kernels  one line listing every kernel: route, source, launches, error
-              and times
+  1. build       the card's name and power limit, then nvcc builds every
+                 kernel source of every kernel module from this checkout,
+                 one nvcc per source, all started together
+  2. kernel      each kernel against its plain PyTorch version at the shapes
+                 the main paths give it (max abs error, stated tolerance),
+                 then both timed with CUDA events beside the card's least
+                 possible time: the fused scan forward, the linear scan
+                 forward and reverse (plus a long L=200 check), the fused
+                 scan's backward through its autograd Function; then the
+                 window-attention forward, backward and dbias sum at the
+                 Swin_3D stage shapes (stage 0 unshifted and shifted with
+                 the real shift mask, stage 1), two backward runs compared
+                 bit for bit, and PyTorch's scaled_dot_product_attention
+                 timed on the same inputs as the yardstick
+  3. main        synthetic evaluation (train.evaluate.test_synthetic) with
+                 the Mamba encoder at the bench width: 6 variables x 1
+                 channel, delta_t=8, 200x200, batch 1, random weights from
+                 a seed. The launch counters are zeroed just before and read
+                 just after; then steady-state steps/s, a profile, and one
+                 forward of the same weights and batch with the plain scan
+  4. train       synthetic training (train.driver.train_synthetic) with
+                 Mamba at the same width for 2 epochs, counters zeroed
+                 around it; checkpoints, history and a resumed third epoch;
+                 steady train steps/s, peak memory, a profile of one train
+                 step, and one train step's gradients with the kernels
+                 against the plain scans
+  5. main_swin   phase 3 with the Swin_3D encoder (the attention forward
+                 kernel, no scan), plain attention for the comparison
+  6. train_swin  phase 4 with Swin_3D (attention forward, backward and
+                 dbias-sum kernels), without the resume (Mamba's covers the
+                 encoder-agnostic driver)
+  7. kernels     one line listing every kernel: route, source, launches by
+                 path, error and times
 The card's name and power limit stand on a line of their own, and the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
 that line; without a CUDA card the script exits non-zero at once.
-"""
-# ------------------------------------------------------------------
+"""# ------------------------------------------------------------------
 
+import contextlib
 import json
 import math
 import os
@@ -60,6 +70,25 @@ SCAN_RTOL, SCAN_ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-5
 # cuDNN's backward convolutions are not bit-deterministic
 STEP_GRAD_REL = 1e-4
+
+# window attention per launch at the bench width, Swin_3D defaults (16
+# channels, 2 heads per variable -> G = 12 heads of width 8): stage 0,
+# window (2,4,4), 10,000 windows of 32 tokens, once unshifted and once
+# shifted by (1,2,2) with the mask of the 8x200x200 grid; stage 1, window
+# (8,1,1), 40,000 windows of 8 (its one block's shift is zeroed: T = 8
+# fills the window). Each forward launches all three once; a train step's
+# backward launches the backward and the dbias sum once for each.
+ATTN_G, ATTN_HD = 12, 8
+ATTN_SHAPES = {"stage0": (10_000, 32, None),
+               "stage0_shifted": (10_000, 32,
+                                  (8, 200, 200, (2, 4, 4), (1, 2, 2))),
+               "stage1": (40_000, 8, None)}
+ATTN_RTOL, ATTN_ATOL = 1e-5, 1e-5
+ATTN_GRAD_RTOL, ATTN_GRAD_ATOL = 1e-4, 1e-5
+# dbias sums ds over 10,000-40,000 windows whose terms cancel: its rounding
+# error scales with the sum's size, so its absolute tolerance is this
+# fraction of max |dbias|
+DBIAS_REL = 1e-5
 
 N_WEEKS = 40  # fake cube length: 33 eval samples at delta_t=8
 # global (not weekly-climatology) normalisation: a cube shorter than two
@@ -135,11 +164,18 @@ def max_err(got, want, name, rtol, atol) -> float:
     return (got - want).abs().max().item()
 
 
+def kernel_modules():
+    from idee_tpu_torch.kernels import selective_scan as ss
+    from idee_tpu_torch.kernels import window_attention as wa
+
+    return ss, wa
+
+
 def phase_build():
     from idee_tpu_torch.kernels import build
-    from idee_tpu_torch.kernels import selective_scan as ss
 
-    sources = sorted(set(ss.SOURCES.values()))
+    sources = sorted({src for mod in kernel_modules()
+                      for src in mod.SOURCES.values()})
     seconds = build.build(sources)
     emit(phase="build", seconds=seconds,
          libraries=[os.path.relpath(build.library_path(s), REPO)
@@ -231,23 +267,227 @@ def check_fused_backward(ss, bounds):
     return per_shape
 
 
+def attention_inputs(BW: int, n: int, geom, seed: int):
+    """q, k, v and an output gradient [BW, n, G, hd], unit-scale like the
+    Swin block's normalised activations; a bias [G, n, n] of scale 0.5;
+    the shift mask's (bank, idx) on the card, or None."""
+    from idee_tpu_torch.nn.swin3d import compute_shift_mask
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, go = (torch.randn(BW, n, ATTN_G, ATTN_HD, device="cuda",
+                               generator=g) for _ in range(4))
+    bias = 0.5 * torch.randn(ATTN_G, n, n, device="cuda", generator=g)
+    mask = None
+    if geom is not None:
+        bank, idx = compute_shift_mask(*geom)
+        if idx.shape[0] != BW:
+            raise SystemExit(f"mask of {geom} has {idx.shape[0]} windows, "
+                             f"not {BW}")
+        mask = (torch.from_numpy(bank).cuda(), torch.from_numpy(idx).cuda())
+    return q, k, v, go, bias, mask
+
+
+def sdpa_times(q, k, v, go, bias, mask, scale, o_plain):
+    """PyTorch's scaled_dot_product_attention on the same inputs, the
+    additive mask (bias + shift mask, [BW, G, n, n], made outside the
+    timing) with a gradient: (forward ms, backward ms, max abs error of
+    its forward against the plain one, ``o_plain``). A yardstick only: the
+    port never calls it."""
+    import torch.nn.functional as F
+
+    BW, n = q.shape[:2]
+    add = bias[None].expand(BW, -1, -1, -1)
+    if mask is not None:
+        bank, idx = mask
+        add = add + bank[idx.long()][:, None]
+    add = add.contiguous().requires_grad_()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    gt = go.transpose(1, 2)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add,
+                                                  scale=scale)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add,
+                                             scale=scale)
+        torch.autograd.grad(out, (qt, kt, vt, add), gt)
+
+    err = (fwd().transpose(1, 2) - o_plain).abs().max()
+    fwd_ms = cuda_ms(fwd, iters=20)
+    return fwd_ms, cuda_ms(fwd_bwd, iters=10) - fwd_ms, err.item()
+
+
+def check_attention(bounds):
+    """Forward, backward and dbias sum against their plain versions, timed,
+    at each stage shape; the backward twice, bit for bit."""
+    wa = kernel_modules()[1]
+    per_shape = {}
+    for i, (stage, (BW, n, geom)) in enumerate(ATTN_SHAPES.items()):
+        q, k, v, go, bias, mask = attention_inputs(BW, n, geom, seed=30 + i)
+        scale = ATTN_HD ** -0.5
+        # forward, no gradient
+        o = wa.window_attention(q, k, v, bias, mask, scale)
+        o_p = wa.window_attention_fwd_plain(q, k, v, bias, mask, scale)
+        torch.cuda.synchronize()
+        fwd_err = max_err(o, o_p, f"{stage} forward", ATTN_RTOL, ATTN_ATOL)
+
+        # backward through the Function, twice
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        runs = [torch.autograd.grad(
+            wa.window_attention(*leaves, mask, scale), leaves, go)
+            for _ in range(2)]
+        want = wa.window_attention_bwd_plain(q, k, v, bias, mask, scale,
+                                             o_p, go)
+        torch.cuda.synchronize()
+        bwd_err = max(max_err(
+            a, b, f"{stage} {name}", ATTN_GRAD_RTOL,
+            DBIAS_REL * b.abs().max().item() if name == "dbias"
+            else ATTN_GRAD_ATOL)
+            for name, a, b in zip(("dq", "dk", "dv", "dbias"), runs[0], want))
+        bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
+        if not bitwise:
+            raise SystemExit(f"{stage}: two backward runs differ")
+        del runs, want, leaves
+
+        # the dbias sum alone, on partials of the backward's shape
+        n_blocks = wa.bwd_blocks(BW, n, ATTN_G)
+        part = torch.randn(n_blocks, ATTN_G, n, n, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(i))
+        dbias = torch.empty(ATTN_G, n, n, device="cuda")
+
+        def dbias_sum():
+            wa._launch(wa.DBIAS_SUM, part.device, part, dbias, n_blocks,
+                       ATTN_G * n * n)
+
+        def dbias_sum_plain():
+            acc = torch.zeros_like(part[0])
+            for b in range(n_blocks):  # the kernel's order
+                acc = acc + part[b]
+            return acc
+
+        dbias_sum()
+        sum_err = max_err(dbias, dbias_sum_plain(), f"{stage} dbias sum",
+                          0.0, 0.0)
+
+        def fwd():
+            wa.window_attention(q, k, v, bias, mask, scale)
+
+        def bwd():
+            wa._backward(q, k, v, bias, *(mask or (None, None)), scale, o,
+                         go)
+
+        def plain_bwd():
+            wa.window_attention_bwd_plain(q, k, v, bias, mask, scale, o_p,
+                                          go)
+
+        sum_ms = cuda_ms(dbias_sum, iters=50)
+        ms = cuda_ms(fwd, iters=50)
+        # the backward kernel alone: the backward's two launches less the
+        # dbias sum's
+        bwd_ms = cuda_ms(bwd, iters=20) - sum_ms
+        sdpa_fwd, sdpa_bwd, sdpa_err = sdpa_times(q, k, v, go, bias, mask,
+                                                  scale, o_p)
+        row = dict(BW=BW, n=n, G=ATTN_G, hd=ATTN_HD, shifted=geom is not None)
+        row["forward"] = dict(
+            max_abs_err=fwd_err, ms=ms,
+            plain_ms=cuda_ms(lambda: wa.window_attention_fwd_plain(
+                q, k, v, bias, mask, scale), iters=5, warmup=1),
+            library_ms=sdpa_fwd, library_max_abs_err=sdpa_err)
+        row["backward"] = dict(
+            max_abs_err=bwd_err, bitwise_deterministic=bitwise, ms=bwd_ms,
+            plain_ms=cuda_ms(plain_bwd, iters=5, warmup=1),
+            library_ms=sdpa_bwd)
+        row["dbias_sum"] = dict(
+            n_blocks=n_blocks, max_abs_err=sum_err, ms=sum_ms,
+            plain_ms=cuda_ms(dbias_sum_plain, iters=5, warmup=1),
+            library_ms=cuda_ms(lambda: part.sum(0), iters=50))
+        for key, fn, shape in (
+                ("forward", bounds.window_attention_fwd,
+                 (BW, n, ATTN_G, ATTN_HD)),
+                ("backward", bounds.window_attention_bwd,
+                 (BW, n, ATTN_G, ATTN_HD)),
+                ("dbias_sum", bounds.window_attention_dbias_sum,
+                 (n_blocks, ATTN_G, n))):
+            r = row[key]
+            r["bound_ms"], r["bound_by"] = fn(*shape)
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        per_shape[stage] = row
+        del q, k, v, go, bias, mask, o, o_p, part
+        torch.cuda.empty_cache()
+    return per_shape
+
+
 def phase_kernel():
     from idee_tpu_torch.kernels import bounds
-    from idee_tpu_torch.kernels import selective_scan as ss
 
+    ss, wa = kernel_modules()
     fused = check_fused_forward(ss, bounds)
     scan = check_linear_scan(ss, bounds)
     backward = check_fused_backward(ss, bounds)
+    attention = check_attention(bounds)
     emit(phase="kernel", rtol=SCAN_RTOL, atol=SCAN_ATOL,
          grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL,
+         attention_rtol=ATTN_RTOL, attention_atol=ATTN_ATOL,
+         attention_grad_rtol=ATTN_GRAD_RTOL,
+         attention_grad_atol=ATTN_GRAD_ATOL,
+         attention_dbias_atol_over_max=DBIAS_REL,
          **{ss.FUSED_FWD: fused, ss.LINEAR_SCAN: scan,
-            "fused_scan_backward": backward})
-    return fused, scan, backward
+            "fused_scan_backward": backward, "window_attention": attention})
+    return fused, scan, attention
 
 
-def zero_launches(ss):
-    for k in ss.launches:
-        ss.launches[k] = 0
+def zero_launches():
+    for mod in kernel_modules():
+        for k in mod.launches:
+            mod.launches[k] = 0
+
+
+def read_launches():
+    return {k: v for mod in kernel_modules() for k, v in mod.launches.items()}
+
+
+def expect_launches(got, nonzero, what):
+    """Every kernel's count equals ``nonzero``'s entry, or 0."""
+    want = {k: nonzero.get(k, 0) for k in got}
+    if got != want:
+        raise SystemExit(f"{what} launches {got}, expected {want}")
+
+
+@contextlib.contextmanager
+def plain_ops(encoder: str):
+    """The encoder's kernel op swapped for its plain PyTorch version at the
+    name the encoder module calls."""
+    ss, wa = kernel_modules()
+    if encoder == "Mamba":
+        import idee_tpu_torch.nn.mamba as mod
+
+        name = "fused_selective_scan_n1"
+        plain = lambda *a: ss.fused_selective_scan_n1_plain(*a)[0]  # noqa
+    else:
+        import idee_tpu_torch.nn.swin3d as mod
+
+        name = "window_attention"
+        plain = wa.window_attention_fwd_plain
+    kernel_op = getattr(mod, name)
+    setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        setattr(mod, name, kernel_op)
+
+
+def kernel_launches_per_step(encoder: str, train: bool):
+    """Launches per train (or eval / val) step at the bench width: three
+    blocks, one launch each of the forward kernel, and in a train step of
+    each backward kernel."""
+    ss, wa = kernel_modules()
+    if encoder == "Mamba":
+        return {ss.FUSED_FWD: 3, **({ss.LINEAR_SCAN: 3} if train else {})}
+    return {wa.ATTN_FWD: 3,
+            **({wa.ATTN_BWD: 3, wa.DBIAS_SUM: 3} if train else {})}
 
 
 def profile_steps(run_step, n: int):
@@ -286,37 +526,39 @@ def profile_steps(run_step, n: int):
                                 for ms, k in rows[:14]])
 
 
-def phase_main(cube):
-    import idee_tpu_torch.nn.mamba as mamba_mod
+def phase_eval(cube, encoder: str):
+    """Phase main (Mamba) or main_swin: test_synthetic at the bench width,
+    launches counted; steady steps/s; a profile; the forward with the
+    kernels against the forward with the plain op."""
     from idee_tpu_torch.config import synthetic_config
     from idee_tpu_torch.data.loader import DataLoader
     from idee_tpu_torch.data.synthetic import SyntheticDataset
-    from idee_tpu_torch.kernels import selective_scan as ss
     from idee_tpu_torch.models.vq_model import build_model
     from idee_tpu_torch.train.evaluate import test_synthetic
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_eval_step
 
-    cfg = synthetic_config(encoder="Mamba", x_max=200, y_max=200,
+    cfg = synthetic_config(encoder=encoder, x_max=200, y_max=200,
                            times_test=(1, N_WEEKS), dir_log=LOG_DIR,
-                           is_clima_scale=IS_CLIMA_SCALE, name="chip_smoke")
+                           is_clima_scale=IS_CLIMA_SCALE,
+                           name=f"chip_smoke_{encoder}")
     params = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
     n_steps = N_WEEKS - cfg.delta_t + 1
 
     # --- the main path, with the launch counters zeroed around it
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    zero_launches(ss)
+    zero_launches()
     t0 = time.perf_counter()
     result = test_synthetic(cfg, cube=cube, params=params, device="cuda")
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(ss.launches)
+    launches = read_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
 
-    want = {ss.FUSED_FWD: sum(LAUNCHES_PER_STEP.values()) * n_steps,
-            ss.LINEAR_SCAN: 0}
-    if launches != want:
-        raise SystemExit(f"eval launches {launches}, expected {want}")
+    expect_launches(launches, {
+        k: v * n_steps
+        for k, v in kernel_launches_per_step(encoder, train=False).items()},
+        f"{encoder} eval")
     if not math.isfinite(result["mean_loss"]):
         raise SystemExit(f"non-finite mean loss: {result}")
 
@@ -347,52 +589,47 @@ def phase_main(cube):
     batches = iter(loader)
     profile = profile_steps(lambda: step(metrics, next(batches)), n=5)
 
-    # --- one forward with the plain scan, against the kernel's
+    # --- one forward with the plain op, against the kernel's
     x = torch.from_numpy(ds[0]["x"][None]).cuda()
     with torch.inference_mode():
         out_k = model(x)
-        kernel_wrapper = mamba_mod.fused_selective_scan_n1
-        mamba_mod.fused_selective_scan_n1 = (
-            lambda *a: ss.fused_selective_scan_n1_plain(*a)[0])
-        try:
+        with plain_ops(encoder):
             out_p = model(x)
-        finally:
-            mamba_mod.fused_selective_scan_n1 = kernel_wrapper
     logit_err = max((out_k.z - out_p.z).abs().max().item(),
                     (out_k.y - out_p.y).abs().max().item())
     bits_agree = (out_k.anomaly == out_p.anomaly).float().mean().item()
     if not (torch.isfinite(out_k.z).all() and logit_err <= 1e-4
             and bits_agree >= 0.999):
-        raise SystemExit(f"kernel forward disagrees with the plain one: "
-                         f"logit err {logit_err}, bits agree {bits_agree}")
+        raise SystemExit(f"{encoder}: kernel forward disagrees with the "
+                         f"plain one: logit err {logit_err}, bits agree "
+                         f"{bits_agree}")
 
-    emit(phase="main", encoder=cfg.encoder, shape=[1, 6, 1, 8, 200, 200],
+    phase = "main" if encoder == "Mamba" else "main_swin"
+    emit(phase=phase, encoder=cfg.encoder, shape=[1, 6, 1, 8, 200, 200],
          metrics=result, steps=n_steps, launches=launches,
          launches_per_step={k: v / n_steps for k, v in launches.items()},
          wall_s_with_setup=wall_s, steady_steps_per_s=steps_per_s,
          steady_samples_per_s=steps_per_s, steady_steps_timed=timed,
          max_memory_allocated=peak_bytes,
-         plain_scan_logit_max_abs_err=logit_err,
-         plain_scan_anomaly_bit_agreement=bits_agree)
-    emit(phase="profile", path="eval", **profile)
+         plain_op_logit_max_abs_err=logit_err,
+         plain_op_anomaly_bit_agreement=bits_agree)
+    emit(phase="profile", path=f"eval_{encoder}", **profile)
     return launches
 
 
-def train_config():
+def train_config(encoder: str):
     from idee_tpu_torch.config import synthetic_config
 
-    return synthetic_config(encoder="Mamba", x_max=200, y_max=200,
+    return synthetic_config(encoder=encoder, x_max=200, y_max=200,
                             times_train=TRAIN_WEEKS, times_val=VAL_WEEKS,
                             n_epochs=N_EPOCHS, is_aug=False, batch_size=1,
                             is_clima_scale=IS_CLIMA_SCALE, dir_log=LOG_DIR,
-                            name="chip_smoke_train")
+                            name=f"chip_smoke_train_{encoder}")
 
 
 def step_gradients(cfg, params, batch, plain: bool):
     """Every parameter's gradient of one train step from ``params``, with
-    the scan kernels or (plain) with autograd through the plain scans."""
-    import idee_tpu_torch.nn.mamba as mamba_mod
-    from idee_tpu_torch.kernels import selective_scan as ss
+    the kernels or (plain) with autograd through the plain op."""
     from idee_tpu_torch.models.vq_model import build_model
     from idee_tpu_torch.train.state import create_train_state
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_train_step
@@ -403,29 +640,26 @@ def step_gradients(cfg, params, batch, plain: bool):
     step = make_train_step(model, cfg, t0=float(TRAIN_WEEKS[0]),
                            steps_per_epoch=17)
     metrics = init_epoch_metrics((6, N_WEEKS, 200, 200), "cuda")
-    kernel_wrapper = mamba_mod.fused_selective_scan_n1
-    if plain:
-        mamba_mod.fused_selective_scan_n1 = (
-            lambda *a: ss.fused_selective_scan_n1_plain(*a)[0])
-    try:
+    with plain_ops(cfg.encoder) if plain else contextlib.nullcontext():
         step(state, metrics, batch)
-    finally:
-        mamba_mod.fused_selective_scan_n1 = kernel_wrapper
     torch.cuda.synchronize()
     return {k: p.grad for k, p in model.named_parameters()}
 
 
-def phase_train(cube):
+def phase_train(cube, encoder: str, resume: bool):
+    """Phase train (Mamba) or train_swin: train_synthetic at the bench width
+    for N_EPOCHS, launches counted; losses, checkpoints, history; with
+    ``resume`` one more epoch from latest; steady train steps/s; a profile;
+    one step's gradients with the kernels against the plain op."""
     import shutil
 
     from idee_tpu_torch.data.loader import DataLoader
-    from idee_tpu_torch.kernels import selective_scan as ss
     from idee_tpu_torch.models.vq_model import build_model
     from idee_tpu_torch.train.driver import _make_datasets, train_synthetic
     from idee_tpu_torch.train.state import create_train_state
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_train_step
 
-    cfg = train_config()
+    cfg = train_config(encoder)
     shutil.rmtree(cfg.log_dir, ignore_errors=True)
     train_cube, val_cube = cube.time_slice(*TRAIN_WEEKS), \
         cube.time_slice(*VAL_WEEKS)
@@ -435,20 +669,22 @@ def phase_train(cube):
     # --- the main path, with the launch counters zeroed around it
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    zero_launches(ss)
+    zero_launches()
     t0 = time.perf_counter()
     history = train_synthetic(cfg, train_cube=train_cube, val_cube=val_cube,
                               device="cuda")
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(ss.launches)
+    launches = read_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
 
     train_steps, val_steps = N_EPOCHS * n_train, N_EPOCHS * n_val
-    want = {ss.FUSED_FWD: 3 * (train_steps + val_steps),
-            ss.LINEAR_SCAN: 3 * train_steps}
-    if launches != want:
-        raise SystemExit(f"train launches {launches}, expected {want}")
+    fwd = kernel_launches_per_step(encoder, train=False)
+    want = {k: v * (train_steps + val_steps) for k, v in fwd.items()}
+    for k, v in kernel_launches_per_step(encoder, train=True).items():
+        if k not in fwd:
+            want[k] = v * train_steps
+    expect_launches(launches, want, f"{encoder} train")
     curves = history["train_loss"] + history["val_loss"]
     if len(curves) != 2 * N_EPOCHS or not all(map(math.isfinite, curves)):
         raise SystemExit(f"bad loss history: {history}")
@@ -461,15 +697,16 @@ def phase_train(cube):
         if json.load(fh)["train_loss"] != history["train_loss"]:
             raise SystemExit("history.json differs from the run's history")
 
-    # --- one more epoch resumes from latest
-    resumed = train_synthetic(cfg.replace(n_epochs=N_EPOCHS + 1),
-                              train_cube=train_cube, val_cube=val_cube,
-                              device="cuda")
-    if (resumed["train_loss"][:N_EPOCHS] != history["train_loss"]
-            or len(resumed["train_loss"]) != N_EPOCHS + 1
-            or resumed["state"].step != (N_EPOCHS + 1) * n_train):
-        raise SystemExit(f"resume did not continue at epoch {N_EPOCHS}: "
-                         f"{resumed['train_loss']}")
+    resumed = None
+    if resume:  # one more epoch resumes from latest
+        resumed = train_synthetic(cfg.replace(n_epochs=N_EPOCHS + 1),
+                                  train_cube=train_cube, val_cube=val_cube,
+                                  device="cuda")
+        if (resumed["train_loss"][:N_EPOCHS] != history["train_loss"]
+                or len(resumed["train_loss"]) != N_EPOCHS + 1
+                or resumed["state"].step != (N_EPOCHS + 1) * n_train):
+            raise SystemExit(f"resume did not continue at epoch {N_EPOCHS}:"
+                             f" {resumed['train_loss']}")
 
     # --- steady state: train steps from fresh weights, host batch assembly
     # included
@@ -498,19 +735,18 @@ def phase_train(cube):
     batches = iter(loader)
     profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3)
 
-    emit(phase="train", encoder=cfg.encoder, shape=[1, 6, 1, 8, 200, 200],
+    phase = "train" if encoder == "Mamba" else "train_swin"
+    emit(phase=phase, encoder=cfg.encoder, shape=[1, 6, 1, 8, 200, 200],
          epochs=N_EPOCHS, train_steps=train_steps, val_steps=val_steps,
          launches=launches,
-         launches_per_train_step={
-             ss.LINEAR_SCAN: launches[ss.LINEAR_SCAN] / train_steps},
          history={k: v for k, v in history.items() if k != "state"},
-         resumed_train_loss=resumed["train_loss"],
+         resumed_train_loss=resumed and resumed["train_loss"],
          wall_s_with_setup=wall_s, steady_train_steps_per_s=steps_per_s,
          steady_steps_timed=timed, max_memory_allocated=peak_bytes,
          checkpoints=written)
-    emit(phase="profile", path="train", **profile)
+    emit(phase="profile", path=f"train_{encoder}", **profile)
 
-    # --- one train step's gradients, kernels against plain scans
+    # --- one train step's gradients, kernels against the plain op
     batch = next(iter(loader))
     got = step_gradients(cfg, params, batch, plain=False)
     want = step_gradients(cfg, params, batch, plain=True)
@@ -519,12 +755,14 @@ def phase_train(cube):
         scale = w.abs().max().item()
         err = (got[k] - w).abs().max().item()
         if err > STEP_GRAD_REL * scale:
-            raise SystemExit(f"gradient of {k}: kernel vs plain error {err}"
-                             f" > {STEP_GRAD_REL} x max|grad| {scale}")
+            raise SystemExit(f"{encoder}: gradient of {k}: kernel vs plain "
+                             f"error {err} > {STEP_GRAD_REL} x max|grad| "
+                             f"{scale}")
         worst = max(worst, err / scale if scale > 0 else 0.0)
         if k.startswith("encoder.") and got[k].abs().max().item() == 0.0:
-            raise SystemExit(f"encoder parameter {k} got no gradient")
-    emit(phase="train_gradients", parameters=len(want),
+            raise SystemExit(f"{encoder}: encoder parameter {k} got no "
+                             "gradient")
+    emit(phase="train_gradients", encoder=encoder, parameters=len(want),
          encoder_parameters=sum(1 for k in got if k.startswith("encoder.")),
          max_err_over_max_abs_grad=worst, limit=STEP_GRAD_REL)
     return launches
@@ -537,32 +775,53 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import idee_tpu_torch  # noqa: F401 -- fails outside a checkout
     from idee_tpu_torch.data.fake import make_fake_cube
-    from idee_tpu_torch.kernels import selective_scan as ss
 
+    ss, wa = kernel_modules()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_name_and_power()
     print(card, flush=True)
 
     phase_build()
-    fused, scan, _ = phase_kernel()
+    fused, scan, attn = phase_kernel()
     cube = make_fake_cube(n_vars=6, n_time=N_WEEKS, height=200, width=200,
                           seed=0)
-    eval_launches = phase_main(cube)
-    train_launches = phase_train(cube)
+    paths = {"eval_mamba": phase_eval(cube, "Mamba"),
+             "train_mamba": phase_train(cube, "Mamba", resume=True),
+             "eval_swin": phase_eval(cube, "Swin_3D"),
+             "train_swin": phase_train(cube, "Swin_3D", resume=False)}
+
+    def by_path(kernel):
+        return {path: counts[kernel] for path, counts in paths.items()}
 
     def per_step(rows, key):
-        # the launches of one step: two at the stage-0 shape, one at the
-        # stage-1 shape
+        # the launches of one Mamba step: two at the stage-0 shape, one at
+        # the stage-1 shape
         return sum(key(rows[s]) * n for s, n in LAUNCHES_PER_STEP.items())
+
+    def attn_row(name, key, source_line, path):
+        # times per step: one launch at each of the three stage shapes
+        def total(field):
+            return sum(r[key][field] for r in attn.values())
+
+        return {
+            "name": name, "route": "cuda",
+            "source": "idee_tpu_torch/kernels/csrc/window_attention.cu",
+            "replaces": f"idee_tpu/kernels/window_attention.py:{source_line}",
+            "launches": paths[path][name], "launches_by_path": by_path(name),
+            "max_abs_err": max(r[key]["max_abs_err"] for r in attn.values()),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": attn["stage0"][key]["bound_by"],
+            "library_ms": total("library_ms"),
+        }
 
     emit(kernels=[{
         "name": ss.FUSED_FWD, "route": "cuda",
         "source": "idee_tpu_torch/kernels/csrc/selective_scan.cu",
         "replaces": "idee_tpu/kernels/selective_scan.py:189",
-        "launches": train_launches[ss.FUSED_FWD],
-        "launches_by_path": {"eval": eval_launches[ss.FUSED_FWD],
-                             "train": train_launches[ss.FUSED_FWD]},
+        "launches": paths["train_mamba"][ss.FUSED_FWD],
+        "launches_by_path": by_path(ss.FUSED_FWD),
         "max_abs_err": max(v["max_abs_err"] for v in fused.values()),
         # times per step: two stage-0 launches and one stage-1 launch
         "ms": per_step(fused, lambda r: r["ms"]),
@@ -574,9 +833,8 @@ def main() -> int:
         "name": ss.LINEAR_SCAN, "route": "cuda",
         "source": "idee_tpu_torch/kernels/csrc/linear_scan.cu",
         "replaces": "idee_tpu/kernels/selective_scan.py:75",
-        "launches": train_launches[ss.LINEAR_SCAN],
-        "launches_by_path": {"eval": eval_launches[ss.LINEAR_SCAN],
-                             "train": train_launches[ss.LINEAR_SCAN]},
+        "launches": paths["train_mamba"][ss.LINEAR_SCAN],
+        "launches_by_path": by_path(ss.LINEAR_SCAN),
         "max_abs_err": max(r[d]["max_abs_err"] for r in scan.values()
                            for d in ("forward", "reverse")),
         # times per train step: the backward's three reverse scans
@@ -585,7 +843,13 @@ def main() -> int:
         "bound_ms": per_step(scan, lambda r: r["bound_ms"]),
         "bound_by": scan["stage0"]["bound_by"],
         "library_ms": None,
-    }], card=card)
+    },
+        # library: scaled_dot_product_attention forward / its backward
+        attn_row(wa.ATTN_FWD, "forward", 192, "train_swin"),
+        attn_row(wa.ATTN_BWD, "backward", 240, "train_swin"),
+        # library: torch.sum of the partials over the block axis
+        attn_row(wa.DBIAS_SUM, "dbias_sum", 272, "train_swin"),
+    ], card=card)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -62,9 +62,18 @@ def window_attention_fwd(BW: int, n: int, G: int, hd: int):
 
 
 def window_attention_bwd(BW: int, n: int, G: int, hd: int):
-    """Reads q, k, v, g, writes dq, dk, dv; recomputes the scores, then
-    four products: 10 n^2 hd flops per window-head."""
-    return bound_ms(7 * 4 * BW * n * G * hd, 10 * n * n * hd * BW * G)
+    """Reads q, k, v, g [BW, n, G, hd] and bias [G, n, n]; writes dq, dk,
+    dv [BW, n, G, hd] and dbias [G, n, n] (summed over the windows);
+    recomputes the scores, then four products: 10 n^2 hd flops per
+    window-head."""
+    n_bytes = 7 * 4 * BW * n * G * hd + 2 * 4 * G * n * n
+    return bound_ms(n_bytes, 10 * n * n * hd * BW * G)
+
+
+def window_attention_dbias_sum(n_blocks: int, G: int, n: int):
+    """The backward's second launch: reads the per-block partials [n_blocks,
+    G, n, n], writes dbias [G, n, n]; one add per partial element."""
+    return bound_ms(4 * (n_blocks + 1) * G * n * n, n_blocks * G * n * n)
 
 
 # bench shapes, batch 1, 200x200, 6 variables x 16 channels:
@@ -90,6 +99,12 @@ BENCH = {
                               (10_000, 32, 12, 8)),
                              ("stage1", window_attention_bwd,
                               (40_000, 8, 12, 8))],
+    # 171 blocks per head (kernels/window_attention.py: 2048 / G, fewer
+    # than the 2,500 window groups of either stage)
+    "window_attention_dbias_sum": [("stage0", window_attention_dbias_sum,
+                                    (171, 12, 32)),
+                                   ("stage1", window_attention_dbias_sum,
+                                    (171, 12, 8))],
 }
 
 

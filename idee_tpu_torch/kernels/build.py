@@ -11,6 +11,10 @@ The library lands in ``kernels/build/`` (git-ignored) at first use. Its
 file name carries a hash of the source, so an edited source is rebuilt and
 a stale library is never loaded. Nothing is built at import time: this
 package also imports on machines with no CUDA toolkit.
+
+``c_function`` loads one symbol of a library (building it at first use) and
+``call`` runs it on the current stream of a tensor's card, raising when the
+launch was refused; the kernel modules count their launches around it.
 """
 # ------------------------------------------------------------------
 
@@ -22,7 +26,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -30,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[tuple, object] = {}
 
 
 def _nvcc() -> str:
@@ -96,3 +103,34 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def c_function(name: str, symbol: str, argtypes: Sequence):
+    """``symbol`` of csrc/<name>.cu as a ctypes function returning the int
+    error code (loaded, and built, at first use). Pointers and the stream
+    are ``ctypes.c_void_p``: a plain int would be cut to 32 bits."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn
+
+
+def call(fn, kernel: str, device: torch.device, args: Sequence) -> None:
+    """Run the C launcher ``fn`` on the current stream of ``device``:
+    tensors in ``args`` pass as their data pointers (they must be
+    contiguous), None as NULL, numbers as they are; the stream is the last
+    argument. Raises when the launch was refused."""
+    ptrs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if not a.is_contiguous():
+                raise ValueError(f"{kernel}: inputs must be contiguous")
+            a = a.data_ptr()
+        ptrs.append(a)
+    with torch.cuda.device(device):
+        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")

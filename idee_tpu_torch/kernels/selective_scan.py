@@ -42,7 +42,6 @@ SOURCES = {FUSED_FWD: "selective_scan", LINEAR_SCAN: "linear_scan"}
 # not count
 launches: Dict[str, int] = {FUSED_FWD: 0, LINEAR_SCAN: 0}
 
-_fns: Dict[str, object] = {}  # kernel -> ctypes function, loaded at first use
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     # symbol, argtypes
@@ -52,34 +51,15 @@ _SIGNATURES = {
 }
 
 
-def _kernel_fn(kernel: str):
-    fn = _fns.get(kernel)
-    if fn is None:
-        from idee_tpu_torch.kernels import build
-
-        symbol, argtypes = _SIGNATURES[kernel]
-        fn = getattr(build.load(SOURCES[kernel]), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[kernel] = fn
-    return fn
-
-
 def _launch(kernel: str, tensors, *scalars):
     """Run ``kernel`` on the current stream of the tensors' card; count the
     launch. ``tensors``: the kernel's pointer arguments in order (None
     passes NULL), then ``scalars``."""
+    from idee_tpu_torch.kernels import build
+
     dev = next(t.device for t in tensors if t is not None)
-    for t in tensors:
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{kernel}: inputs must be contiguous")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn(kernel)(
-            *(t.data_ptr() if t is not None else None for t in tensors),
-            *scalars, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+    fn = build.c_function(SOURCES[kernel], *_SIGNATURES[kernel])
+    build.call(fn, kernel, dev, [*tensors, *scalars])
     launches[kernel] += 1
 
 

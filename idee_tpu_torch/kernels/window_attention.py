@@ -1,0 +1,239 @@
+# ------------------------------------------------------------------
+"""Window attention of the Swin_3D encoder, with its gradient.
+
+Counterpart of idee_tpu/kernels/window_attention.py. Per window and head,
+softmax(q k^T * scale + bias[g] + mask[w mod nW]) v, as three hand-written
+CUDA kernels in ``csrc/window_attention.cu``, built by ``kernels/build.py``:
+
+  * the forward (``_fwd_kernel`` of the TPU package);
+  * the backward (``_bwd_kernel``): dq, dk, dv and per-block partial sums of
+    the bias gradient;
+  * the sum of those partials, in a fixed order, into dbias: a launch of
+    its own, so the bias gradient takes no float atomics and two runs give
+    the same bits.
+
+``window_attention`` is a ``torch.autograd.Function``: its forward saves q,
+k, v, bias and the output, its backward is the backward kernels; bias gets
+a gradient, the mask is a constant. On a CUDA tensor it launches the
+kernels or raises; on a CPU tensor it runs the plain versions
+(``window_attention_fwd_plain``, the JAX package's ``_xla_impl`` in torch,
+and ``window_attention_bwd_plain``, the backward's formulas in torch ops),
+which are also what the tests and ``chip_smoke.py`` hold the kernels
+against.
+
+Layout: q, k, v [BW, n, G, hd] float32 with the window index batch-major
+then window-minor (``nn/swin3d.py::window_partition``), G = variables x
+heads (V-major), bias [G, n, n]. The mask is None, a (bank [K, n, n], idx
+[nW]) pair (window w uses bank[idx[w % nW]]; ``nn/swin3d.py::
+compute_shift_mask``), or a dense [nW, n, n] tensor.
+"""
+# ------------------------------------------------------------------
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+ATTN_FWD = "window_attention_fwd"
+ATTN_BWD = "window_attention_bwd"
+DBIAS_SUM = "window_attention_dbias_sum"
+# the csrc/<source>.cu of each kernel
+SOURCES = {ATTN_FWD: "window_attention", ATTN_BWD: "window_attention",
+           DBIAS_SUM: "window_attention"}
+
+# launches of each CUDA kernel in this process; the plain CPU versions do
+# not count
+launches: Dict[str, int] = {ATTN_FWD: 0, ATTN_BWD: 0, DBIAS_SUM: 0}
+
+# head widths the kernels are instantiated for, and the largest window
+HEAD_DIMS = (4, 8, 16)
+MAX_TOKENS = 128
+# blocks per head of the backward: each writes one [n, n] partial of dbias
+# per head, so this bounds the partials' memory (~2,000 blocks in all keep
+# every SM busy at the bench width)
+_BWD_BLOCKS = 2048
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # symbol, argtypes
+    ATTN_FWD: ("idee_window_attention_fwd",
+               [_P] * 7 + [_I] * 5 + [_F, _P]),
+    ATTN_BWD: ("idee_window_attention_bwd",
+               [_P] * 12 + [_I] * 6 + [_F, _P]),
+    DBIAS_SUM: ("idee_window_attention_dbias_sum",
+                [_P, _P, _I, ctypes.c_int64, _P]),
+}
+
+Mask = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def _launch(kernel: str, device: torch.device, *args):
+    from idee_tpu_torch.kernels import build
+
+    fn = build.c_function(SOURCES[kernel], *_SIGNATURES[kernel])
+    build.call(fn, kernel, device, args)
+    launches[kernel] += 1
+
+
+def _mask_parts(mask, BW: int, n: int, device) -> Mask:
+    """(bank [K, n, n] float32, idx [nW] int32), or (None, None)."""
+    if mask is None:
+        return None, None
+    if isinstance(mask, (tuple, list)):
+        bank, idx = mask
+    else:  # dense [nW, n, n]: every window its own bank row
+        bank = mask
+        idx = torch.arange(mask.shape[0], device=mask.device)
+    if bank.dim() != 3 or tuple(bank.shape[1:]) != (n, n):
+        raise ValueError(f"mask bank must be [K, {n}, {n}], got "
+                         f"{tuple(bank.shape)}")
+    if bank.dtype != torch.float32:
+        raise ValueError(f"mask bank: expected float32, got {bank.dtype}")
+    if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError("mask idx must be a 1-D integer tensor")
+    if bank.device != device or idx.device != device:
+        raise ValueError(f"the mask must lie on {device}")
+    if BW % idx.shape[0] != 0:
+        raise ValueError(f"{BW} windows are not a multiple of the mask's "
+                         f"{idx.shape[0]}")
+    return bank.contiguous(), idx.to(torch.int32).contiguous()
+
+
+def _check(q, k, v, bias):
+    if q.dim() != 4:
+        raise ValueError(f"q must be [BW, n, G, hd], got {tuple(q.shape)}")
+    BW, n, G, hd = q.shape
+    for name, t, shape in (("q", q, q.shape), ("k", k, q.shape),
+                           ("v", v, q.shape), ("bias", bias, (G, n, n))):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, not {q.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {q.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head width {hd}: the kernels take {HEAD_DIMS}")
+    if not 1 <= n <= MAX_TOKENS:
+        raise ValueError(f"{n} tokens per window: the kernels take 1 to "
+                         f"{MAX_TOKENS}")
+    if BW * n * G * hd >= 2 ** 31 or G > 65535:
+        raise ValueError(f"shape {tuple(q.shape)} is too large for the "
+                         "kernels' 32-bit window and head indices")
+
+
+# ---------------------------------------------------------------- plain
+
+def _scores(q, k, bias, bank, idx, scale):
+    """[BW, G, n, n] softmax input."""
+    BW, n, G, _ = q.shape
+    s = torch.einsum("bngd,bmgd->bgnm", q * scale, k) + bias[None]
+    if bank is not None:
+        m = bank[idx.long()]                                # [nW, n, n]
+        nW = m.shape[0]
+        s = (s.reshape(BW // nW, nW, G, n, n) + m[None, :, None]).reshape(
+            BW, G, n, n)
+    return s
+
+
+def window_attention_fwd_plain(q, k, v, bias, mask, scale: float):
+    """Plain PyTorch version of the forward kernel (the JAX package's
+    ``_xla_impl``): [BW, n, G, hd]."""
+    bank, idx = _mask_parts(mask, q.shape[0], q.shape[1], q.device)
+    p = torch.softmax(_scores(q, k, bias, bank, idx, scale), dim=-1)
+    return torch.einsum("bgnm,bmgd->bngd", p, v)
+
+
+def window_attention_bwd_plain(q, k, v, bias, mask, scale: float, o, g):
+    """Plain PyTorch version of the backward kernels: (dq, dk, dv, dbias)
+    from the output ``o`` and its gradient ``g``, by the explicit formulas
+    dp = g v^T, ds = p (dp - rowsum(g o)), dq = scale ds k, dk = scale
+    ds^T q, dv = p^T g, dbias = sum over windows of ds."""
+    bank, idx = _mask_parts(mask, q.shape[0], q.shape[1], q.device)
+    p = torch.softmax(_scores(q, k, bias, bank, idx, scale), dim=-1)
+    dp = torch.einsum("bngd,bmgd->bgnm", g, v)
+    delta = (g * o).sum(-1).permute(0, 2, 1)[..., None]     # [BW, G, n, 1]
+    ds = p * (dp - delta)
+    dq = scale * torch.einsum("bgnm,bmgd->bngd", ds, k)
+    dk = scale * torch.einsum("bgnm,bngd->bmgd", ds, q)
+    dv = torch.einsum("bgnm,bngd->bmgd", p, g)
+    return dq, dk, dv, ds.sum(0)
+
+
+# ---------------------------------------------------------------- dispatch
+
+def bwd_blocks(BW: int, n: int, G: int) -> int:
+    """Blocks per head of the backward kernel, hence partials of dbias: at
+    most one per group of MAX_TOKENS // n windows (the kernel's windows per
+    block), and about _BWD_BLOCKS over all heads."""
+    return max(1, min(-(-BW // (MAX_TOKENS // n)), -(-_BWD_BLOCKS // G)))
+
+
+def _forward(q, k, v, bias, bank, idx, scale: float):
+    """The output, no gradient: the kernel on a card, the plain version on
+    the CPU."""
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return window_attention_fwd_plain(q, k, v, bias, (bank, idx)
+                                              if bank is not None else None,
+                                              scale)
+    BW, n, G, hd = q.shape
+    o = torch.empty_like(q)
+    nW = idx.shape[0] if idx is not None else 1
+    _launch(ATTN_FWD, q.device, q, k, v, bias, bank, idx, o, BW, n, G, hd,
+            nW, float(scale))
+    return o
+
+
+def _backward(q, k, v, bias, bank, idx, scale: float, o, g):
+    if q.device.type == "cpu":
+        return window_attention_bwd_plain(
+            q, k, v, bias, (bank, idx) if bank is not None else None, scale,
+            o, g)
+    BW, n, G, hd = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    n_blocks = bwd_blocks(BW, n, G)
+    part = torch.empty((n_blocks, G, n, n), device=q.device)
+    nW = idx.shape[0] if idx is not None else 1
+    _launch(ATTN_BWD, q.device, q, k, v, bias, bank, idx, o, g, dq, dk, dv,
+            part, BW, n, G, hd, nW, n_blocks, float(scale))
+    dbias = torch.empty_like(bias)
+    _launch(DBIAS_SUM, q.device, part, dbias, n_blocks, G * n * n)
+    return dq, dk, dv, dbias
+
+
+class _WindowAttention(torch.autograd.Function):
+    """window_attention with the backward kernels as its VJP (JAX's
+    custom_vjp around ``_fwd_pallas`` / ``_bwd_pallas``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, bank, idx, scale):
+        o = _forward(q, k, v, bias, bank, idx, scale)
+        ctx.save_for_backward(q, k, v, bias, o, bank, idx)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, o, bank, idx = ctx.saved_tensors
+        dq, dk, dv, dbias = _backward(q, k, v, bias, bank, idx, ctx.scale,
+                                      o, g.contiguous())
+        return dq, dk, dv, dbias, None, None, None
+
+
+def window_attention(q, k, v, bias, mask, scale: float):
+    """softmax(q k^T * scale + bias [+ mask]) v per window and head.
+
+    q/k/v: [BW, n, G, hd] float32; bias: [G, n, n]; mask: None, a (bank
+    [K, n, n], idx [nW]) pair or a dense [nW, n, n] tensor, a constant on
+    q's device. Returns [BW, n, G, hd]. Differentiable in q, k, v and bias
+    when one of them requires a gradient."""
+    _check(q, k, v, bias)
+    bank, idx = _mask_parts(mask, q.shape[0], q.shape[1], q.device)
+    q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (q, k, v, bias)):
+        return _WindowAttention.apply(q, k, v, bias, bank, idx, float(scale))
+    return _forward(q, k, v, bias, bank, idx, float(scale))

@@ -29,6 +29,7 @@ from idee_tpu_torch.nn.classifier import CNN_3D_Classifier
 from idee_tpu_torch.nn.cnn3d import CNN_3D
 from idee_tpu_torch.nn.layers import reference_init, trunc_normal_init
 from idee_tpu_torch.nn.mamba import Mamba
+from idee_tpu_torch.nn.swin3d import Swin_3D
 from idee_tpu_torch.quant.lfq import LFQ
 
 
@@ -39,7 +40,23 @@ def build_encoder(cfg: Config, kernel_init, generator=None) -> nn.Module:
                       in_channels=cfg.in_channels,
                       out_channels=list(cfg.en_embed_dim),
                       drop_path_rate=cfg.en_drop_path_rate,
+                      use_checkpoint=cfg.en_use_checkpoint,
                       kernel_init=kernel_init, generator=generator)
+    if cfg.encoder == "Swin_3D":
+        return Swin_3D(in_vars=cfg.in_channels_dynamic,
+                       in_chans=cfg.in_channels,
+                       embed_dim=list(cfg.en_embed_dim),
+                       window_size=[tuple(w) for w in cfg.en_window_size],
+                       depths=list(cfg.en_depths),
+                       num_heads=list(cfg.en_n_heads),
+                       mlp_ratio=cfg.en_mlp_ratio,
+                       drop_rate=cfg.en_drop_rate,
+                       attn_drop_rate=cfg.en_attn_drop_rate,
+                       drop_path_rate=cfg.en_drop_path_rate,
+                       qkv_bias=cfg.en_qkv_bias, qk_scale=cfg.en_qk_scale,
+                       patch_size=tuple(cfg.en_patch_size),
+                       use_checkpoint=cfg.en_use_checkpoint,
+                       kernel_init=kernel_init, generator=generator)
     if cfg.encoder == "Mamba":
         return Mamba(in_vars=cfg.in_channels_dynamic,
                      in_chans=cfg.in_channels,
@@ -50,8 +67,9 @@ def build_encoder(cfg: Config, kernel_init, generator=None) -> nn.Module:
                      drop_path_rate=cfg.en_drop_path_rate,
                      patch_size=tuple(cfg.en_patch_size),
                      d_state=list(cfg.d_state), d_conv=list(cfg.d_conv),
-                     expand=list(cfg.expand), kernel_init=kernel_init,
-                     generator=generator)
+                     expand=list(cfg.expand),
+                     use_checkpoint=cfg.en_use_checkpoint,
+                     kernel_init=kernel_init, generator=generator)
     raise NotImplementedError(
         f"Encoder {cfg.encoder} is not ported yet (ROADMAP.md, open items)")
 

@@ -15,7 +15,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from idee_tpu_torch.nn.layers import (GroupedConv3d, GroupedLayerNorm3d,
-                                      Init, drop_path, reference_init)
+                                      Init, checkpointed, drop_path,
+                                      reference_init)
 
 
 def pack_variables(x):
@@ -102,11 +103,12 @@ class CNN_3D(nn.Module):
 
     def __init__(self, in_vars: int = 6, in_channels: int = 1,
                  out_channels: Optional[List[int]] = None,
-                 drop_path_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.in_vars = in_vars
+        self.use_checkpoint = use_checkpoint
         out_channels = list(out_channels or [16, 16])
         chans = [in_channels] + out_channels[:-1]
         self.n_blocks = len(out_channels)
@@ -122,6 +124,10 @@ class CNN_3D(nn.Module):
                 generator: Optional[torch.Generator] = None):
         x = pack_variables(x)
         for i in range(self.n_blocks):
-            x = getattr(self, f"block{i}")(x, train, generator)
+            blk = getattr(self, f"block{i}")
+            if self.use_checkpoint:
+                x = checkpointed(blk, x, train, generator)
+            else:
+                x = blk(x, train, generator)
         x = self.proj_head(x)
         return x if packed_out else unpack_variables(x, self.in_vars)

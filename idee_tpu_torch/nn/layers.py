@@ -1,7 +1,8 @@
 # ------------------------------------------------------------------
 """Shared layers: per-variable (grouped) 3D convolution, dense and
 LayerNorm on packed activations, a plain channels-last Conv3d, DropPath,
-dropout, and the weight-init schemes.
+dropout, the encoders' block recompute (``checkpointed``), and the
+weight-init schemes.
 
 Counterpart of idee_tpu/nn/layers.py. Layout at every module boundary is
 the JAX package's: channels-last ``[N, D, H, W, C]``, and for the grouped
@@ -24,6 +25,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Init = Callable[[torch.Tensor, Optional[torch.Generator]], None]
 
@@ -87,6 +89,32 @@ def drop_path(x, rate: float, train: bool,
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+def checkpointed(block, x, train: bool = False,
+                 generator: Optional[torch.Generator] = None):
+    """block(x, train, generator) with its activations recomputed in the
+    backward instead of kept (``torch.utils.checkpoint``; the JAX package's
+    ``nn.remat`` of the encoders' blocks). The recompute draws the same
+    dropout and drop-path masks: it restarts ``generator`` from its state at
+    the first call and puts it back afterwards."""
+    if not torch.is_grad_enabled():
+        return block(x, train, generator)
+    start = generator.get_state() if generator is not None else None
+    calls = []
+
+    def run(x):
+        if not calls or generator is None:
+            calls.append(1)
+            return block(x, train, generator)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(x, train, generator)
+        finally:
+            generator.set_state(resume)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def _pad_channels_first(x, padding, mode: str):

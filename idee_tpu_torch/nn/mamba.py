@@ -25,8 +25,8 @@ from idee_tpu_torch.kernels.selective_scan import (fused_selective_scan_n1,
 from idee_tpu_torch.nn.cnn3d import (GroupedProjHead, pack_variables,
                                      unpack_variables)
 from idee_tpu_torch.nn.layers import (GroupedDense, GroupedLayerNorm3d, Init,
-                                      drop_path, dropout, lecun_normal_init,
-                                      reference_init)
+                                      checkpointed, drop_path, dropout,
+                                      lecun_normal_init, reference_init)
 from idee_tpu_torch.nn.swin3d import (PackedPatchEmbed3D, get_window_size,
                                       window_partition, window_reverse)
 
@@ -213,6 +213,7 @@ class PackedMambaStage(nn.Module):
                  window_size: Tuple[int, int, int] = (4, 4, 4),
                  mlp_ratio: float = 4.0, drop: float = 0.0,
                  drop_path: Sequence[float] = (0.0,),
+                 use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -225,7 +226,7 @@ class PackedMambaStage(nn.Module):
                 generator=generator)
         else:
             self.downsample = None
-        self.depth = depth
+        self.depth, self.use_checkpoint = depth, use_checkpoint
         shift = tuple(w // 2 for w in window_size)
         for i in range(depth):
             self.add_module(f"block{i}", PackedMambaBlock(
@@ -241,7 +242,11 @@ class PackedMambaStage(nn.Module):
         if self.downsample is not None:
             x = self.downsample(x)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x, train, generator)
+            blk = getattr(self, f"block{i}")
+            if self.use_checkpoint:
+                x = checkpointed(blk, x, train, generator)
+            else:
+                x = blk(x, train, generator)
         return x
 
 
@@ -261,6 +266,7 @@ class Mamba(nn.Module):
                  d_state: Optional[List[int]] = None,
                  d_conv: Optional[List[int]] = None,
                  expand: Optional[List[int]] = None,
+                 use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -282,7 +288,8 @@ class Mamba(nn.Module):
                 patch_size=tuple(patch_size) if i == 0 else (1, 1, 1),
                 window_size=tuple(window_size[i]), mlp_ratio=mlp_ratio,
                 drop=drop_rate, drop_path=dpr[lo:lo + depths[i]],
-                kernel_init=kernel_init, generator=generator))
+                use_checkpoint=use_checkpoint, kernel_init=kernel_init,
+                generator=generator))
         self.proj = GroupedProjHead(V, embed_dim[-1],
                                     kernel_init=kernel_init,
                                     generator=generator)

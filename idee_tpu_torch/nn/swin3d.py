@@ -1,22 +1,34 @@
 # ------------------------------------------------------------------
-"""Window helpers shared by the windowed encoders (counterpart of the
-helpers in idee_tpu/nn/swin3d.py; reference models/encoder/Swin_3D.py).
+"""Video Swin-3D encoder: 3D shifted-window attention towers per variable,
+run as one packed program on [N, T, H, W, V*C], and the window helpers
+that the Mamba encoder shares.
 
-Only what the Mamba encoder reuses is here: the window-size shrink, window
-partition/reverse and the packed patch embedding. The Swin_3D encoder and
-its attention kernels come with a later slice of the port.
+Counterpart of idee_tpu/nn/swin3d.py (reference models/encoder/
+Swin_3D.py). The V unshared attentions fold (variable, head) into the head
+axis G = V*h of one window-attention call (kernels/window_attention.py:
+the hand-written CUDA kernels on a card). The shifted-window mask and the
+relative-position gather index are numpy constants, built once per
+geometry and moved to each device once (the reference rebuilds the mask on
+every forward, Swin_3D.py:438).
 """
 # ------------------------------------------------------------------
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from idee_tpu_torch.nn.layers import (GroupedConv3d, GroupedLayerNorm3d,
-                                      Init, reference_init)
+from idee_tpu_torch.kernels.window_attention import window_attention
+from idee_tpu_torch.nn.cnn3d import (GroupedProjHead, pack_variables,
+                                     unpack_variables)
+from idee_tpu_torch.nn.layers import (GroupedConv3d, GroupedDense,
+                                      GroupedLayerNorm3d, Init, checkpointed,
+                                      drop_path, dropout, reference_init,
+                                      trunc_normal_init)
 
 
 def get_window_size(x_size, window_size, shift_size=None):
@@ -51,6 +63,84 @@ def window_reverse(windows, ws, B, D, H, W):
     return x.reshape(B, D, H, W, -1)
 
 
+def relative_position_index(ws: Tuple[int, int, int]) -> np.ndarray:
+    """Pairwise relative-position gather indices [n, n] for a 3D window
+    (reference: Swin_3D.py:120-135)."""
+    coords = np.stack(np.meshgrid(
+        np.arange(ws[0]), np.arange(ws[1]), np.arange(ws[2]),
+        indexing="ij"))  # [3, wd, wh, ww]
+    flat = coords.reshape(3, -1)
+    rel = flat[:, :, None] - flat[:, None, :]  # [3, n, n]
+    rel = rel.transpose(1, 2, 0)
+    rel[:, :, 0] += ws[0] - 1
+    rel[:, :, 1] += ws[1] - 1
+    rel[:, :, 2] += ws[2] - 1
+    rel[:, :, 0] *= (2 * ws[1] - 1) * (2 * ws[2] - 1)
+    rel[:, :, 1] *= (2 * ws[2] - 1)
+    return rel.sum(-1)
+
+
+def compute_shift_mask(Dp: int, Hp: int, Wp: int, ws, ss
+                       ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Additive attention mask (0 / -100) for shifted windows (reference:
+    Swin_3D.py:340-352): None when nothing is shifted, else the
+    deduplicated (bank [K, n, n] float32, idx [nW] int32) pair, window w
+    using bank[idx[w]]. Only windows on the cyclic-wrap boundary differ, so
+    K <= 8 while nW grows with the grid."""
+    if not any(s > 0 for s in ss):
+        return None
+    img = np.zeros((1, Dp, Hp, Wp, 1), np.float32)
+    cnt = 0
+    for d in (slice(-ws[0]), slice(-ws[0], -ss[0]),
+              slice(-ss[0], None)) if ss[0] else (slice(None),):
+        for h in (slice(-ws[1]), slice(-ws[1], -ss[1]),
+                  slice(-ss[1], None)) if ss[1] else (slice(None),):
+            for w in (slice(-ws[2]), slice(-ws[2], -ss[2]),
+                      slice(-ss[2], None)) if ss[2] else (slice(None),):
+                img[:, d, h, w, :] = cnt
+                cnt += 1
+    B, D, H, W, C = img.shape
+    x = img.reshape(B, D // ws[0], ws[0], H // ws[1], ws[1], W // ws[2],
+                    ws[2], C)
+    x = x.transpose(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, math.prod(ws))
+    mask = x[:, None, :] - x[:, :, None]
+    mask = np.where(mask != 0, -100.0, 0.0).astype(np.float32)
+    n = mask.shape[-1]
+    bank, idx = np.unique(mask.reshape(mask.shape[0], -1), axis=0,
+                          return_inverse=True)
+    return bank.reshape(-1, n, n), idx.astype(np.int32).reshape(-1)
+
+
+def mask_bank_to_full(mask):
+    """(bank, idx) -> the dense [nW, n, n] mask (None and a dense tensor
+    pass through)."""
+    if mask is None or not isinstance(mask, tuple):
+        return mask
+    bank, idx = mask
+    return bank[idx.long()]
+
+
+@functools.lru_cache(maxsize=None)
+def shift_mask_on(Dp: int, Hp: int, Wp: int, ws, ss, device: str):
+    """compute_shift_mask's (bank, idx) as tensors on ``device``, made and
+    copied to it once per geometry (outside inference mode, so a first call
+    under evaluation leaves tensors that training can save for backward)."""
+    parts = compute_shift_mask(Dp, Hp, Wp, ws, ss)
+    if parts is None:
+        return None
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in parts)
+
+
+@functools.lru_cache(maxsize=None)
+def relative_position_index_on(ws, n: int, device: str) -> torch.Tensor:
+    """relative_position_index(ws)[:n, :n], flat [n*n] int64, on
+    ``device``, once per window (outside inference mode, as above)."""
+    rpi = relative_position_index(ws)[:n, :n].reshape(-1)
+    with torch.inference_mode(False):
+        return torch.from_numpy(rpi.astype(np.int64)).to(device)
+
+
 class PackedPatchEmbed3D(nn.Module):
     """Per-variable Conv3d patchify with pad-to-multiple
     (reference: Swin_3D.py:449-491) on [N, D, H, W, V*Cin]."""
@@ -79,3 +169,229 @@ class PackedPatchEmbed3D(nn.Module):
             x = F.pad(x, (0, 0, 0, hi[2], 0, hi[1], 0, hi[0]))
         x = self.proj(x)
         return self.norm(x) if self.norm is not None else x
+
+
+class PackedWindowAttention3D(nn.Module):
+    """W-MSA with 3D relative position bias, all variables in one call
+    (reference: Swin_3D.py:93-178): [B_, n, V*C] windows -> [B_, n, V*C].
+    The V unshared attentions ride the head axis of window_attention:
+    G = V*heads bias planes [G, n, n], V-major."""
+
+    def __init__(self, n_groups: int, dim: int,
+                 window_size: Tuple[int, int, int], num_heads: int,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 kernel_init: Optional[Init] = reference_init(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        V, C, h = n_groups, dim, num_heads
+        self.n_groups, self.num_heads = V, h
+        self.window_size = tuple(window_size)
+        self.scale = qk_scale or (C // h) ** -0.5
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        table_size = math.prod(2 * w - 1 for w in self.window_size)
+        # a bare nn.Parameter in the reference: untouched by the composite
+        # init, trunc_normal(.02) whatever the model's init scheme
+        self.relative_position_bias_table = nn.Parameter(
+            torch.empty(V, table_size, h))
+        trunc_normal_init(0.02)(self.relative_position_bias_table, generator)
+        self.qkv = GroupedDense(V, C, 3 * C, use_bias=qkv_bias,
+                                kernel_init=kernel_init, generator=generator)
+        self.proj = GroupedDense(V, C, C, kernel_init=kernel_init,
+                                 generator=generator)
+
+    def forward(self, x, mask=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        B_, n, VC = x.shape
+        V, h = self.n_groups, self.num_heads
+        hd = VC // V // h
+        qkv = self.qkv(x).reshape(B_, n, V, 3, h, hd)
+        # fold (V, h) into the head axis, V-major == packed C order
+        q, k, v = (qkv[:, :, :, i].reshape(B_, n, V * h, hd)
+                   for i in range(3))
+        rpi = relative_position_index_on(self.window_size, n, str(x.device))
+        bias = self.relative_position_bias_table[:, rpi].reshape(V, n, n, h)
+        bias = bias.permute(0, 3, 1, 2).reshape(V * h, n, n)
+
+        if self.attn_drop > 0 and train:
+            # attention-probability dropout needs the explicit chain
+            attn = torch.einsum("bngd,bmgd->bgnm", q * self.scale, k)
+            attn = attn + bias[None]
+            if mask is not None:
+                full = mask_bank_to_full(mask)
+                nW = full.shape[0]
+                attn = (attn.reshape(B_ // nW, nW, V * h, n, n)
+                        + full[None, :, None]).reshape(B_, V * h, n, n)
+            attn = dropout(torch.softmax(attn, dim=-1), self.attn_drop,
+                           train, generator)
+            out = torch.einsum("bgnm,bmgd->bngd", attn, v)
+        else:
+            out = window_attention(q, k, v, bias, mask, self.scale)
+        out = self.proj(out.reshape(B_, n, VC))
+        return dropout(out, self.proj_drop, train, generator)
+
+
+class PackedSwinBlock3D(nn.Module):
+    """One Swin block on the packed layout (reference: Swin_3D.py:181-287):
+    LN -> pad -> cyclic shift -> window partition -> attention -> reverse
+    -> un-shift -> crop -> residual; then LN -> MLP -> residual."""
+
+    def __init__(self, n_groups: int, dim: int, num_heads: int,
+                 window_size: Tuple[int, int, int] = (2, 7, 7),
+                 shift_size: Tuple[int, int, int] = (0, 0, 0),
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0,
+                 kernel_init: Optional[Init] = reference_init(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        V = n_groups
+        self.window_size = tuple(window_size)
+        self.shift_size = tuple(shift_size)
+        self.drop, self.drop_path = drop, drop_path
+        self.norm1 = GroupedLayerNorm3d(V, dim, affine=False)
+        self.attn = PackedWindowAttention3D(
+            V, dim, self.window_size, num_heads, qkv_bias=qkv_bias,
+            qk_scale=qk_scale, attn_drop=attn_drop, proj_drop=drop,
+            kernel_init=kernel_init, generator=generator)
+        self.norm2 = GroupedLayerNorm3d(V, dim, affine=False)
+        hidden = int(dim * mlp_ratio)
+        self.mlp_fc1 = GroupedDense(V, dim, hidden, kernel_init=kernel_init,
+                                    generator=generator)
+        self.mlp_fc2 = GroupedDense(V, hidden, dim, kernel_init=kernel_init,
+                                    generator=generator)
+
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        B, D, H, W, _ = x.shape
+        ws, ss = get_window_size((D, H, W), self.window_size,
+                                 self.shift_size)
+        if ws != self.window_size:
+            # the JAX package then builds a smaller bias table
+            raise NotImplementedError(
+                f"input {(D, H, W)} is smaller than the window "
+                f"{self.window_size}")
+
+        shortcut = x
+        y = self.norm1(x)
+        pad = [(ws[i] - s % ws[i]) % ws[i] for i, s in enumerate((D, H, W))]
+        if any(pad):
+            y = F.pad(y, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
+        _, Dp, Hp, Wp, _ = y.shape
+
+        shifted = any(s > 0 for s in ss)
+        mask = None
+        if shifted:
+            y = torch.roll(y, shifts=(-ss[0], -ss[1], -ss[2]), dims=(1, 2, 3))
+            mask = shift_mask_on(Dp, Hp, Wp, ws, ss, str(y.device))
+        windows = self.attn(window_partition(y, ws), mask, train, generator)
+        y = window_reverse(windows, ws, B, Dp, Hp, Wp)
+        if shifted:
+            y = torch.roll(y, shifts=ss, dims=(1, 2, 3))
+        if any(pad):
+            y = y[:, :D, :H, :W, :]
+
+        x = shortcut + drop_path(y, self.drop_path, train, generator)
+
+        z = F.gelu(self.mlp_fc1(self.norm2(x)))
+        z = dropout(z, self.drop, train, generator)
+        z = dropout(self.mlp_fc2(z), self.drop, train, generator)
+        return x + drop_path(z, self.drop_path, train, generator)
+
+
+class PackedSwinStage(nn.Module):
+    """BasicLayer (reference: Swin_3D.py:355-446): the patch-embed
+    downsample iff the stage changes dims or patchifies (its non-affine LN
+    always on: the reference hardcodes norm_layer at Swin_3D.py:418), then
+    ``depth`` blocks, every second one shifted by half a window."""
+
+    def __init__(self, n_groups: int, in_dim: int, dim: int, depth: int,
+                 num_heads: int,
+                 patch_size: Tuple[int, int, int] = (1, 1, 1),
+                 window_size: Tuple[int, int, int] = (4, 4, 4),
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: Sequence[float] = (0.0,),
+                 use_checkpoint: bool = False,
+                 kernel_init: Optional[Init] = reference_init(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if in_dim != dim or tuple(patch_size) != (1, 1, 1):
+            self.downsample = PackedPatchEmbed3D(
+                n_groups, in_dim, patch_size=tuple(patch_size),
+                embed_dim=dim, patch_norm=True, kernel_init=kernel_init,
+                generator=generator)
+        else:
+            self.downsample = None
+        self.depth, self.use_checkpoint = depth, use_checkpoint
+        shift = tuple(w // 2 for w in window_size)
+        for i in range(depth):
+            self.add_module(f"block{i}", PackedSwinBlock3D(
+                n_groups, dim, num_heads, window_size=tuple(window_size),
+                shift_size=(0, 0, 0) if i % 2 == 0 else shift,
+                mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
+                drop=drop, attn_drop=attn_drop,
+                drop_path=drop_path[i] if i < len(drop_path) else 0.0,
+                kernel_init=kernel_init, generator=generator))
+
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        if self.downsample is not None:
+            x = self.downsample(x)
+        for i in range(self.depth):
+            blk = getattr(self, f"block{i}")
+            if self.use_checkpoint:
+                x = checkpointed(blk, x, train, generator)
+            else:
+                x = blk(x, train, generator)
+        return x
+
+
+class Swin_3D(nn.Module):
+    """Multi-variable Video Swin-3D encoder (reference: Swin_3D.py:494-636).
+    [N, V, C, T, H, W] -> [N, V, E, T, H, W] (``packed_out=True`` returns
+    [N, T, H, W, V*E])."""
+
+    supports_packed_out = True
+
+    def __init__(self, in_vars: int = 6, in_chans: int = 1,
+                 embed_dim: Optional[List[int]] = None,
+                 window_size: Optional[List[Tuple[int, int, int]]] = None,
+                 depths: Optional[List[int]] = None,
+                 num_heads: Optional[List[int]] = None,
+                 mlp_ratio: float = 4.0, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 patch_size: Tuple[int, int, int] = (1, 1, 1),
+                 use_checkpoint: bool = False,
+                 kernel_init: Optional[Init] = reference_init(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        V = self.in_vars = in_vars
+        embed_dim = embed_dim or [16, 16]
+        window_size = window_size or [(2, 4, 4), (8, 1, 1)]
+        depths = depths or [2, 1]
+        num_heads = num_heads or [2, 2]
+        self.n_layers = len(embed_dim)
+        dpr = [float(v) for v in np.linspace(0, drop_path_rate, sum(depths))]
+        for i in range(self.n_layers):
+            lo = sum(depths[:i])
+            self.add_module(f"stage{i}", PackedSwinStage(
+                V, in_dim=embed_dim[i - 1] if i > 0 else in_chans,
+                dim=embed_dim[i], depth=depths[i], num_heads=num_heads[i],
+                patch_size=tuple(patch_size) if i == 0 else (1, 1, 1),
+                window_size=tuple(window_size[i]), mlp_ratio=mlp_ratio,
+                qkv_bias=qkv_bias, qk_scale=qk_scale, drop=drop_rate,
+                attn_drop=attn_drop_rate, drop_path=dpr[lo:lo + depths[i]],
+                use_checkpoint=use_checkpoint, kernel_init=kernel_init,
+                generator=generator))
+        self.proj = GroupedProjHead(V, embed_dim[-1], kernel_init=kernel_init,
+                                    generator=generator)
+
+    def forward(self, x, train: bool = False, packed_out: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = pack_variables(x)
+        for i in range(self.n_layers):
+            x = getattr(self, f"stage{i}")(x, train, generator)
+        x = self.proj(x)
+        return x if packed_out else unpack_variables(x, self.in_vars)

@@ -172,9 +172,9 @@ def test_packed_mamba_ssm():
     _close(got, _apply(jmod, p, x))
 
 
-def test_packed_mamba_ssm_dstate_above_one_is_not_ported():
-    """The d_state > 1 branch, once a NotImplementedError, now runs through
-    the linear-scan op and matches the JAX module."""
+def test_packed_mamba_ssm_dstate_2_matches_jax():
+    """The d_state > 1 branch runs through the linear-scan op and matches
+    the JAX module."""
     V, dm = 3, 8
     x = _x((6, 32, V * dm))
     jmod = jm.PackedMambaSSM(n_groups=V, d_model=dm, d_state=2)

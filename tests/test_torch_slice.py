@@ -95,7 +95,8 @@ def test_port_imports_nothing_of_jax():
     assert not hits, hits
     code = ("import sys, idee_tpu_torch.train.evaluate, "
             "idee_tpu_torch.cli.test_synthetic, idee_tpu_torch.train.driver, "
-            "idee_tpu_torch.cli.train_synthetic; "
+            "idee_tpu_torch.cli.train_synthetic, idee_tpu_torch.nn.swin3d, "
+            "idee_tpu_torch.kernels.window_attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'idee_tpu')]; "
             "assert not bad, bad")

@@ -301,8 +301,11 @@ def _jax_trajectory(jx, cfg, params, batches):
 # LayerNorm -> ReLU, and its LayerNorms amplify the two frameworks' last-bit
 # differences ~20x (channels from the reference init are nearly collinear),
 # so at other seeds a kink's derivative flips for a few pixels (checked:
-# JAX init seeds 0-6, CNN_3D step-1 gradients; seed 2 has no flip).
-@pytest.mark.parametrize("encoder,seed", [("Mamba", 1), ("CNN_3D", 2)])
+# JAX init seeds 0-6, CNN_3D step-1 gradients; seed 2 has no flip). The
+# Swin_3D case runs the JAX window attention's Pallas backward in
+# interpret mode against the port's plain backward.
+@pytest.mark.parametrize("encoder,seed", [("Mamba", 1), ("CNN_3D", 2),
+                                          ("Swin_3D", 1)])
 def test_train_step_trajectory_matches_jax(jx, encoder, seed):
     cfg = _tiny_config(encoder=encoder)
     _, params = _jax_params(jx, cfg, seed=seed)
@@ -329,8 +332,22 @@ def test_train_step_trajectory_matches_jax(jx, encoder, seed):
                          flax_to_state_dict(want_grads), rtol=1e-4,
                          atol=1e-6, what="step-1 gradients")
     np.testing.assert_allclose(got_losses, want_losses, rtol=1e-4)
-    _close_trees(dict(model.named_parameters()),
-                 flax_to_state_dict(want_params), rtol=0.0, atol=1e-5,
+    got_params = dict(model.named_parameters())
+    want_params = flax_to_state_dict(want_params)
+    if encoder == "Swin_3D":
+        # the attention's key bias has a zero gradient in exact arithmetic
+        # (it adds one constant to a whole row of scores, which softmax
+        # ignores); both frameworks give it float noise, which Adam scales
+        # to lr-sized steps of random sign. Checked tiny, then left out.
+        for k in [k for k in want_params if k.endswith("attn.qkv.bias")]:
+            C = want_params[k].shape[1] // 3
+            key_grad = flax_to_state_dict(want_grads)[k][:, C:2 * C]
+            assert key_grad.abs().max() < 1e-6, k
+            keep = torch.ones(3 * C, dtype=torch.bool)
+            keep[C:2 * C] = False
+            got_params[k] = got_params[k][:, keep]
+            want_params[k] = want_params[k][:, keep]
+    _close_trees(got_params, want_params, rtol=0.0, atol=1e-5,
                  what="params after 3 steps")
     assert state.step == 3
 

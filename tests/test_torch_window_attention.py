@@ -1,0 +1,292 @@
+# ------------------------------------------------------------------
+"""The port's window attention (kernels/window_attention.py) against the
+JAX package.
+
+CPU: the op on CPU tensors runs its plain versions, which are held
+against the JAX functions run as the JAX package's own tests run them:
+  * the forward against ``_xla_impl`` and against ``_fused_fwd`` (the
+    Pallas forward kernel in interpret mode) at atol 1e-5 (the JAX tests'
+    own tolerance for the fused kernel, tests/test_kernels.py:133). Cases:
+    n=32 with G=12; n=8 with a shift mask; a padded tail of the TPU's pair
+    tiling (BW=10, G=3); a dense mask and the same mask as (bank, idx);
+    batch 2, where window w takes mask row idx[w % nW]; and n=18, a window
+    that does not divide 128 (``_xla_impl`` only: the Pallas path takes
+    only n dividing 128);
+  * the gradients (dq, dk, dv, dbias) against ``jax.vjp`` of
+    ``window_attention`` under ``runtime.set_force_pallas(True)`` (its
+    ``_bwd_pallas`` in interpret mode) and against autograd through the
+    plain forward, at rtol 1e-4 / atol 1e-5 (dbias sums ds over every
+    window in another order).
+Card (``gpu`` marker): both kernels against their plain versions at the
+bench stage shapes and odd shapes, at the same tolerances except dbias,
+whose absolute tolerance is 1e-5 x max |dbias| (a sum over up to 40,000
+windows whose entries can cancel to near 0 carries rounding of the size
+of the whole sum); and bit-equal gradients over two runs.
+
+The JAX side is imported inside a fixture, so the card-only tests also
+collect where JAX is not installed
+(``python -m pytest --noconftest tests/test_torch_window_attention.py
+-m gpu``).
+"""
+# ------------------------------------------------------------------
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from idee_tpu_torch.kernels import window_attention as wa
+from idee_tpu_torch.nn.swin3d import compute_shift_mask
+
+torch.set_num_threads(1)
+
+ATOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+DBIAS_REL = 1e-5  # card: dbias's absolute tolerance over its max |entry|
+
+
+@pytest.fixture(scope="module")
+def ref():
+    import jax
+    import jax.numpy as jnp
+
+    from idee_tpu.kernels import runtime
+    from idee_tpu.kernels import window_attention as jwa
+
+    return SimpleNamespace(jax=jax, jnp=jnp, runtime=runtime, wa=jwa)
+
+
+def _case(BW, n, G, hd, mask_geom=None, batch=1, dense=False, seed=0):
+    """numpy q, k, v, g [BW, n, G, hd], bias [G, n, n] and the mask as a
+    (bank, idx) pair, a dense [nW, n, n] array or None. ``mask_geom``:
+    (Dp, Hp, Wp, ws, ss) of compute_shift_mask; BW = batch * nW then."""
+    mask = None
+    if mask_geom is not None:
+        mask = compute_shift_mask(*mask_geom)
+        BW = batch * mask[1].shape[0]
+        if dense:
+            mask = mask[0][mask[1]]
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.normal(size=(BW, n, G, hd)).astype(np.float32)
+                  for _ in range(4))
+    bias = (0.5 * rng.normal(size=(G, n, n))).astype(np.float32)
+    return q, k, v, g, bias, mask
+
+
+def _torch_mask(mask, device="cpu"):
+    if mask is None:
+        return None
+    if isinstance(mask, tuple):
+        return tuple(torch.from_numpy(a).to(device) for a in mask)
+    return torch.from_numpy(mask).to(device)
+
+
+# the mask geometries: stage 0's window (2,4,4) shifted by (1,2,2) on a
+# 4x8x8 grid (8 windows of 32 tokens), and a (2,2,2) window shifted by
+# (1,1,1) on a 4x4x4 grid (8 windows of 8)
+GEOM_32 = (4, 8, 8, (2, 4, 4), (1, 2, 2))
+GEOM_8 = (4, 4, 4, (2, 2, 2), (1, 1, 1))
+
+FWD_CASES = {
+    "n32_G12": dict(BW=6, n=32, G=12, hd=8),
+    "n8_mask": dict(BW=None, n=8, G=4, hd=8, mask_geom=GEOM_8),
+    "padded_tail_BW10_G3": dict(BW=10, n=8, G=3, hd=4),
+    "n32_bank_idx_mask": dict(BW=None, n=32, G=3, hd=8, mask_geom=GEOM_32),
+    "n32_dense_mask": dict(BW=None, n=32, G=3, hd=8, mask_geom=GEOM_32,
+                           dense=True),
+    "batch2_mask": dict(BW=None, n=8, G=2, hd=16, mask_geom=GEOM_8,
+                        batch=2),
+}
+
+
+def _jax_mask(ref, mask):
+    return mask if isinstance(mask, tuple) or mask is None else \
+        ref.jnp.asarray(mask)
+
+
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_plain_forward_matches_jax(ref, case):
+    q, k, v, _, bias, mask = _case(**FWD_CASES[case])
+    scale = q.shape[-1] ** -0.5
+    jargs = [ref.jnp.asarray(t) for t in (q, k, v, bias)]
+    want_xla = ref.wa._xla_impl(*jargs, _jax_mask(ref, mask), scale)
+    want_pallas = ref.wa._fused_fwd(*jargs, _jax_mask(ref, mask), scale)
+    got = wa.window_attention(*(torch.from_numpy(t) for t in (q, k, v, bias)),
+                              _torch_mask(mask), scale).numpy()
+    np.testing.assert_allclose(got, np.asarray(want_xla), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(want_pallas), atol=ATOL,
+                               rtol=0)
+
+
+def test_masked_row_maximum_and_window_not_dividing_128(ref):
+    """n=18 (window (2,3,3)) with a shift mask, batch 2: rows whose
+    largest unmasked score is masked occur, and the plain forward still
+    matches ``_xla_impl``."""
+    q, k, v, _, bias, mask = _case(None, 18, 3, 8, batch=2, seed=3,
+                                   mask_geom=(4, 6, 6, (2, 3, 3), (1, 1, 1)))
+    scale = 8 ** -0.5
+    want = ref.wa._xla_impl(*(ref.jnp.asarray(t) for t in (q, k, v, bias)),
+                            mask, scale)
+    got = wa.window_attention(*(torch.from_numpy(t) for t in (q, k, v, bias)),
+                              _torch_mask(mask), scale).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
+    # the raw score's argmax per row lands on a masked key somewhere
+    s = np.einsum("bngd,bmgd->bgnm", q * scale, k) + bias[None]
+    bank, idx = mask
+    full = np.tile(bank[idx], (2, 1, 1))                   # [BW, n, n]
+    top = s.argmax(-1)                                     # [BW, G, n]
+    hit = np.take_along_axis(np.broadcast_to(full[:, None], s.shape),
+                             top[..., None], -1)
+    assert (hit == -100.0).any()
+
+
+def _jax_grads(ref, q, k, v, bias, mask, g, scale):
+    ref.runtime.set_force_pallas(True)
+    try:
+        _, pull = ref.jax.vjp(
+            lambda *a: ref.wa.window_attention(*a, mask, scale),
+            *(ref.jnp.asarray(t) for t in (q, k, v, bias)))
+        return [np.asarray(t) for t in pull(ref.jnp.asarray(g))]
+    finally:
+        ref.runtime.set_force_pallas(False)
+
+
+@pytest.mark.parametrize("case", ["n32_G12", "n8_mask", "batch2_mask",
+                                  "n32_bank_idx_mask"])
+def test_gradients_match_jax_pallas_backward(ref, case):
+    q, k, v, g, bias, mask = _case(**FWD_CASES[case], seed=1)
+    scale = q.shape[-1] ** -0.5
+    want = _jax_grads(ref, q, k, v, bias, mask, g, scale)
+    ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v, bias)]
+    o = wa.window_attention(*ts, _torch_mask(mask), scale)
+    got = torch.autograd.grad(o, ts, torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["padded_tail_BW10_G3", "n32_dense_mask",
+                                  "batch2_mask"])
+def test_gradients_match_autograd_of_plain_forward(case):
+    q, k, v, g, bias, mask = _case(**FWD_CASES[case], seed=2)
+    scale = 0.3
+    ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v, bias)]
+    got = torch.autograd.grad(
+        wa.window_attention(*ts, _torch_mask(mask), scale), ts,
+        torch.from_numpy(g))
+    want = torch.autograd.grad(
+        wa.window_attention_fwd_plain(*ts, _torch_mask(mask), scale), ts,
+        torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_cpu_call_counts_no_launch_and_grads_only_when_asked():
+    q, k, v, g, bias, mask = _case(**FWD_CASES["n8_mask"])
+    before = dict(wa.launches)
+    ts = [torch.from_numpy(t) for t in (q, k, v, bias)]
+    o = wa.window_attention(*ts, _torch_mask(mask), 0.35)
+    assert not o.requires_grad
+    ts[3].requires_grad_()
+    o = wa.window_attention(*ts, _torch_mask(mask), 0.35)
+    assert o.requires_grad
+    o.sum().backward()
+    assert ts[3].grad is not None
+    assert wa.launches == before
+
+
+BAD = {
+    "float64": lambda q, k, v, b, m: (q.double(), k, v, b, m),
+    "k_shape": lambda q, k, v, b, m: (q, k[:, :4], v, b, m),
+    "bias_shape": lambda q, k, v, b, m: (q, k, v, b[:, :4], m),
+    "hd_6": lambda q, k, v, b, m: (q[..., :6], k[..., :6], v[..., :6], b, m),
+    "not_4d": lambda q, k, v, b, m: (q[0], k[0], v[0], b, m),
+    "n_above_max": lambda q, k, v, b, m: tuple(
+        t.repeat(1, 17, 1, 1) for t in (q, k, v)) + (
+            torch.zeros(b.shape[0], 136, 136), None),
+    "mask_windows_not_dividing": lambda q, k, v, b, m: (
+        q[:5], k[:5], v[:5], b, m),
+    "mask_bank_shape": lambda q, k, v, b, m: (
+        q, k, v, b, (m[0][:, :4, :4], m[1])),
+    "mask_idx_float": lambda q, k, v, b, m: (
+        q, k, v, b, (m[0], m[1].float())),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD))
+def test_rejects_bad_inputs(bad):
+    q, k, v, _, bias, mask = _case(**FWD_CASES["n8_mask"])
+    args = BAD[bad](*(torch.from_numpy(t) for t in (q, k, v, bias)),
+                    _torch_mask(mask))
+    with pytest.raises(ValueError):
+        wa.window_attention(*args, 0.35)
+
+
+# ---------------------------------------------------------------- card only
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the window-attention kernels have "
+                    "no CPU mode)")
+    return torch.device("cuda")
+
+
+CARD_CASES = {
+    # the bench stage shapes: stage 0 unshifted and shifted (the real mask
+    # of the 8x200x200 grid), stage 1
+    "stage0": dict(BW=10_000, n=32, G=12, hd=8),
+    "stage0_shifted": dict(BW=None, n=32, G=12, hd=8,
+                           mask_geom=(8, 200, 200, (2, 4, 4), (1, 2, 2))),
+    "stage1": dict(BW=40_000, n=8, G=12, hd=8),
+    # odd shapes: n=18, a ragged last window group, both other widths
+    "n18_hd4_batch2": dict(BW=None, n=18, G=3, hd=4, batch=2,
+                           mask_geom=(4, 6, 6, (2, 3, 3), (1, 1, 1))),
+    "n128_hd16": dict(BW=5, n=128, G=2, hd=16),
+    "n8_hd16_ragged": dict(BW=37, n=8, G=5, hd=16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_kernels_match_plain_on_card(cuda, case):
+    q, k, v, g, bias, mask = _case(**CARD_CASES[case], seed=4)
+    scale = q.shape[-1] ** -0.5
+    ts = [torch.from_numpy(t).to(cuda).requires_grad_()
+          for t in (q, k, v, bias)]
+    m = _torch_mask(mask, cuda)
+    gt = torch.from_numpy(g).to(cuda)
+    before = dict(wa.launches)
+    o = wa.window_attention(*ts, m, scale)
+    got = torch.autograd.grad(o, ts, gt)
+    torch.cuda.synchronize()
+    assert wa.launches[wa.ATTN_FWD] == before[wa.ATTN_FWD] + 1
+    assert wa.launches[wa.ATTN_BWD] == before[wa.ATTN_BWD] + 1
+    assert wa.launches[wa.DBIAS_SUM] == before[wa.DBIAS_SUM] + 1
+    plain = [t.detach() for t in ts]
+    o_p = wa.window_attention_fwd_plain(*plain, m, scale)
+    want = wa.window_attention_bwd_plain(*plain, m, scale, o_p, gt)
+    torch.testing.assert_close(o, o_p, rtol=0, atol=ATOL)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        # dbias sums ds over up to 40,000 windows of both signs: its
+        # rounding error scales with the sum's size, not with an entry
+        # that cancels to near 0
+        atol = (DBIAS_REL * b.abs().max().item() if name == "dbias"
+                else GRAD_ATOL)
+        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=atol,
+                                   msg=lambda msg: f"{name}: {msg}")
+
+
+@pytest.mark.gpu
+def test_backward_is_bitwise_deterministic_on_card(cuda):
+    q, k, v, g, bias, mask = _case(**CARD_CASES["stage0_shifted"], seed=5)
+    ts = [torch.from_numpy(t).to(cuda).requires_grad_()
+          for t in (q, k, v, bias)]
+    m = _torch_mask(mask, cuda)
+    gt = torch.from_numpy(g).to(cuda)
+    runs = [torch.autograd.grad(wa.window_attention(*ts, m, 0.35), ts, gt)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
