@@ -17,8 +17,11 @@ Phases, each printing one JSON line:
                  window-attention forward, backward and dbias sum at the
                  Swin_3D stage shapes (stage 0 unshifted and shifted with
                  the real shift mask, stage 1), two backward runs compared
-                 bit for bit, and PyTorch's scaled_dot_product_attention
-                 timed on the same inputs as the yardstick
+                 bit for bit, the backward's shared memory per block and
+                 resident blocks per SM, and PyTorch's
+                 scaled_dot_product_attention timed on the same inputs as
+                 the yardstick; the dbias sum also by its profiler device
+                 time and host us per launch, beside torch.sum's
   3. main        synthetic evaluation (train.evaluate.test_synthetic) with
                  the Mamba encoder at the bench width: 6 variables x 1
                  channel, delta_t=8, 200x200, batch 1, random weights from
@@ -320,6 +323,53 @@ def sdpa_times(q, k, v, go, bias, mask, scale, o_plain):
     return fwd_ms, cuda_ms(fwd_bwd, iters=10) - fwd_ms, err.item()
 
 
+def host_us_per_call(fn, iters: int = 300) -> float:
+    """Host microseconds per fn() call: a loop of ``iters`` calls after a
+    synchronise, timed before the one synchronise that ends it (the
+    enqueue cost; the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / iters
+
+
+def dbias_sum_costs(wa, part):
+    """The dbias sum on ``part`` beside torch.sum(part, 0), its library
+    call. CUDA-event ms per call back to back: ``ms`` of the kernel's launch
+    into a ready output (as the backward's own launch, whose output the
+    backward allocates), ``call_ms`` of ``dbias_sum`` (allocation included,
+    as torch.sum's), ``library_ms``. The device ms per call from
+    torch.profiler's CUDA rows. The host us per call of the same three."""
+    n_blocks, E = part.shape[0], part[0].numel()
+    dbias = torch.empty_like(part[0])
+    shape = wa.dbias_sum_shape(n_blocks, E)
+
+    def launch():
+        wa._launch(wa.DBIAS_SUM, part.device, part, dbias, n_blocks, E,
+                   *shape)
+
+    def call():
+        wa.dbias_sum(part)
+
+    def library():
+        part.sum(0)
+
+    # host-bound back to back: 200 calls average out the host's jitter
+    return dict(
+        outputs_per_block=shape[0], chunks=shape[1],
+        ms=cuda_ms(launch, iters=200), call_ms=cuda_ms(call, iters=200),
+        library_ms=cuda_ms(library, iters=200),
+        device_ms=profile_steps(launch, n=50)["device_ms_per_step"],
+        library_device_ms=profile_steps(library, n=50)["device_ms_per_step"],
+        host_us_per_launch=host_us_per_call(launch),
+        host_us_per_call=host_us_per_call(call),
+        library_host_us_per_call=host_us_per_call(library))
+
+
 def check_attention(bounds):
     """Forward, backward and dbias sum against their plain versions, timed,
     at each stage shape; the backward twice, bit for bit."""
@@ -356,21 +406,9 @@ def check_attention(bounds):
         n_blocks = wa.bwd_blocks(BW, n, ATTN_G)
         part = torch.randn(n_blocks, ATTN_G, n, n, device="cuda",
                            generator=torch.Generator("cuda").manual_seed(i))
-        dbias = torch.empty(ATTN_G, n, n, device="cuda")
-
-        def dbias_sum():
-            wa._launch(wa.DBIAS_SUM, part.device, part, dbias, n_blocks,
-                       ATTN_G * n * n)
-
-        def dbias_sum_plain():
-            acc = torch.zeros_like(part[0])
-            for b in range(n_blocks):  # the kernel's order
-                acc = acc + part[b]
-            return acc
-
-        dbias_sum()
-        sum_err = max_err(dbias, dbias_sum_plain(), f"{stage} dbias sum",
-                          0.0, 0.0)
+        sum_err = max_err(wa.dbias_sum(part), wa.dbias_sum_plain(part),
+                          f"{stage} dbias sum", 0.0, 0.0)
+        dbias_sum = dbias_sum_costs(wa, part)
 
         def fwd():
             wa.window_attention(q, k, v, bias, mask, scale)
@@ -383,11 +421,10 @@ def check_attention(bounds):
             wa.window_attention_bwd_plain(q, k, v, bias, mask, scale, o_p,
                                           go)
 
-        sum_ms = cuda_ms(dbias_sum, iters=50)
         ms = cuda_ms(fwd, iters=50)
         # the backward kernel alone: the backward's two launches less the
         # dbias sum's
-        bwd_ms = cuda_ms(bwd, iters=20) - sum_ms
+        bwd_ms = cuda_ms(bwd, iters=20) - dbias_sum["ms"]
         sdpa_fwd, sdpa_bwd, sdpa_err = sdpa_times(q, k, v, go, bias, mask,
                                                   scale, o_p)
         row = dict(BW=BW, n=n, G=ATTN_G, hd=ATTN_HD, shifted=geom is not None)
@@ -396,14 +433,16 @@ def check_attention(bounds):
             plain_ms=cuda_ms(lambda: wa.window_attention_fwd_plain(
                 q, k, v, bias, mask, scale), iters=5, warmup=1),
             library_ms=sdpa_fwd, library_max_abs_err=sdpa_err)
+        smem, per_sm = wa.bwd_occupancy(n, ATTN_HD, geom is not None)
         row["backward"] = dict(
             max_abs_err=bwd_err, bitwise_deterministic=bitwise, ms=bwd_ms,
             plain_ms=cuda_ms(plain_bwd, iters=5, warmup=1),
-            library_ms=sdpa_bwd)
+            library_ms=sdpa_bwd, smem_bytes_per_block=smem,
+            blocks_per_sm=per_sm)
         row["dbias_sum"] = dict(
-            n_blocks=n_blocks, max_abs_err=sum_err, ms=sum_ms,
-            plain_ms=cuda_ms(dbias_sum_plain, iters=5, warmup=1),
-            library_ms=cuda_ms(lambda: part.sum(0), iters=50))
+            n_blocks=n_blocks, max_abs_err=sum_err,
+            plain_ms=cuda_ms(lambda: wa.dbias_sum_plain(part), iters=5,
+                             warmup=1), **dbias_sum)
         for key, fn, shape in (
                 ("forward", bounds.window_attention_fwd,
                  (BW, n, ATTN_G, ATTN_HD)),

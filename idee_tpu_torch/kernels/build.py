@@ -122,7 +122,12 @@ def call(fn, kernel: str, device: torch.device, args: Sequence) -> None:
     """Run the C launcher ``fn`` on the current stream of ``device``:
     tensors in ``args`` pass as their data pointers (they must be
     contiguous), None as NULL, numbers as they are; the stream is the last
-    argument. Raises when the launch was refused."""
+    argument. Raises when the launch was refused.
+
+    A launch costs microseconds of host time, as much as a small kernel
+    runs: the stream is read as a raw handle (no ``torch.cuda.Stream`` is
+    built) and the device is switched only when it is not the current
+    one."""
     ptrs = []
     for a in args:
         if isinstance(a, torch.Tensor):
@@ -130,7 +135,14 @@ def call(fn, kernel: str, device: torch.device, args: Sequence) -> None:
                 raise ValueError(f"{kernel}: inputs must be contiguous")
             a = a.data_ptr()
         ptrs.append(a)
-    with torch.cuda.device(device):
-        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    # the card's context exists: a tensor lies on it
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*ptrs, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")

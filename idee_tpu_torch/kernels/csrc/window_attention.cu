@@ -44,17 +44,35 @@
 //   * The forward stages the windows' K and V in shared memory and runs an
 //     online softmax (running max and sum) over the n keys, accumulating
 //     the HD outputs in registers: no score matrix leaves the SM.
-//   * The backward stages Q, K, V and go, and runs two phases. Row phase:
-//     thread i recomputes its row's max and sum, then p, dp and ds, and
-//     sums dq_i. Column phase: thread j recomputes column j of s, p and ds
-//     from the row statistics (bit-identical to the row phase: same
-//     operands, same order) and sums dk_j, dv_j. No [n, n] matrix is stored
-//     but the block's dbias accumulator.
-//   * dbias is deterministic: no float atomics. Each block walks a fixed
-//     set of window groups and adds ds into its own shared [wpb, n, n]
-//     accumulator (each entry has one owning thread); at the end it sums
-//     the window slots in order into its partial [G, n, n] slice, and
-//     dbias_sum_kernel adds the partials of all blocks in block order.
+//   * The backward computes every score once, as the TPU kernel does
+//     (s, p and dp of a tile stay in VMEM there). It stages Q, K, V and go
+//     (rows of HD floats moved as float4: HD is 4, 8 or 16 and every row
+//     starts at a multiple of HD floats) and keeps a score buffer P
+//     [wpb][n][n+1] in shared memory. Row phase, thread i: s_ij once into
+//     P with the row max; a second walk turns P into exp(s - m) and the
+//     sum; a third scales it to p_ij, forms dp_ij = go_i . v_j and ds_ij,
+//     sums dq_i and leaves p_ij in P. Column phase, thread j: reads p_ij
+//     from P (no score, no expf), recomputes dp_ij from the staged go row
+//     and its own v_j (the same products in the same order, so the same
+//     bits as the row phase), sums dk_j and dv_j, and writes ds_ij back
+//     over p_ij; thread (wl, j) owns column j of its slot, so no other
+//     thread touches those entries. Per (i, j): ~20 shared accesses (K, V,
+//     Q, go as float4), one expf.
+//   * dbias is deterministic: no float atomics. After each window group
+//     every thread adds the ds of the group's window slots, in slot order,
+//     into the n^2 / 128 entries it owns of one shared [n][n+1]
+//     accumulator DB; at the end DB is the block's partial [G, n, n]
+//     slice, and dbias_sum_kernel adds the partials of all blocks in a
+//     fixed order.
+//   * Shared memory of the backward (bwd_smem_bytes): Q, K, V, go 4 wpb
+//     (n HD + 4) floats (the 4 keep each slot 16-byte aligned and the
+//     slots of one warp on different banks), P wpb n (n+1), D 128, DB
+//     n (n+1), the additive term (masked ? wpb : 1) n (n+1):
+//       n=32, HD=8, masked (wpb=4): 16,640 + 16,896 + 512 + 4,224 + 16,896
+//         = 55,168 B, 4 blocks per SM; unmasked 42,496 B, 5 per SM;
+//       n=128, HD=16, masked (wpb=1): 32,832 + 66,048 + 512 + 66,048 +
+//         66,048 = 231,488 B, the largest, under the 232,448 B a block
+//         may take, so every shape the wrapper accepts launches.
 // Windows of any n <= 128 run (the TPU path takes only n dividing 128).
 // ------------------------------------------------------------------
 
@@ -71,8 +89,7 @@ __device__ __forceinline__ int64_t row_offset(int w, int i, int g, int n,
   return (((int64_t)w * n + i) * G + g) * hd;
 }
 
-// s_ij without the mask and bias: both phases of the backward and the
-// forward compute it with this one function, so they agree bit for bit
+// s_ij without the mask and bias, as the forward computes it
 template <int HD>
 __device__ __forceinline__ float dot_scaled(const float (&qs)[HD],
                                             const float* k) {
@@ -167,6 +184,47 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int d = 0; d < HD; ++d) o[row + d] = acc[d] * inv;
 }
 
+// a . b over HD, b a float4 row in shared memory, in d order
+template <int HD>
+__device__ __forceinline__ float dot_row(const float (&a)[HD],
+                                         const float4* b) {
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < HD / 4; ++c) {
+    const float4 x = b[c];
+    s = fmaf(a[4 * c], x.x, s);
+    s = fmaf(a[4 * c + 1], x.y, s);
+    s = fmaf(a[4 * c + 2], x.z, s);
+    s = fmaf(a[4 * c + 3], x.w, s);
+  }
+  return s;
+}
+
+// acc += a * b over HD, b a float4 row in shared memory
+template <int HD>
+__device__ __forceinline__ void axpy_row(float (&acc)[HD], float a,
+                                         const float4* b) {
+#pragma unroll
+  for (int c = 0; c < HD / 4; ++c) {
+    const float4 x = b[c];
+    acc[4 * c] = fmaf(a, x.x, acc[4 * c]);
+    acc[4 * c + 1] = fmaf(a, x.y, acc[4 * c + 1]);
+    acc[4 * c + 2] = fmaf(a, x.z, acc[4 * c + 2]);
+    acc[4 * c + 3] = fmaf(a, x.w, acc[4 * c + 3]);
+  }
+}
+
+// dst[d] = a[d] * scale as HD / 4 float4 stores (dst 16-byte aligned)
+template <int HD>
+__device__ __forceinline__ void store_row(float* dst, const float (&a)[HD],
+                                          float scale) {
+  float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int c = 0; c < HD / 4; ++c)
+    d4[c] = make_float4(a[4 * c] * scale, a[4 * c + 1] * scale,
+                        a[4 * c + 2] * scale, a[4 * c + 3] * scale);
+}
+
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -177,25 +235,31 @@ attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float* __restrict__ dv, float* __restrict__ dbias_part,
                 int BW, int n, int G, int nW, int wpb, int n_groups,
                 float scale) {
-  extern __shared__ float smem[];
-  const int slot = n * HD + 4;     // as in the forward
-  const int srow = n + 1;          // additive and dbias rows, padded
-  const int db_slot = n * srow;
-  float* Qs = smem;
-  float* Ks = Qs + wpb * slot;
-  float* Vs = Ks + wpb * slot;
-  float* Gs = Vs + wpb * slot;
-  float* Mx = Gs + wpb * slot;  // row max        [wpb, n]
-  float* Il = Mx + wpb * n;     // 1 / row sum    [wpb, n]
-  float* Dl = Il + wpb * n;     // D_i = go_i.o_i [wpb, n]
-  float* DB = Dl + wpb * n;     // dbias accumulator [wpb][n][n+1]
-  float* add = DB + wpb * db_slot;  // the additive term, see stage_additive
-  const int add_slot = bank != nullptr ? db_slot : 0;
+  extern __shared__ float4 smem4[];
+  constexpr int R4 = HD / 4;       // float4s per row
+  const int slot = n * HD + 4;     // a window's rows (a multiple of 4)
+  const int slot4 = slot / 4;
+  const int srow = n + 1;          // rows of P, DB and the additive term
+  const int p_slot = n * srow;
+  float4* Qs = smem4;
+  float4* Ks = Qs + wpb * slot4;
+  float4* Vs = Ks + wpb * slot4;
+  float4* Gs = Vs + wpb * slot4;
+  float* P = reinterpret_cast<float*>(Gs + wpb * slot4);  // [wpb][n][n+1]
+  float* Dl = P + wpb * p_slot;    // D_i = go_i.o_i, by thread [kThreads]
+  float* DB = Dl + kThreads;       // dbias accumulator [n][n+1]
+  float* add = DB + p_slot;        // the additive term, see stage_additive
+  const int add_slot = bank != nullptr ? p_slot : 0;
 
   const int g = blockIdx.x % G, bx = blockIdx.x / G, n_bx = gridDim.x / G;
   const int wl = threadIdx.x / n, r = threadIdx.x % n;
+  const float4* Qw = Qs + wl * slot4;
+  const float4* Kw = Ks + wl * slot4;
+  const float4* Vw = Vs + wl * slot4;
+  const float4* Gw = Gs + wl * slot4;
+  float* Pw = P + wl * p_slot;
 
-  for (int e = threadIdx.x; e < wpb * db_slot; e += blockDim.x) DB[e] = 0.0f;
+  for (int e = threadIdx.x; e < p_slot; e += blockDim.x) DB[e] = 0.0f;
   if (bank == nullptr)
     stage_additive(bias, bank, idx, add, g, 0, BW, n, nW, wpb);
 
@@ -204,126 +268,162 @@ attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool active = wl < wpb && w < BW;
     if (bank != nullptr)
       stage_additive(bias, bank, idx, add, g, c * wpb, BW, n, nW, wpb);
-    float* Qw = Qs + wl * slot;
-    float* Kw = Ks + wl * slot;
-    float* Vw = Vs + wl * slot;
-    float* Gw = Gs + wl * slot;
 
-    float qs[HD], gr[HD];
+    // stage this thread's row r of q, k, v, go; keep q * scale, go, v and
+    // D_r in registers
+    float qs[HD], gr[HD], vr[HD], delta = 0.0f;
+    const int64_t row = row_offset(w, r, g, n, G, HD);
     if (active) {
-      const int64_t row = row_offset(w, r, g, n, G, HD);
-      float delta = 0.0f;
+      const float4* q4 = reinterpret_cast<const float4*>(q + row);
+      const float4* k4 = reinterpret_cast<const float4*>(k + row);
+      const float4* v4 = reinterpret_cast<const float4*>(v + row);
+      const float4* g4 = reinterpret_cast<const float4*>(go + row);
+      const float4* o4 = reinterpret_cast<const float4*>(o + row);
 #pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        const float qd = q[row + d], gd = go[row + d];
-        Qw[r * HD + d] = qd;
-        Kw[r * HD + d] = k[row + d];
-        Vw[r * HD + d] = v[row + d];
-        Gw[r * HD + d] = gd;
-        qs[d] = qd * scale;
-        gr[d] = gd;
-        delta = fmaf(gd, o[row + d], delta);
+      for (int c4 = 0; c4 < R4; ++c4) {
+        const float4 qv = q4[c4], kv = k4[c4], vv = v4[c4], gv = g4[c4],
+                     ov = o4[c4];
+        Qs[wl * slot4 + r * R4 + c4] = qv;
+        Ks[wl * slot4 + r * R4 + c4] = kv;
+        Vs[wl * slot4 + r * R4 + c4] = vv;
+        Gs[wl * slot4 + r * R4 + c4] = gv;
+        const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+        const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
+        const float oa[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          qs[4 * c4 + u] = qa[u] * scale;
+          gr[4 * c4 + u] = ga[u];
+          vr[4 * c4 + u] = va[u];
+          delta = fmaf(ga[u], oa[u], delta);
+        }
       }
-      Dl[wl * n + r] = delta;
+      Dl[threadIdx.x] = delta;
     }
     __syncthreads();
 
-    // row phase: thread = query row i
+    // row phase: thread = query row i; P's row i is this thread's alone
     if (active) {
-      const int i = r;
-      const float* arow = add + wl * add_slot + i * srow;
-      float m = -INFINITY, l = 0.0f;
+      const float* arow = add + wl * add_slot + r * srow;
+      float* prow = Pw + r * srow;
+      float m = -INFINITY;
       for (int j = 0; j < n; ++j) {
-        const float s = dot_scaled<HD>(qs, Kw + j * HD) + arow[j];
-        if (s > m) {
-          l *= expf(m - s);
-          m = s;
-        }
-        l += expf(s - m);
+        const float s = dot_row<HD>(qs, Kw + j * R4) + arow[j];
+        prow[j] = s;
+        m = fmaxf(m, s);
+      }
+      float l = 0.0f;
+      for (int j = 0; j < n; ++j) {
+        const float e = expf(prow[j] - m);
+        prow[j] = e;
+        l += e;
       }
       const float il = 1.0f / l;
-      const float delta = Dl[wl * n + i];
       float dqa[HD];
 #pragma unroll
       for (int d = 0; d < HD; ++d) dqa[d] = 0.0f;
       for (int j = 0; j < n; ++j) {
-        const float s = dot_scaled<HD>(qs, Kw + j * HD) + arow[j];
-        const float p = expf(s - m) * il;
-        float dp = 0.0f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) dp = fmaf(gr[d], Vw[j * HD + d], dp);
-        const float ds = p * (dp - delta);
-#pragma unroll
-        for (int d = 0; d < HD; ++d) dqa[d] = fmaf(ds, Kw[j * HD + d], dqa[d]);
+        const float p = prow[j] * il;
+        prow[j] = p;
+        const float ds = p * (dot_row<HD>(gr, Vw + j * R4) - delta);
+        axpy_row<HD>(dqa, ds, Kw + j * R4);
       }
-      const int64_t row = row_offset(w, i, g, n, G, HD);
-#pragma unroll
-      for (int d = 0; d < HD; ++d) dq[row + d] = dqa[d] * scale;
-      Mx[wl * n + i] = m;
-      Il[wl * n + i] = il;
+      store_row<HD>(dq + row, dqa, scale);
     }
     __syncthreads();
 
-    // column phase: thread = key column j
+    // column phase: thread = key column j; entry (i, j) of P is its alone
     if (active) {
-      const int j = r;
-      float kj[HD], vj[HD], dka[HD], dva[HD];
+      float dka[HD], dva[HD];
 #pragma unroll
       for (int d = 0; d < HD; ++d) {
-        kj[d] = Kw[j * HD + d];
-        vj[d] = Vw[j * HD + d];
         dka[d] = 0.0f;
         dva[d] = 0.0f;
       }
-      const float* acol = add + wl * add_slot + j;
-      float* db = DB + wl * db_slot + j;
+      float* pcol = Pw + r;
+      const float* Dw = Dl + wl * n;
       for (int i = 0; i < n; ++i) {
-        float qi[HD];
+        const float p = pcol[i * srow];
+        float gi[HD];
 #pragma unroll
-        for (int d = 0; d < HD; ++d) qi[d] = Qw[i * HD + d] * scale;
-        const float s = dot_scaled<HD>(qi, kj) + acol[i * srow];
-        const float p = expf(s - Mx[wl * n + i]) * Il[wl * n + i];
-        float dp = 0.0f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) dp = fmaf(Gw[i * HD + d], vj[d], dp);
-        const float ds = p * (dp - Dl[wl * n + i]);
-#pragma unroll
-        for (int d = 0; d < HD; ++d) {
-          dva[d] = fmaf(p, Gw[i * HD + d], dva[d]);
-          dka[d] = fmaf(ds, Qw[i * HD + d], dka[d]);
+        for (int c4 = 0; c4 < R4; ++c4) {
+          const float4 x = Gw[i * R4 + c4];
+          gi[4 * c4] = x.x;
+          gi[4 * c4 + 1] = x.y;
+          gi[4 * c4 + 2] = x.z;
+          gi[4 * c4 + 3] = x.w;
         }
-        db[i * srow] += ds;
-      }
-      const int64_t row = row_offset(w, j, g, n, G, HD);
+        float dp = 0.0f;  // go_i . v_j, as the row phase formed it
 #pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        dk[row + d] = dka[d] * scale;
-        dv[row + d] = dva[d];
+        for (int d = 0; d < HD; ++d) dp = fmaf(gi[d], vr[d], dp);
+        const float ds = p * (dp - Dw[i]);
+        pcol[i * srow] = ds;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) dva[d] = fmaf(p, gi[d], dva[d]);
+        axpy_row<HD>(dka, ds, Qw + i * R4);
       }
+      store_row<HD>(dk + row, dka, scale);
+      store_row<HD>(dv + row, dva, 1.0f);
     }
-    __syncthreads();  // the next window group overwrites the staged rows
+    __syncthreads();
+
+    // dbias: each thread adds the group's slots, in slot order, into the
+    // DB entries it owns. The next group writes P only after its staging
+    // barrier, so no barrier is needed here.
+    const int n_act = min(wpb, BW - c * wpb);
+    for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+      const int at = (e / n) * srow + e % n;
+      float a = DB[at];
+      for (int s_ = 0; s_ < n_act; ++s_) a += P[s_ * p_slot + at];
+      DB[at] = a;
+    }
   }
 
-  // this block's partial dbias: its window slots summed in slot order
-  __syncthreads();
+  // this block's partial dbias (each thread reads the entries it owns)
   float* part = dbias_part + ((int64_t)bx * G + g) * n * n;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int at = (e / n) * srow + e % n;
-    float s = 0.0f;
-    for (int s_ = 0; s_ < wpb; ++s_) s += DB[s_ * db_slot + at];
-    part[e] = s;
-  }
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x)
+    part[e] = DB[(e / n) * srow + e % n];
 }
 
-// dbias[e] = sum over blocks b (in order) of part[b, e], e over G*n*n
-__global__ void __launch_bounds__(256)
+// dbias[e] = the sum of part[b, e] over b, e over G*n*n, in a fixed order:
+// the n_blocks partials split into `chunks` runs of ceil(n_blocks /
+// chunks); thread (chunk c, output o) of a block of `out` consecutive
+// outputs sums run c from 0 in partial order, and the run sums are added
+// in run order in shared memory. A warp reads 32 / out runs of `out`
+// consecutive floats per load. `out` and `chunks` depend only on
+// (n_blocks, E) (kernels/window_attention.py::dbias_sum_shape, which also
+// holds the plain version's order), so the same call gives the same bits.
+constexpr int kSumUnroll = 8;  // loads in flight before their adds
+
+__global__ void __launch_bounds__(1024)
 dbias_sum_kernel(const float* __restrict__ part, float* __restrict__ dbias,
-                 int n_blocks, int64_t E) {
-  const int64_t e = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  if (e >= E) return;
+                 int n_blocks, int64_t E, int out, int chunks) {
+  extern __shared__ float run_sums[];  // [chunks][out]
+  const int o = threadIdx.x % out, c = threadIdx.x / out;
+  const int64_t e = (int64_t)blockIdx.x * out + o;
+  const int run = (n_blocks + chunks - 1) / chunks;
+  const int b1 = min(n_blocks, (c + 1) * run);
   float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += part[(int64_t)b * E + e];
-  dbias[e] = s;
+  if (e < E) {
+    const float* p = part + e;
+    int b = c * run;
+    for (; b + kSumUnroll <= b1; b += kSumUnroll) {
+      float x[kSumUnroll];
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u) x[u] = p[(int64_t)(b + u) * E];
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u) s += x[u];
+    }
+    for (; b < b1; ++b) s += p[(int64_t)b * E];
+  }
+  run_sums[threadIdx.x] = s;
+  __syncthreads();
+  if (c == 0 && e < E) {
+    float t = run_sums[o];
+    for (int k = 1; k < chunks; ++k) t += run_sums[k * out + o];
+    dbias[e] = t;
+  }
 }
 
 int windows_per_block(int n) { return kThreads / n; }
@@ -333,10 +433,11 @@ size_t fwd_smem_bytes(int n, int hd, bool masked) {
   return sizeof(float) * (2 * wpb * (n * hd + 4) + (masked ? wpb : 1) * add);
 }
 
+// the budget of the design note: Q, K, V, go; P; D; DB; the additive term
 size_t bwd_smem_bytes(int n, int hd, bool masked) {
-  const size_t wpb = windows_per_block(n), add = (size_t)n * (n + 1);
-  return sizeof(float) * (4 * wpb * (n * hd + 4) + 3 * wpb * n + wpb * add +
-                          (masked ? wpb : 1) * add);
+  const size_t wpb = windows_per_block(n), nn1 = (size_t)n * (n + 1);
+  return sizeof(float) * (4 * wpb * (n * hd + 4) + wpb * nn1 + kThreads +
+                          nn1 + (masked ? wpb : 1) * nn1);
 }
 
 // above 48 KB a kernel takes dynamic shared memory only after opting in
@@ -384,11 +485,21 @@ int launch_bwd(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int bwd_occupancy(size_t smem, int* blocks_per_sm) {
+  const cudaError_t err = allow_smem(attn_bwd_kernel<HD>, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, attn_bwd_kernel<HD>, kThreads, smem);
+}
+
 }  // namespace
 
 // The C interface. q, k, v, o, go, dq, dk, dv: [BW, n, G, hd] float32;
 // bias: [G, n, n]; bank: [K, n, n] float32 and idx: [nW] int32, or both
-// NULL for no mask; 1 <= n <= 128; hd in {4, 8, 16}. Launches on `stream`
+// NULL for no mask; 1 <= n <= 128; hd in {4, 8, 16}; the backward moves
+// q, k, v, o, go, dq, dk, dv as float4, so their pointers must be 16-byte
+// aligned (the wrapper checks). Launches on `stream`
 // (a cudaStream_t passed as a pointer) and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape the kernels do not take.
 
@@ -443,13 +554,41 @@ extern "C" int idee_window_attention_bwd(
   }
 }
 
-// dbias [E] = the sum of part [n_blocks, E] over its first axis, in order.
+// dbias [E] = the sum of part [n_blocks, E] over its first axis, in the
+// order of dbias_sum_kernel: blocks of `out` outputs x `chunks` runs of the
+// partials (out * chunks <= 1024 threads).
 extern "C" int idee_window_attention_dbias_sum(const float* part,
                                                float* dbias, int n_blocks,
-                                               int64_t E, void* stream) {
+                                               int64_t E, int out, int chunks,
+                                               void* stream) {
   if (E <= 0) return (int)cudaSuccess;
-  const int64_t blocks = (E + 255) / 256;
-  dbias_sum_kernel<<<(unsigned int)blocks, 256, 0, (cudaStream_t)stream>>>(
-      part, dbias, n_blocks, E);
+  if (n_blocks < 1 || out < 1 || chunks < 1 || out * chunks > 1024)
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (E + out - 1) / out;
+  const int threads = out * chunks;
+  dbias_sum_kernel<<<(unsigned int)blocks, threads, threads * sizeof(float),
+                     (cudaStream_t)stream>>>(part, dbias, n_blocks, E, out,
+                                             chunks);
   return (int)cudaGetLastError();
+}
+
+// The backward kernel's shared memory per block (bwd_smem_bytes) and its
+// resident blocks per SM on the current device, at window n, head width hd,
+// with (masked != 0) or without a mask.
+extern "C" int idee_window_attention_bwd_occupancy(int n, int hd, int masked,
+                                                   int* smem_bytes,
+                                                   int* blocks_per_sm) {
+  if (n < 1 || n > kThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(n, hd, masked != 0);
+  *smem_bytes = (int)smem;
+  switch (hd) {
+    case 4:
+      return bwd_occupancy<4>(smem, blocks_per_sm);
+    case 8:
+      return bwd_occupancy<8>(smem, blocks_per_sm);
+    case 16:
+      return bwd_occupancy<16>(smem, blocks_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

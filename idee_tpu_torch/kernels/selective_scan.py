@@ -33,6 +33,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from idee_tpu_torch.kernels import build
+
 FUSED_FWD = "selective_scan_fused_n1_fwd"
 LINEAR_SCAN = "linear_scan"
 # the csrc/<source>.cu of each kernel
@@ -55,8 +57,6 @@ def _launch(kernel: str, tensors, *scalars):
     """Run ``kernel`` on the current stream of the tensors' card; count the
     launch. ``tensors``: the kernel's pointer arguments in order (None
     passes NULL), then ``scalars``."""
-    from idee_tpu_torch.kernels import build
-
     dev = next(t.device for t in tensors if t is not None)
     fn = build.c_function(SOURCES[kernel], *_SIGNATURES[kernel])
     build.call(fn, kernel, dev, [*tensors, *scalars])

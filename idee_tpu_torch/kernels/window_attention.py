@@ -10,7 +10,8 @@ CUDA kernels in ``csrc/window_attention.cu``, built by ``kernels/build.py``:
     the bias gradient;
   * the sum of those partials, in a fixed order, into dbias: a launch of
     its own, so the bias gradient takes no float atomics and two runs give
-    the same bits.
+    the same bits (``dbias_sum``; ``dbias_sum_plain`` adds in the same
+    order).
 
 ``window_attention`` is a ``torch.autograd.Function``: its forward saves q,
 k, v, bias and the output, its backward is the backward kernels; bias gets
@@ -30,9 +31,12 @@ compute_shift_mask``), or a dense [nW, n, n] tensor.
 # ------------------------------------------------------------------
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from idee_tpu_torch.kernels import build
 
 ATTN_FWD = "window_attention_fwd"
 ATTN_BWD = "window_attention_bwd"
@@ -52,6 +56,11 @@ MAX_TOKENS = 128
 # per head, so this bounds the partials' memory (~2,000 blocks in all keep
 # every SM busy at the bench width)
 _BWD_BLOCKS = 2048
+# the dbias sum's grid (dbias_sum_shape): the H100's SMs, the threads it
+# aims to keep in flight, the fewest partials a chunk sums
+_SMS = 132
+_SUM_THREADS = 65_536
+_SUM_MIN_CHUNK = 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -61,15 +70,13 @@ _SIGNATURES = {
     ATTN_BWD: ("idee_window_attention_bwd",
                [_P] * 12 + [_I] * 6 + [_F, _P]),
     DBIAS_SUM: ("idee_window_attention_dbias_sum",
-                [_P, _P, _I, ctypes.c_int64, _P]),
+                [_P, _P, _I, ctypes.c_int64, _I, _I, _P]),
 }
 
 Mask = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
 def _launch(kernel: str, device: torch.device, *args):
-    from idee_tpu_torch.kernels import build
-
     fn = build.c_function(SOURCES[kernel], *_SIGNATURES[kernel])
     build.call(fn, kernel, device, args)
     launches[kernel] += 1
@@ -112,6 +119,10 @@ def _check(q, k, v, bias):
             raise ValueError(f"{name}: expected float32, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, not {q.device}")
+        # the backward kernel moves rows as float4
+        if t.device.type == "cuda" and t.data_ptr() % 16 != 0:
+            raise ValueError(f"{name}: the kernels need data that starts "
+                             "16-byte aligned")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
     if hd not in HEAD_DIMS:
@@ -162,6 +173,41 @@ def window_attention_bwd_plain(q, k, v, bias, mask, scale: float, o, g):
     return dq, dk, dv, ds.sum(0)
 
 
+@functools.lru_cache(maxsize=64)
+def dbias_sum_shape(n_blocks: int, E: int) -> Tuple[int, int]:
+    """(outputs per block, chunks) of the dbias sum over part [n_blocks,
+    E]: a pure function of the shape, so a sum always adds in the same
+    order. Outputs per block halve from 32 (a warp's 128-byte row) while
+    the blocks would not cover the SMs; chunks of the partial axis double
+    while the grid stays under _SUM_THREADS threads and each chunk keeps
+    _SUM_MIN_CHUNK partials."""
+    out = 32
+    while out > 4 and -(-E // out) < _SMS:
+        out //= 2
+    chunks = 1
+    while (out * chunks < 1024 and E * chunks < _SUM_THREADS
+           and n_blocks // (2 * chunks) >= _SUM_MIN_CHUNK):
+        chunks *= 2
+    return out, chunks
+
+
+def dbias_sum_plain(part):
+    """Plain PyTorch version of the dbias sum, [n_blocks, ...] -> [...],
+    adding in the kernel's order: the partials split into ``chunks`` runs
+    of ceil(n_blocks / chunks), each summed from 0 in partial order, then
+    the run sums added in run order."""
+    n_blocks = part.shape[0]
+    _, chunks = dbias_sum_shape(n_blocks, part.numel() // n_blocks)
+    run = -(-n_blocks // chunks)
+    total = None
+    for c in range(chunks):
+        s = torch.zeros_like(part[0])
+        for b in range(c * run, min((c + 1) * run, n_blocks)):
+            s = s + part[b]
+        total = s if total is None else total + s
+    return total
+
+
 # ---------------------------------------------------------------- dispatch
 
 def bwd_blocks(BW: int, n: int, G: int) -> int:
@@ -193,15 +239,47 @@ def _backward(q, k, v, bias, bank, idx, scale: float, o, g):
             q, k, v, bias, (bank, idx) if bank is not None else None, scale,
             o, g)
     BW, n, G, hd = q.shape
+    if g.data_ptr() % 16 != 0:  # float4 rows: a copy starts aligned
+        g = g.clone()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     n_blocks = bwd_blocks(BW, n, G)
     part = torch.empty((n_blocks, G, n, n), device=q.device)
     nW = idx.shape[0] if idx is not None else 1
     _launch(ATTN_BWD, q.device, q, k, v, bias, bank, idx, o, g, dq, dk, dv,
             part, BW, n, G, hd, nW, n_blocks, float(scale))
-    dbias = torch.empty_like(bias)
-    _launch(DBIAS_SUM, q.device, part, dbias, n_blocks, G * n * n)
-    return dq, dk, dv, dbias
+    return dq, dk, dv, dbias_sum(part)
+
+
+def dbias_sum(part):
+    """The sum of part [n_blocks, ...] over its first axis, in
+    dbias_sum_plain's order: the kernel on a card, the plain version on
+    the CPU."""
+    if part.device.type == "cpu":
+        return dbias_sum_plain(part)
+    if part.device.type != "cuda" or part.dtype != torch.float32:
+        raise ValueError(f"dbias sum: no kernel for {part.dtype} on "
+                         f"{part.device}")
+    n_blocks = part.shape[0]
+    E = part.numel() // n_blocks
+    dbias = part.new_empty(part.shape[1:])
+    _launch(DBIAS_SUM, part.device, part, dbias, n_blocks, E,
+            *dbias_sum_shape(n_blocks, E))
+    return dbias
+
+
+def bwd_occupancy(n: int, hd: int, masked: bool) -> Tuple[int, int]:
+    """(shared-memory bytes per block, resident blocks per SM) of the
+    backward kernel at window n and head width hd, as the current card's
+    occupancy calculator gives them. Launches nothing."""
+    fn = build.c_function(
+        SOURCES[ATTN_BWD], "idee_window_attention_bwd_occupancy",
+        [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)])
+    smem, blocks = _I(), _I()
+    torch.cuda.current_device()  # initialises the card's context
+    err = fn(n, hd, int(masked), ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return smem.value, blocks.value
 
 
 class _WindowAttention(torch.autograd.Function):

@@ -224,6 +224,56 @@ def test_rejects_bad_inputs(bad):
         wa.window_attention(*args, 0.35)
 
 
+# partials [n_blocks, G, n, n] of the dbias sum: the backward's at the bench
+# stage shapes (171 blocks per head at G = 12), and a ragged one (E = 3 x 7
+# x 7 = 147 outputs, not a multiple of 32; 45 partials, not a multiple of
+# its 4 chunks)
+SUM_SHAPES = {"stage0": (171, 12, 32), "stage1": (171, 12, 8),
+              "ragged": (45, 3, 7)}
+
+
+def _partials(n_blocks, G, n, seed=6):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.normal(size=(n_blocks, G, n, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", ["stage0", "ragged"])
+def test_dbias_sum_plain_matches_torch_sum(shape):
+    part = _partials(*SUM_SHAPES[shape])
+    n_blocks, E = part.shape[0], part[0].numel()
+    out, chunks = wa.dbias_sum_shape(n_blocks, E)
+    if shape == "ragged":
+        assert E % 32 != 0 and n_blocks % chunks != 0
+    assert out * chunks <= 1024 and 1 <= chunks <= n_blocks
+    want = part.sum(0)
+    # float32 sums of 45-171 unit normals in two orders: rounding of ~1e-6
+    # of the largest sum
+    torch.testing.assert_close(wa.dbias_sum_plain(part), want, rtol=1e-6,
+                               atol=1e-6 * want.abs().max().item())
+
+
+def test_dbias_sum_on_cpu_runs_the_plain_version_and_counts_no_launch():
+    part = _partials(*SUM_SHAPES["ragged"])
+    before = dict(wa.launches)
+    assert torch.equal(wa.dbias_sum(part), wa.dbias_sum_plain(part))
+    assert wa.launches == before
+
+
+def test_dbias_sum_shape_spreads_every_stage_over_the_card():
+    """Each stage's sum takes at least one block per SM, chunks of at least
+    _SUM_MIN_CHUNK partials, and a pure function of the shape."""
+    for n_blocks, G, n in SUM_SHAPES.values():
+        E = G * n * n
+        out, chunks = wa.dbias_sum_shape(n_blocks, E)
+        assert wa.dbias_sum_shape(n_blocks, E) == (out, chunks)
+        assert n_blocks // chunks >= wa._SUM_MIN_CHUNK
+        if E >= 4 * wa._SMS:
+            assert -(-E // out) >= wa._SMS
+    assert wa.dbias_sum_shape(171, 12 * 32 * 32) == (32, 8)
+    assert wa.dbias_sum_shape(171, 12 * 8 * 8) == (4, 16)
+
+
 # ---------------------------------------------------------------- card only
 
 @pytest.fixture
@@ -246,7 +296,37 @@ CARD_CASES = {
                            mask_geom=(4, 6, 6, (2, 3, 3), (1, 1, 1))),
     "n128_hd16": dict(BW=5, n=128, G=2, hd=16),
     "n8_hd16_ragged": dict(BW=37, n=8, G=5, hd=16),
+    # the backward's largest shared-memory footprint (231,488 B): n=128,
+    # hd=16 with a mask, window (2,8,8) shifted by (1,4,4), 8 windows
+    "n128_hd16_masked": dict(BW=None, n=128, G=2, hd=16,
+                             mask_geom=(4, 16, 16, (2, 8, 8), (1, 4, 4))),
 }
+
+
+def _check_against_plain(ts, m, gt, scale, what="", fwd_rtol=0.0,
+                         dbias_atol_floor=0.0):
+    """One forward and backward through the kernels (one launch each)
+    against the plain versions."""
+    before = dict(wa.launches)
+    o = wa.window_attention(*ts, m, scale)
+    got = torch.autograd.grad(o, ts, gt)
+    torch.cuda.synchronize()
+    assert wa.launches[wa.ATTN_FWD] == before[wa.ATTN_FWD] + 1
+    assert wa.launches[wa.ATTN_BWD] == before[wa.ATTN_BWD] + 1
+    assert wa.launches[wa.DBIAS_SUM] == before[wa.DBIAS_SUM] + 1
+    plain = [t.detach() for t in ts]
+    o_p = wa.window_attention_fwd_plain(*plain, m, scale)
+    want = wa.window_attention_bwd_plain(*plain, m, scale, o_p, gt)
+    torch.testing.assert_close(o, o_p, rtol=fwd_rtol, atol=ATOL,
+                               msg=lambda msg: f"{what} o: {msg}")
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        # dbias sums ds over up to 40,000 windows of both signs: its
+        # rounding error scales with the sum's size, not with an entry
+        # that cancels to near 0
+        atol = (max(DBIAS_REL * b.abs().max().item(), dbias_atol_floor)
+                if name == "dbias" else GRAD_ATOL)
+        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=atol,
+                                   msg=lambda msg: f"{what} {name}: {msg}")
 
 
 @pytest.mark.gpu
@@ -258,30 +338,42 @@ def test_kernels_match_plain_on_card(cuda, case):
           for t in (q, k, v, bias)]
     m = _torch_mask(mask, cuda)
     gt = torch.from_numpy(g).to(cuda)
-    before = dict(wa.launches)
-    o = wa.window_attention(*ts, m, scale)
-    got = torch.autograd.grad(o, ts, gt)
-    torch.cuda.synchronize()
-    assert wa.launches[wa.ATTN_FWD] == before[wa.ATTN_FWD] + 1
-    assert wa.launches[wa.ATTN_BWD] == before[wa.ATTN_BWD] + 1
-    assert wa.launches[wa.DBIAS_SUM] == before[wa.DBIAS_SUM] + 1
-    plain = [t.detach() for t in ts]
-    o_p = wa.window_attention_fwd_plain(*plain, m, scale)
-    want = wa.window_attention_bwd_plain(*plain, m, scale, o_p, gt)
-    torch.testing.assert_close(o, o_p, rtol=0, atol=ATOL)
-    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
-        # dbias sums ds over up to 40,000 windows of both signs: its
-        # rounding error scales with the sum's size, not with an entry
-        # that cancels to near 0
-        atol = (DBIAS_REL * b.abs().max().item() if name == "dbias"
-                else GRAD_ATOL)
-        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=atol,
-                                   msg=lambda msg: f"{name}: {msg}")
+    _check_against_plain(ts, m, gt, scale)
 
 
 @pytest.mark.gpu
-def test_backward_is_bitwise_deterministic_on_card(cuda):
-    q, k, v, g, bias, mask = _case(**CARD_CASES["stage0_shifted"], seed=5)
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("hd", wa.HEAD_DIMS)
+def test_backward_matches_plain_at_every_window_size_on_card(cuda, hd,
+                                                             masked):
+    """n = 1 .. 128 with BW = 2 (128 // n) windows (two window groups of
+    the kernel's blocks) and G = 1; masked: a random 0 / -100 mask per
+    window of two (bank, idx). The forward is held at chip_smoke.py's
+    rtol 1e-5 / atol 1e-5 (hd = 16 rows of unit normals reach 1.1e-5
+    absolute at |o| ~ 1.5). dbias's absolute tolerance has dq's 1e-5 as its
+    floor: at n = 1 (p = 1, so ds = 0) every entry is rounding noise of
+    ~1e-7, and 1e-5 x max |dbias| would ask for 1e-12."""
+    for n in range(1, wa.MAX_TOKENS + 1):
+        BW = 2 * (wa.MAX_TOKENS // n)
+        q, k, v, g, bias, _ = _case(BW, n, 1, hd, seed=n)
+        m = None
+        if masked:
+            rng = np.random.default_rng(1000 + n)
+            bank = np.where(rng.random((2, n, n)) < 0.3, -100.0,
+                            0.0).astype(np.float32)
+            m = (torch.from_numpy(bank).to(cuda),
+                 torch.tensor([0, 1], dtype=torch.int32, device=cuda))
+        ts = [torch.from_numpy(t).to(cuda).requires_grad_()
+              for t in (q, k, v, bias)]
+        _check_against_plain(ts, m, torch.from_numpy(g).to(cuda),
+                             hd ** -0.5, what=f"n={n}", fwd_rtol=1e-5,
+                             dbias_atol_floor=GRAD_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["stage0", "stage0_shifted", "stage1"])
+def test_backward_is_bitwise_deterministic_on_card(cuda, case):
+    q, k, v, g, bias, mask = _case(**CARD_CASES[case], seed=5)
     ts = [torch.from_numpy(t).to(cuda).requires_grad_()
           for t in (q, k, v, bias)]
     m = _torch_mask(mask, cuda)
@@ -290,3 +382,30 @@ def test_backward_is_bitwise_deterministic_on_card(cuda):
             for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(SUM_SHAPES))
+def test_dbias_sum_kernel_is_bit_equal_to_plain_on_card(cuda, shape):
+    """The stage shapes (stage 0 shifted sums partials of stage 0's shape)
+    and the ragged one."""
+    part = _partials(*SUM_SHAPES[shape]).to(cuda)
+    before = wa.launches[wa.DBIAS_SUM]
+    got = wa.dbias_sum(part)
+    torch.cuda.synchronize()
+    assert wa.launches[wa.DBIAS_SUM] == before + 1
+    assert torch.equal(got, wa.dbias_sum_plain(part))
+
+
+@pytest.mark.gpu
+def test_misaligned_cuda_view_is_refused(cuda):
+    """The backward moves rows as float4: a contiguous view that starts 4
+    bytes into its storage is refused, not read misaligned."""
+    q, k, v, _, bias, _ = _case(6, 8, 2, 8)
+    k, v, bias = (torch.from_numpy(t).to(cuda) for t in (k, v, bias))
+    base = torch.zeros(q.size + 1, device=cuda)
+    base[1:] = torch.from_numpy(q).reshape(-1).to(cuda)
+    q_view = base[1:].view(q.shape)
+    assert q_view.is_contiguous() and q_view.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        wa.window_attention(q_view, k, v, bias, None, 0.35)
