@@ -1,26 +1,27 @@
 # ------------------------------------------------------------------
 """Selective-scan kernels of the Mamba encoder, with their gradients.
 
-Counterpart of idee_tpu/kernels/selective_scan.py. Two hand-written CUDA
+Counterpart of idee_tpu/kernels/selective_scan.py. Three hand-written CUDA
 kernels, built by ``kernels/build.py``:
 
   * ``csrc/selective_scan.cu``: the fused d_state=1 scan forward
     (``fused_selective_scan_n1``), producers, recurrence and consumers in
-    one pass;
+    one pass; and its backward (``fused_scan_n1_bwd``), the JAX package's
+    custom VJP ``_fused_bwd`` in one reverse pass;
   * ``csrc/linear_scan.cu``: the linear recurrence h_t = a_t h_{t-1} + b_t,
-    forward or reverse in time (``linear_scan``, and the backward of both
-    ops).
+    forward or reverse in time (``linear_scan``, and its backward).
 
 Both public ops are ``torch.autograd.Function``s whose backward is the JAX
-package's custom VJP term by term: the elementwise producers and consumers
-and the column sums are PyTorch ops (the JAX package leaves them to XLA),
-and the reverse-time recurrence is the linear-scan kernel run in reverse.
+package's custom VJP term by term. The fused scan's backward is one kernel
+launch; ``linear_scan``'s is the linear-scan kernel run in reverse plus
+two PyTorch products (the JAX package leaves them to XLA).
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain version (``fused_selective_scan_n1_plain``,
-``linear_scan_plain``: PyTorch loops over t of the same elementwise math),
-which is also what the tests and ``chip_smoke.py`` hold the kernels
-against. So CPU and card differ only in which scan runs.
+``fused_selective_scan_n1_bwd_plain``, ``linear_scan_plain``: PyTorch ops
+and loops over t of the same elementwise math), which is also what the
+tests and ``chip_smoke.py`` hold the kernels against. So CPU and card
+differ only in which scan runs.
 
 Layout: the scanned tensors are [L, M] float32, contiguous, with the huge
 M axis (windows x variables x channels) minor; A and D are [M].
@@ -36,18 +37,21 @@ import torch.nn.functional as F
 from idee_tpu_torch.kernels import build
 
 FUSED_FWD = "selective_scan_fused_n1_fwd"
+FUSED_BWD = "selective_scan_fused_n1_bwd"
 LINEAR_SCAN = "linear_scan"
 # the csrc/<source>.cu of each kernel
-SOURCES = {FUSED_FWD: "selective_scan", LINEAR_SCAN: "linear_scan"}
+SOURCES = {FUSED_FWD: "selective_scan", FUSED_BWD: "selective_scan",
+           LINEAR_SCAN: "linear_scan"}
 
 # launches of each CUDA kernel in this process; the plain CPU versions do
 # not count
-launches: Dict[str, int] = {FUSED_FWD: 0, LINEAR_SCAN: 0}
+launches: Dict[str, int] = {FUSED_FWD: 0, FUSED_BWD: 0, LINEAR_SCAN: 0}
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     # symbol, argtypes
     FUSED_FWD: ("idee_fused_scan_n1_fwd", [_P] * 9 + [_I64, _I64, _P]),
+    FUSED_BWD: ("idee_fused_scan_n1_bwd", [_P] * 16 + [_I64, _I64, _P]),
     LINEAR_SCAN: ("idee_linear_scan", [_P] * 3 + [_I64, _I64, ctypes.c_int,
                                                   _P]),
 }
@@ -188,11 +192,52 @@ def _fused_fwd(delta, u, B, C, z, A, D, return_h: bool):
     return y, h
 
 
+def fused_selective_scan_n1_bwd_plain(delta, u, B, C, z, A, D, h, g):
+    """Plain PyTorch version of the backward kernel, JAX's ``_fused_bwd``
+    (idee_tpu/kernels/selective_scan.py:288-310) term by term: from the
+    saved inputs, h and the output gradient g [L, M], returns (ddelta, du,
+    dB, dC, dz) [L, M] and (dA, dD) [M]. The reverse-time recurrence
+    G_t = a_{t+1} G_{t+1} + dh_t runs through ``linear_scan_plain``."""
+    sig = torch.sigmoid(z)
+    sz = z * sig
+    y_lin = C * h + D * u
+    dy = g * sz
+    dz = g * y_lin * (sig * (1.0 + z * (1.0 - sig)))
+    dC = dy * h
+    dD = torch.sum(dy * u, dim=0)
+    du = dy * D
+    dh = dy * C
+
+    a = torch.exp(delta * A)
+    G = linear_scan_plain(_shift_left(a), dh, reverse=True)
+    da = G * _shift_right(h)
+    ddelta = da * a * A + G * u * B
+    du = du + G * delta * B
+    dB = G * delta * u
+    dA = torch.sum(da * a * delta, dim=0)
+    return ddelta, du, dB, dC, dz, dA, dD
+
+
+def fused_scan_n1_bwd(delta, u, B, C, z, A, D, h, g):
+    """The fused scan's gradients (ddelta, du, dB, dC, dz, dA, dD) from the
+    saved inputs, h and the output gradient g: the backward kernel on a
+    card, the plain version on the CPU."""
+    L, M = _check_fused(delta, u, B, C, z, A, D)
+    _check([("h", (L, M)), ("g", (L, M))], [h, g], delta)
+    if delta.device.type == "cpu":
+        return fused_selective_scan_n1_bwd_plain(delta, u, B, C, z, A, D, h,
+                                                 g)
+    grads = [torch.empty_like(delta) for _ in range(5)]
+    dA, dD = torch.empty_like(A), torch.empty_like(D)
+    _launch(FUSED_BWD, [delta, u, B, C, z, A, D, h, g, *grads, dA, dD], L,
+            M)
+    return (*grads, dA, dD)
+
+
 class _FusedScanN1(torch.autograd.Function):
     """fused_selective_scan_n1 with JAX's custom VJP (``_fused_fwd`` /
     ``_fused_bwd``, idee_tpu/kernels/selective_scan.py:283-310): the forward
-    keeps h, the backward recomputes a = exp(delta A) and runs the
-    reverse-time recurrence of dh through the linear-scan kernel."""
+    keeps h, the backward is one launch of the backward kernel."""
 
     @staticmethod
     def forward(ctx, delta, u, B, C, z, A, D):
@@ -202,25 +247,7 @@ class _FusedScanN1(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        delta, u, B, C, z, A, D, h = ctx.saved_tensors
-        sig = torch.sigmoid(z)
-        sz = z * sig
-        y_lin = C * h + D * u
-        dy = g * sz
-        dz = g * y_lin * (sig * (1.0 + z * (1.0 - sig)))
-        dC = dy * h
-        dD = torch.sum(dy * u, dim=0)
-        du = dy * D
-        dh = (dy * C).contiguous()
-
-        a = torch.exp(delta * A)
-        G = linear_scan_2d(_shift_left(a), dh, reverse=True)
-        da = G * _shift_right(h)
-        ddelta = da * a * A + G * u * B
-        du = du + G * delta * B
-        dB = G * delta * u
-        dA = torch.sum(da * a * delta, dim=0)
-        return ddelta, du, dB, dC, dz, dA, dD
+        return fused_scan_n1_bwd(*ctx.saved_tensors, g.contiguous())
 
 
 def fused_selective_scan_n1(delta, u, B, C, z, A, D, return_h: bool = False):
