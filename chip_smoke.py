@@ -11,17 +11,21 @@ Phases, each printing one JSON line:
   2. kernel      each kernel against its plain PyTorch version at the shapes
                  the main paths give it (max abs error, stated tolerance),
                  then both timed with CUDA events beside the card's least
-                 possible time: the fused scan forward, the linear scan
-                 forward and reverse (plus a long L=200 check), the fused
-                 scan's backward through its autograd Function; then the
-                 window-attention forward, backward and dbias sum at the
-                 Swin_3D stage shapes (stage 0 unshifted and shifted with
-                 the real shift mask, stage 1), two backward runs compared
-                 bit for bit, the backward's shared memory per block and
-                 resident blocks per SM, and PyTorch's
-                 scaled_dot_product_attention timed on the same inputs as
-                 the yardstick; the dbias sum also by its profiler device
-                 time and host us per launch, beside torch.sum's
+                 possible time: the fused scan forward; the linear scan
+                 forward and reverse at the d_state=2 path's shapes (plus a
+                 long L=200 check); the fused scan's backward kernel alone,
+                 two runs compared bit for bit, beside the PyTorch
+                 composition it replaced (ops around the reverse linear
+                 scan), and the autograd Function against autograd through
+                 the plain forward loop; then the window-attention forward,
+                 backward and dbias sum at the Swin_3D stage shapes (stage 0
+                 unshifted and shifted with the real shift mask, stage 1),
+                 two forward and two backward runs compared bit for bit,
+                 both kernels' shared memory per block and resident blocks
+                 per SM, and PyTorch's scaled_dot_product_attention timed on
+                 the same inputs as the yardstick; the dbias sum also by its
+                 profiler device time and host us per launch, beside
+                 torch.sum's
   3. main        synthetic evaluation (train.evaluate.test_synthetic) with
                  the Mamba encoder at the bench width: 6 variables x 1
                  channel, delta_t=8, 200x200, batch 1, random weights from
@@ -34,12 +38,19 @@ Phases, each printing one JSON line:
                  steady train steps/s, peak memory, a profile of one train
                  step, and one train step's gradients with the kernels
                  against the plain scans
-  5. main_swin   phase 3 with the Swin_3D encoder (the attention forward
+  5. train_mamba_dstate2
+                 phase 4 with d_state=[2,2] for 1 epoch, no resume: the
+                 linear-scan kernel forward and reverse, no fused scan
+  6. main_swin   phase 3 with the Swin_3D encoder (the attention forward
                  kernel, no scan), plain attention for the comparison
-  6. train_swin  phase 4 with Swin_3D (attention forward, backward and
+  7. train_swin  phase 4 with Swin_3D (attention forward, backward and
                  dbias-sum kernels), without the resume (Mamba's covers the
                  encoder-agnostic driver)
-  7. kernels     one line listing every kernel: route, source, launches by
+  8. main_cnn, train_cnn
+                 phases 3 and 4 with the CNN_3D encoder (1 epoch, no
+                 resume): no kernel, so every counter must stay 0 and there
+                 is no plain-op comparison
+  9. kernels     one line listing every kernel: route, source, launches by
                  path, error and times
 The card's name and power limit stand on a line of their own, and the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -59,13 +70,18 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 LOG_DIR = os.path.join(REPO, "build", "chip_smoke_log")
 
-# (L, M) of the scans per launch at the bench width, batch 1: stage 0
+# (L, M) of the fused scan per launch at the bench width, batch 1: stage 0
 # (window (2,4,4): 10,000 windows x 6 variables x 16 channels) runs once per
 # block, twice per forward; stage 1 (window (8,1,1): 40,000 windows x 96)
-# once. A train step's backward runs the reverse linear scan at the same
+# once. A train step's backward runs the backward kernel at the same
 # shapes, once per forward launch.
 SCAN_SHAPES = {"stage0": (32, 960_000), "stage1": (8, 3_840_000)}
 LAUNCHES_PER_STEP = {"stage0": 2, "stage1": 1}
+# the linear scan on the d_state=2 path: the same folds with a trailing
+# state axis of 2, forward once per block and in a train step once more in
+# reverse
+D_STATE2 = 2
+LINEAR_SCAN_SHAPES = {s: (L, M * D_STATE2) for s, (L, M) in SCAN_SHAPES.items()}
 # no model window has L > 64; the long check is the TPU's two-level
 # _scan_pallas_2d shape, which the CUDA kernel walks in one pass
 LONG_SCAN = (200, 1_000_000)
@@ -100,6 +116,7 @@ N_WEEKS = 40  # fake cube length: 33 eval samples at delta_t=8
 IS_CLIMA_SCALE = False
 TRAIN_WEEKS, VAL_WEEKS = (1, 24), (25, 40)  # 17 train, 9 val samples
 N_EPOCHS = 2
+N_EPOCHS_SHORT = 1  # the d_state=2 and CNN_3D training paths
 
 
 def _finite(obj):
@@ -212,7 +229,7 @@ def check_fused_forward(ss, bounds):
 
 def check_linear_scan(ss, bounds):
     per_shape = {}
-    shapes = dict(SCAN_SHAPES, long=LONG_SCAN)
+    shapes = dict(LINEAR_SCAN_SHAPES, long=LONG_SCAN)
     for i, (stage, (L, M)) in enumerate(shapes.items()):
         a, b = scan_inputs(L, M, seed=10 + i)
         row = dict(L=L, M=M)
@@ -235,38 +252,72 @@ def check_linear_scan(ss, bounds):
     return per_shape
 
 
+def fused_scan_bwd_composition(ss, delta, u, B, C, z, A, D, h, g):
+    """The backward the kernel replaced (PR 2): PyTorch elementwise ops and
+    two column sums around one reverse linear-scan launch. Timed beside the
+    kernel, used nowhere in the port."""
+    sig = torch.sigmoid(z)
+    dy = g * (z * sig)
+    dz = g * (C * h + D * u) * (sig * (1.0 + z * (1.0 - sig)))
+    dC = dy * h
+    dD = torch.sum(dy * u, dim=0)
+    a = torch.exp(delta * A)
+    a_next = torch.cat([a[1:], torch.zeros_like(a[:1])])
+    G = ss.linear_scan_2d(a_next, (dy * C).contiguous(), reverse=True)
+    da = G * torch.cat([torch.zeros_like(h[:1]), h[:-1]])
+    ddelta = da * a * A + G * u * B
+    du = dy * D + G * delta * B
+    dB = G * delta * u
+    dA = torch.sum(da * a * delta, dim=0)
+    return ddelta, du, dB, dC, dz, dA, dD
+
+
 def check_fused_backward(ss, bounds):
-    """The Function's backward (the reverse linear-scan kernel and PyTorch
-    ops) against autograd through the plain forward loop."""
+    """The backward kernel alone against its plain version, twice bit for
+    bit, timed beside the composition it replaced; then the autograd
+    Function (forward and backward kernels) against autograd through the
+    plain forward loop."""
     names = ("ddelta", "du", "dB", "dC", "dz", "dA", "dD")
     per_shape = {}
     for i, (stage, (L, M)) in enumerate(SCAN_SHAPES.items()):
-        args = [t.requires_grad_() for t in fused_inputs(L, M, seed=20 + i)]
+        args = fused_inputs(L, M, seed=20 + i)
+        _, h = ss.fused_selective_scan_n1(*args, return_h=True)
         g = torch.randn(L, M, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(i))
-        y = ss.fused_selective_scan_n1(*args)
-        got = torch.autograd.grad(y, args, g)
-        want = torch.autograd.grad(ss.fused_selective_scan_n1_plain(*args)[0],
-                                   args, g)
+        runs = [ss.fused_scan_n1_bwd(*args, h, g) for _ in range(2)]
+        want = ss.fused_selective_scan_n1_bwd_plain(*args, h, g)
         torch.cuda.synchronize()
         err = max(max_err(a, b, f"{stage} {n}", GRAD_RTOL, GRAD_ATOL)
-                  for n, a, b in zip(names, got, want))
-        del got, want
+                  for n, a, b in zip(names, runs[0], want))
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise SystemExit(f"{stage}: two fused backward runs differ")
+        del runs, want
+        ms = cuda_ms(lambda: ss.fused_scan_n1_bwd(*args, h, g), iters=20)
+        composition_ms = cuda_ms(
+            lambda: fused_scan_bwd_composition(ss, *args, h, g), iters=5)
+        plain_ms = cuda_ms(
+            lambda: ss.fused_selective_scan_n1_bwd_plain(*args, h, g),
+            iters=3, warmup=1)
 
-        def fwd_bwd():
-            torch.autograd.grad(ss.fused_selective_scan_n1(*args), args, g)
-
-        def fwd():
-            with torch.no_grad():
-                ss.fused_selective_scan_n1(*args, return_h=True)
-
-        bwd_ms = cuda_ms(fwd_bwd, iters=10) - cuda_ms(fwd, iters=10)
+        leaves = [t.clone().requires_grad_() for t in args]
+        got = torch.autograd.grad(ss.fused_selective_scan_n1(*leaves),
+                                  leaves, g)
+        want = torch.autograd.grad(
+            ss.fused_selective_scan_n1_plain(*leaves)[0], leaves, g)
+        torch.cuda.synchronize()
+        function_err = max(max_err(a, b, f"{stage} Function {n}", GRAD_RTOL,
+                                   GRAD_ATOL)
+                           for n, a, b in zip(names, got, want))
+        del got, want, leaves
         bound_ms, bound_by = bounds.fused_scan_bwd(L, M)
-        per_shape[stage] = dict(L=L, M=M, max_abs_err=err,
-                                backward_ms=bwd_ms, bound_ms=bound_ms,
-                                bound_by=bound_by,
-                                share_of_bound=bound_ms / bwd_ms)
-        del args, y, g
+        per_shape[stage] = dict(
+            L=L, M=M, max_abs_err=err, bitwise_deterministic=True,
+            function_vs_autograd_max_abs_err=function_err, ms=ms,
+            plain_ms=plain_ms, composition_ms=composition_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms)
+        del args, h, g
+        torch.cuda.empty_cache()
     return per_shape
 
 
@@ -383,6 +434,9 @@ def check_attention(bounds):
         o_p = wa.window_attention_fwd_plain(q, k, v, bias, mask, scale)
         torch.cuda.synchronize()
         fwd_err = max_err(o, o_p, f"{stage} forward", ATTN_RTOL, ATTN_ATOL)
+        if not torch.equal(o, wa.window_attention(q, k, v, bias, mask,
+                                                  scale)):
+            raise SystemExit(f"{stage}: two forward runs differ")
 
         # backward through the Function, twice
         leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
@@ -428,11 +482,13 @@ def check_attention(bounds):
         sdpa_fwd, sdpa_bwd, sdpa_err = sdpa_times(q, k, v, go, bias, mask,
                                                   scale, o_p)
         row = dict(BW=BW, n=n, G=ATTN_G, hd=ATTN_HD, shifted=geom is not None)
+        fwd_smem, fwd_per_sm = wa.fwd_occupancy(n, ATTN_HD, geom is not None)
         row["forward"] = dict(
-            max_abs_err=fwd_err, ms=ms,
+            max_abs_err=fwd_err, bitwise_deterministic=True, ms=ms,
             plain_ms=cuda_ms(lambda: wa.window_attention_fwd_plain(
                 q, k, v, bias, mask, scale), iters=5, warmup=1),
-            library_ms=sdpa_fwd, library_max_abs_err=sdpa_err)
+            library_ms=sdpa_fwd, library_max_abs_err=sdpa_err,
+            smem_bytes_per_block=fwd_smem, blocks_per_sm=fwd_per_sm)
         smem, per_sm = wa.bwd_occupancy(n, ATTN_HD, geom is not None)
         row["backward"] = dict(
             max_abs_err=bwd_err, bitwise_deterministic=bitwise, ms=bwd_ms,
@@ -475,7 +531,7 @@ def phase_kernel():
          attention_dbias_atol_over_max=DBIAS_REL,
          **{ss.FUSED_FWD: fused, ss.LINEAR_SCAN: scan,
             "fused_scan_backward": backward, "window_attention": attention})
-    return fused, scan, attention
+    return fused, scan, backward, attention
 
 
 def zero_launches():
@@ -518,15 +574,19 @@ def plain_ops(encoder: str):
         setattr(mod, name, kernel_op)
 
 
-def kernel_launches_per_step(encoder: str, train: bool):
+def kernel_launches_per_step(encoder: str, train: bool, d_state: int = 1):
     """Launches per train (or eval / val) step at the bench width: three
     blocks, one launch each of the forward kernel, and in a train step of
-    each backward kernel."""
+    each backward kernel (at d_state > 1 the linear scan is both)."""
     ss, wa = kernel_modules()
+    if encoder == "Mamba" and d_state == 1:
+        return {ss.FUSED_FWD: 3, **({ss.FUSED_BWD: 3} if train else {})}
     if encoder == "Mamba":
-        return {ss.FUSED_FWD: 3, **({ss.LINEAR_SCAN: 3} if train else {})}
-    return {wa.ATTN_FWD: 3,
-            **({wa.ATTN_BWD: 3, wa.DBIAS_SUM: 3} if train else {})}
+        return {ss.LINEAR_SCAN: 6 if train else 3}
+    if encoder == "Swin_3D":
+        return {wa.ATTN_FWD: 3,
+                **({wa.ATTN_BWD: 3, wa.DBIAS_SUM: 3} if train else {})}
+    return {}  # CNN_3D runs no kernel
 
 
 def profile_steps(run_step, n: int):
@@ -565,10 +625,14 @@ def profile_steps(run_step, n: int):
                                 for ms, k in rows[:14]])
 
 
+EVAL_PHASES = {"Mamba": "main", "Swin_3D": "main_swin", "CNN_3D": "main_cnn"}
+
+
 def phase_eval(cube, encoder: str):
-    """Phase main (Mamba) or main_swin: test_synthetic at the bench width,
-    launches counted; steady steps/s; a profile; the forward with the
-    kernels against the forward with the plain op."""
+    """Phase main (Mamba), main_swin or main_cnn: test_synthetic at the
+    bench width, launches counted; steady steps/s; a profile; the forward
+    with the kernels against the forward with the plain op (CNN_3D has no
+    kernel, so no plain op)."""
     from idee_tpu_torch.config import synthetic_config
     from idee_tpu_torch.data.loader import DataLoader
     from idee_tpu_torch.data.synthetic import SyntheticDataset
@@ -629,22 +693,24 @@ def phase_eval(cube, encoder: str):
     profile = profile_steps(lambda: step(metrics, next(batches)), n=5)
 
     # --- one forward with the plain op, against the kernel's
-    x = torch.from_numpy(ds[0]["x"][None]).cuda()
-    with torch.inference_mode():
-        out_k = model(x)
-        with plain_ops(encoder):
-            out_p = model(x)
-    logit_err = max((out_k.z - out_p.z).abs().max().item(),
-                    (out_k.y - out_p.y).abs().max().item())
-    bits_agree = (out_k.anomaly == out_p.anomaly).float().mean().item()
-    if not (torch.isfinite(out_k.z).all() and logit_err <= 1e-4
-            and bits_agree >= 0.999):
-        raise SystemExit(f"{encoder}: kernel forward disagrees with the "
-                         f"plain one: logit err {logit_err}, bits agree "
-                         f"{bits_agree}")
+    logit_err = bits_agree = None
+    if encoder != "CNN_3D":
+        x = torch.from_numpy(ds[0]["x"][None]).cuda()
+        with torch.inference_mode():
+            out_k = model(x)
+            with plain_ops(encoder):
+                out_p = model(x)
+        logit_err = max((out_k.z - out_p.z).abs().max().item(),
+                        (out_k.y - out_p.y).abs().max().item())
+        bits_agree = (out_k.anomaly == out_p.anomaly).float().mean().item()
+        if not (torch.isfinite(out_k.z).all() and logit_err <= 1e-4
+                and bits_agree >= 0.999):
+            raise SystemExit(f"{encoder}: kernel forward disagrees with the "
+                             f"plain one: logit err {logit_err}, bits agree "
+                             f"{bits_agree}")
 
-    phase = "main" if encoder == "Mamba" else "main_swin"
-    emit(phase=phase, encoder=cfg.encoder, shape=[1, 6, 1, 8, 200, 200],
+    emit(phase=EVAL_PHASES[encoder], encoder=cfg.encoder,
+         shape=[1, 6, 1, 8, 200, 200],
          metrics=result, steps=n_steps, launches=launches,
          launches_per_step={k: v / n_steps for k, v in launches.items()},
          wall_s_with_setup=wall_s, steady_steps_per_s=steps_per_s,
@@ -656,14 +722,15 @@ def phase_eval(cube, encoder: str):
     return launches
 
 
-def train_config(encoder: str):
+def train_config(encoder: str, d_state: int = 1, n_epochs: int = N_EPOCHS):
     from idee_tpu_torch.config import synthetic_config
 
     return synthetic_config(encoder=encoder, x_max=200, y_max=200,
                             times_train=TRAIN_WEEKS, times_val=VAL_WEEKS,
-                            n_epochs=N_EPOCHS, is_aug=False, batch_size=1,
+                            n_epochs=n_epochs, is_aug=False, batch_size=1,
                             is_clima_scale=IS_CLIMA_SCALE, dir_log=LOG_DIR,
-                            name=f"chip_smoke_train_{encoder}")
+                            d_state=[d_state, d_state],
+                            name=f"chip_smoke_train_{encoder}_n{d_state}")
 
 
 def step_gradients(cfg, params, batch, plain: bool):
@@ -685,11 +752,14 @@ def step_gradients(cfg, params, batch, plain: bool):
     return {k: p.grad for k, p in model.named_parameters()}
 
 
-def phase_train(cube, encoder: str, resume: bool):
-    """Phase train (Mamba) or train_swin: train_synthetic at the bench width
-    for N_EPOCHS, launches counted; losses, checkpoints, history; with
-    ``resume`` one more epoch from latest; steady train steps/s; a profile;
-    one step's gradients with the kernels against the plain op."""
+def phase_train(cube, encoder: str, phase: str, resume: bool,
+                d_state: int = 1, n_epochs: int = N_EPOCHS,
+                compare_plain: bool = True):
+    """Phase ``phase``: train_synthetic at the bench width for ``n_epochs``,
+    launches counted; losses, checkpoints, history; with ``resume`` one
+    more epoch from latest; steady train steps/s; a profile; with
+    ``compare_plain`` one step's gradients with the kernels against the
+    plain op."""
     import shutil
 
     from idee_tpu_torch.data.loader import DataLoader
@@ -698,7 +768,7 @@ def phase_train(cube, encoder: str, resume: bool):
     from idee_tpu_torch.train.state import create_train_state
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_train_step
 
-    cfg = train_config(encoder)
+    cfg = train_config(encoder, d_state, n_epochs)
     shutil.rmtree(cfg.log_dir, ignore_errors=True)
     train_cube, val_cube = cube.time_slice(*TRAIN_WEEKS), \
         cube.time_slice(*VAL_WEEKS)
@@ -717,15 +787,14 @@ def phase_train(cube, encoder: str, resume: bool):
     launches = read_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
 
-    train_steps, val_steps = N_EPOCHS * n_train, N_EPOCHS * n_val
-    fwd = kernel_launches_per_step(encoder, train=False)
-    want = {k: v * (train_steps + val_steps) for k, v in fwd.items()}
-    for k, v in kernel_launches_per_step(encoder, train=True).items():
-        if k not in fwd:
-            want[k] = v * train_steps
-    expect_launches(launches, want, f"{encoder} train")
+    train_steps, val_steps = n_epochs * n_train, n_epochs * n_val
+    val = kernel_launches_per_step(encoder, train=False, d_state=d_state)
+    trn = kernel_launches_per_step(encoder, train=True, d_state=d_state)
+    want = {k: val.get(k, 0) * val_steps + trn.get(k, 0) * train_steps
+            for k in set(val) | set(trn)}
+    expect_launches(launches, want, phase)
     curves = history["train_loss"] + history["val_loss"]
-    if len(curves) != 2 * N_EPOCHS or not all(map(math.isfinite, curves)):
+    if len(curves) != 2 * n_epochs or not all(map(math.isfinite, curves)):
         raise SystemExit(f"bad loss history: {history}")
     ckpt_dir = os.path.join(cfg.log_dir, "model_checkpoints")
     written = sorted(os.listdir(ckpt_dir))
@@ -738,13 +807,13 @@ def phase_train(cube, encoder: str, resume: bool):
 
     resumed = None
     if resume:  # one more epoch resumes from latest
-        resumed = train_synthetic(cfg.replace(n_epochs=N_EPOCHS + 1),
+        resumed = train_synthetic(cfg.replace(n_epochs=n_epochs + 1),
                                   train_cube=train_cube, val_cube=val_cube,
                                   device="cuda")
-        if (resumed["train_loss"][:N_EPOCHS] != history["train_loss"]
-                or len(resumed["train_loss"]) != N_EPOCHS + 1
-                or resumed["state"].step != (N_EPOCHS + 1) * n_train):
-            raise SystemExit(f"resume did not continue at epoch {N_EPOCHS}:"
+        if (resumed["train_loss"][:n_epochs] != history["train_loss"]
+                or len(resumed["train_loss"]) != n_epochs + 1
+                or resumed["state"].step != (n_epochs + 1) * n_train):
+            raise SystemExit(f"resume did not continue at epoch {n_epochs}:"
                              f" {resumed['train_loss']}")
 
     # --- steady state: train steps from fresh weights, host batch assembly
@@ -774,16 +843,17 @@ def phase_train(cube, encoder: str, resume: bool):
     batches = iter(loader)
     profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3)
 
-    phase = "train" if encoder == "Mamba" else "train_swin"
     emit(phase=phase, encoder=cfg.encoder, shape=[1, 6, 1, 8, 200, 200],
-         epochs=N_EPOCHS, train_steps=train_steps, val_steps=val_steps,
+         d_state=cfg.d_state, epochs=n_epochs, train_steps=train_steps, val_steps=val_steps,
          launches=launches,
          history={k: v for k, v in history.items() if k != "state"},
          resumed_train_loss=resumed and resumed["train_loss"],
          wall_s_with_setup=wall_s, steady_train_steps_per_s=steps_per_s,
          steady_steps_timed=timed, max_memory_allocated=peak_bytes,
          checkpoints=written)
-    emit(phase="profile", path=f"train_{encoder}", **profile)
+    emit(phase="profile", path=phase, **profile)
+    if not compare_plain:
+        return launches
 
     # --- one train step's gradients, kernels against the plain op
     batch = next(iter(loader))
@@ -822,13 +892,22 @@ def main() -> int:
     print(card, flush=True)
 
     phase_build()
-    fused, scan, attn = phase_kernel()
+    fused, scan, backward, attn = phase_kernel()
     cube = make_fake_cube(n_vars=6, n_time=N_WEEKS, height=200, width=200,
                           seed=0)
-    paths = {"eval_mamba": phase_eval(cube, "Mamba"),
-             "train_mamba": phase_train(cube, "Mamba", resume=True),
-             "eval_swin": phase_eval(cube, "Swin_3D"),
-             "train_swin": phase_train(cube, "Swin_3D", resume=False)}
+    paths = {
+        "eval_mamba": phase_eval(cube, "Mamba"),
+        "train_mamba": phase_train(cube, "Mamba", "train", resume=True),
+        "train_mamba_dstate2": phase_train(
+            cube, "Mamba", "train_mamba_dstate2", resume=False,
+            d_state=D_STATE2, n_epochs=N_EPOCHS_SHORT, compare_plain=False),
+        "eval_swin": phase_eval(cube, "Swin_3D"),
+        "train_swin": phase_train(cube, "Swin_3D", "train_swin",
+                                  resume=False),
+        "eval_cnn": phase_eval(cube, "CNN_3D"),
+        "train_cnn": phase_train(cube, "CNN_3D", "train_cnn", resume=False,
+                                 n_epochs=N_EPOCHS_SHORT,
+                                 compare_plain=False)}
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
@@ -869,17 +948,36 @@ def main() -> int:
         "bound_by": fused["stage0"]["bound_by"],
         "library_ms": None,
     }, {
+        # the custom VJP of the ported fused forward (XLA around the Pallas
+        # linear scan in the TPU package)
+        "name": ss.FUSED_BWD, "route": "cuda",
+        "source": "idee_tpu_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "idee_tpu/kernels/selective_scan.py:288",
+        "launches": paths["train_mamba"][ss.FUSED_BWD],
+        "launches_by_path": by_path(ss.FUSED_BWD),
+        "max_abs_err": max(v["max_abs_err"] for v in backward.values()),
+        # times per train step: the backward of each forward launch
+        "ms": per_step(backward, lambda r: r["ms"]),
+        "plain_ms": per_step(backward, lambda r: r["plain_ms"]),
+        "composition_ms": per_step(backward, lambda r: r["composition_ms"]),
+        "bound_ms": per_step(backward, lambda r: r["bound_ms"]),
+        "bound_by": backward["stage0"]["bound_by"],
+        "library_ms": None,
+    }, {
         "name": ss.LINEAR_SCAN, "route": "cuda",
         "source": "idee_tpu_torch/kernels/csrc/linear_scan.cu",
         "replaces": "idee_tpu/kernels/selective_scan.py:75",
-        "launches": paths["train_mamba"][ss.LINEAR_SCAN],
+        "launches": paths["train_mamba_dstate2"][ss.LINEAR_SCAN],
         "launches_by_path": by_path(ss.LINEAR_SCAN),
         "max_abs_err": max(r[d]["max_abs_err"] for r in scan.values()
                            for d in ("forward", "reverse")),
-        # times per train step: the backward's three reverse scans
-        "ms": per_step(scan, lambda r: r["reverse"]["ms"]),
-        "plain_ms": per_step(scan, lambda r: r["reverse"]["plain_ms"]),
-        "bound_ms": per_step(scan, lambda r: r["bound_ms"]),
+        # times per d_state=2 train step: three forward and three reverse
+        # scans
+        "ms": per_step(scan, lambda r: r["forward"]["ms"]
+                       + r["reverse"]["ms"]),
+        "plain_ms": per_step(scan, lambda r: r["forward"]["plain_ms"]
+                             + r["reverse"]["plain_ms"]),
+        "bound_ms": per_step(scan, lambda r: 2 * r["bound_ms"]),
         "bound_by": scan["stage0"]["bound_by"],
         "library_ms": None,
     },

@@ -83,13 +83,15 @@ def window_attention_dbias_sum(n_blocks: int, G: int, n: int):
 BENCH = {
     "selective_scan_fused_n1_fwd": [("stage0", fused_scan_fwd, (32, 960_000)),
                                     ("stage1", fused_scan_fwd, (8, 3_840_000))],
-    "fused_scan_bwd": [("stage0", fused_scan_bwd, (32, 960_000)),
-                       ("stage1", fused_scan_bwd, (8, 3_840_000))],
-    # the reverse scans of the train step's backward; L=200 is no model
-    # window, the long-sequence check of the kernel (the TPU's two-level
-    # _scan_pallas_2d shape)
-    "linear_scan": [("stage0", linear_scan, (32, 960_000)),
-                    ("stage1", linear_scan, (8, 3_840_000)),
+    "selective_scan_fused_n1_bwd": [("stage0", fused_scan_bwd,
+                                     (32, 960_000)),
+                                    ("stage1", fused_scan_bwd,
+                                     (8, 3_840_000))],
+    # the d_state=2 encoder's scans (the same folds with a state axis of 2),
+    # forward and reverse; L=200 is no model window, the long-sequence
+    # check of the kernel (the TPU's two-level _scan_pallas_2d shape)
+    "linear_scan": [("stage0", linear_scan, (32, 1_920_000)),
+                    ("stage1", linear_scan, (8, 7_680_000)),
                     ("long", linear_scan, (200, 1_000_000))],
     "window_attention_fwd": [("stage0", window_attention_fwd,
                               (10_000, 32, 12, 8)),

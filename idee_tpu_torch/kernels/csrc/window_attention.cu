@@ -30,20 +30,26 @@
 // base, and sort the tiles into pattern groups at trace time; all of that
 // answers the MXU and is not carried over: HD = 8 and n = 8 are below every
 // tensor-core tile, so the products are float32 FMAs on the CUDA cores.
-//   * A block takes one head g and wpb = 128 / n windows at a time; thread
-//     (window slot wl, token r) owns one row. Its q/k/v row is HD contiguous
-//     floats, so every 32-byte sector a warp fetches is used whole. Blocks
-//     are numbered head-fastest, so the G blocks that share the windows'
-//     384-byte rows (all heads of a token) run together and each row is
-//     fetched from device memory about once.
-//   * The additive term is staged in shared memory with rows padded to
-//     n + 1 floats: bias[g] once per block, or with a mask bias[g] +
-//     bank[idx[w % nW]] once per window slot. A thread reads its own score
-//     row there; a row-per-thread walk through global memory would touch
-//     one cache line per thread and per key.
-//   * The forward stages the windows' K and V in shared memory and runs an
-//     online softmax (running max and sum) over the n keys, accumulating
-//     the HD outputs in registers: no score matrix leaves the SM.
+//   * The forward (attn_fwd_kernel) computes every score once, with one
+//     expf per score, as the backward's row phase does. A block takes
+//     wpb = 128 / n windows and walks all G heads in a loop; thread (window
+//     slot wl, token i) owns query row i. The rows of the windows' shift
+//     mask, bank[idx[w % nW]] ([wpb][n][n+1]), are staged once for all
+//     heads; per head the block stages bias[g] ([n][n+1]) and K_g, V_g
+//     (rows of HD floats moved as float4). Thread i writes s_ij into its
+//     row of a shared score buffer P [wpb][n][n+1] with the row max m,
+//     then one walk forms e = exp(s_ij - m), their sum l and
+//     sum_j e v_j, and o_i is that over l. While a head computes, each
+//     thread's q, k, v rows of the next head are already loading into
+//     registers. Shared memory (fwd_smem_bytes): K, V 2 wpb (n HD + 4)
+//     floats, P wpb n (n+1), bias n (n+1), mask (masked ? wpb : 0)
+//     n (n+1):
+//       n=32, HD=8: 8,320 + 16,896 + 4,224 = 29,440 B unmasked, 7 blocks
+//         (28 warps) per SM; with the mask 46,336 B, 4 blocks per SM;
+//       n=8, HD=8 (wpb=16): 8,704 + 4,608 + 288 = 13,600 B unmasked;
+//       n=128, HD=16, masked (wpb=1): 16,416 + 3 x 66,048 = 214,560 B,
+//         the largest, under the 232,448 B a block may take.
+//     The grid is ceil(BW / wpb) blocks (2,500 at either stage shape).
 //   * The backward computes every score once, as the TPU kernel does
 //     (s, p and dp of a tile stay in VMEM there). It stages Q, K, V and go
 //     (rows of HD floats moved as float4: HD is 4, 8 or 16 and every row
@@ -89,16 +95,6 @@ __device__ __forceinline__ int64_t row_offset(int w, int i, int g, int n,
   return (((int64_t)w * n + i) * G + g) * hd;
 }
 
-// s_ij without the mask and bias, as the forward computes it
-template <int HD>
-__device__ __forceinline__ float dot_scaled(const float (&qs)[HD],
-                                            const float* k) {
-  float s = 0.0f;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) s = fmaf(qs[d], k[d], s);
-  return s;
-}
-
 // Stage the additive term into add, rows padded to n + 1: without a mask
 // bias[g] once ([n][n+1]); with one, bias[g] + bank[idx[w % nW]] for each
 // window slot wl of windows w0 .. w0 + wpb - 1 ([wpb][n][n+1]).
@@ -119,69 +115,6 @@ __device__ __forceinline__ void stage_additive(
       add[wl * n * srow + (r / n) * srow + r % n] =
           bias_g[r] + bank[(int64_t)idx[w % nW] * nn + r];
   }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ bias,
-                const float* __restrict__ bank, const int* __restrict__ idx,
-                float* __restrict__ o, int BW, int n, int G, int nW, int wpb,
-                float scale) {
-  extern __shared__ float smem[];
-  // per window slot: n rows of HD, then 4 floats of padding so that the
-  // slots of one warp fall on different banks
-  const int slot = n * HD + 4, srow = n + 1;
-  float* ks = smem;
-  float* vs = ks + wpb * slot;
-  float* add = vs + wpb * slot;  // the additive term, see stage_additive
-  const int add_slot = bank != nullptr ? n * srow : 0;
-
-  const int g = blockIdx.x % G, w0 = (blockIdx.x / G) * wpb;
-  const int wl = threadIdx.x / n, i = threadIdx.x % n;
-  const int w = w0 + wl;
-  const bool active = wl < wpb && w < BW;
-  const int64_t row = row_offset(w, i, g, n, G, HD);
-
-  stage_additive(bias, bank, idx, add, g, w0, BW, n, nW, wpb);
-  if (active) {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      ks[wl * slot + i * HD + d] = k[row + d];
-      vs[wl * slot + i * HD + d] = v[row + d];
-    }
-  }
-  __syncthreads();
-  if (!active) return;
-
-  float qs[HD], acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qs[d] = q[row + d] * scale;
-    acc[d] = 0.0f;
-  }
-  const float* arow = add + wl * add_slot + i * srow;
-  const float* kw = ks + wl * slot;
-  const float* vw = vs + wl * slot;
-
-  float m = -INFINITY, l = 0.0f;
-  for (int j = 0; j < n; ++j) {
-    const float s = dot_scaled<HD>(qs, kw + j * HD) + arow[j];
-    if (s > m) {  // a new running max: rescale what was summed so far
-      const float c = expf(m - s);
-      l *= c;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= c;
-      m = s;
-    }
-    const float p = expf(s - m);
-    l += p;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vw[j * HD + d], acc[d]);
-  }
-  const float inv = 1.0f / l;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) o[row + d] = acc[d] * inv;
 }
 
 // a . b over HD, b a float4 row in shared memory, in d order
@@ -223,6 +156,107 @@ __device__ __forceinline__ void store_row(float* dst, const float (&a)[HD],
   for (int c = 0; c < HD / 4; ++c)
     d4[c] = make_float4(a[4 * c] * scale, a[4 * c + 1] * scale,
                         a[4 * c + 2] * scale, a[4 * c + 3] * scale);
+}
+
+// this thread's q, k, v rows at `row` (HD floats each) into registers
+template <int R4>
+__device__ __forceinline__ void load_qkv(const float* __restrict__ q,
+                                         const float* __restrict__ k,
+                                         const float* __restrict__ v,
+                                         int64_t row, float4 (&qr)[R4],
+                                         float4 (&kr)[R4], float4 (&vr)[R4]) {
+  const float4* q4 = reinterpret_cast<const float4*>(q + row);
+  const float4* k4 = reinterpret_cast<const float4*>(k + row);
+  const float4* v4 = reinterpret_cast<const float4*>(v + row);
+#pragma unroll
+  for (int c = 0; c < R4; ++c) {
+    qr[c] = q4[c];
+    kr[c] = k4[c];
+    vr[c] = v4[c];
+  }
+}
+
+template <int HD, bool MASKED>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ bias,
+                const float* __restrict__ bank, const int* __restrict__ idx,
+                float* __restrict__ o, int BW, int n, int G, int nW, int wpb,
+                float scale) {
+  extern __shared__ float4 smem4[];
+  constexpr int R4 = HD / 4;       // float4s per row
+  const int slot4 = (n * HD + 4) / 4;
+  const int srow = n + 1;          // rows of P, the bias and the mask
+  const int p_slot = n * srow;
+  const int nn = n * n;
+  float4* Ks = smem4;
+  float4* Vs = Ks + wpb * slot4;
+  float* P = reinterpret_cast<float*>(Vs + wpb * slot4);  // [wpb][n][n+1]
+  float* Bs = P + wpb * p_slot;    // bias[g] [n][n+1]
+  float* Ms = Bs + p_slot;         // mask rows [wpb][n][n+1] (MASKED)
+
+  const int w0 = blockIdx.x * wpb;
+  const int wl = threadIdx.x / n, i = threadIdx.x % n;
+  const int w = w0 + wl;
+  const bool active = wl < wpb && w < BW;
+  int64_t row = active ? row_offset(w, i, 0, n, G, HD) : 0;
+
+  if (MASKED) {  // the windows' mask rows, once for all heads
+    for (int e = threadIdx.x; e < wpb * nn; e += blockDim.x) {
+      const int sl = e / nn, r = e % nn, ws = w0 + sl;
+      if (ws < BW)
+        Ms[sl * p_slot + (r / n) * srow + r % n] =
+            bank[(int64_t)idx[ws % nW] * nn + r];
+    }
+  }
+  float4 qn[R4], kn[R4], vn[R4];  // this thread's rows of the next head
+  if (active) load_qkv<R4>(q, k, v, row, qn, kn, vn);
+  const float4* Kw = Ks + wl * slot4;
+  const float4* Vw = Vs + wl * slot4;
+  float* prow = P + wl * p_slot + i * srow;
+  const float* brow = Bs + i * srow;
+  const float* mrow = Ms + wl * p_slot + i * srow;
+
+  for (int g = 0; g < G; ++g, row += HD) {
+    if (g > 0) __syncthreads();  // the last head's readers are done
+    float qs[HD];
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < R4; ++c) {
+        Ks[wl * slot4 + i * R4 + c] = kn[c];
+        Vs[wl * slot4 + i * R4 + c] = vn[c];
+        qs[4 * c] = qn[c].x * scale;
+        qs[4 * c + 1] = qn[c].y * scale;
+        qs[4 * c + 2] = qn[c].z * scale;
+        qs[4 * c + 3] = qn[c].w * scale;
+      }
+      if (g + 1 < G) load_qkv<R4>(q, k, v, row + HD, qn, kn, vn);
+    }
+    const float* bias_g = bias + (int64_t)g * nn;
+    for (int e = threadIdx.x; e < nn; e += blockDim.x)
+      Bs[(e / n) * srow + e % n] = bias_g[e];
+    __syncthreads();
+    if (!active) continue;
+
+    // s_ij once into P, in the plain version's order (q k^T + bias) + mask
+    float m = -INFINITY;
+    for (int j = 0; j < n; ++j) {
+      float s = dot_row<HD>(qs, Kw + j * R4) + brow[j];
+      if (MASKED) s += mrow[j];
+      prow[j] = s;
+      m = fmaxf(m, s);
+    }
+    // one expf per score: the weights, their sum and the weighted rows of V
+    float l = 0.0f, acc[HD];
+#pragma unroll
+    for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
+    for (int j = 0; j < n; ++j) {
+      const float e = expf(prow[j] - m);
+      l += e;
+      axpy_row<HD>(acc, e, Vw + j * R4);
+    }
+    store_row<HD>(o + row, acc, 1.0f / l);
+  }
 }
 
 template <int HD>
@@ -428,9 +462,11 @@ dbias_sum_kernel(const float* __restrict__ part, float* __restrict__ dbias,
 
 int windows_per_block(int n) { return kThreads / n; }
 
+// the budget of the design note: K, V; P; the bias; the mask
 size_t fwd_smem_bytes(int n, int hd, bool masked) {
-  const size_t wpb = windows_per_block(n), add = (size_t)n * (n + 1);
-  return sizeof(float) * (2 * wpb * (n * hd + 4) + (masked ? wpb : 1) * add);
+  const size_t wpb = windows_per_block(n), nn1 = (size_t)n * (n + 1);
+  return sizeof(float) *
+         (2 * wpb * (n * hd + 4) + (wpb + 1 + (masked ? wpb : 0)) * nn1);
 }
 
 // the budget of the design note: Q, K, V, go; P; D; DB; the additive term
@@ -449,20 +485,32 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int HD>
+template <int HD, bool MASKED>
 int launch_fwd(const float* q, const float* k, const float* v,
                const float* bias, const float* bank, const int* idx, float* o,
                int BW, int n, int G, int nW, float scale,
                cudaStream_t stream) {
   const int wpb = windows_per_block(n);
-  const size_t smem = fwd_smem_bytes(n, HD, bank != nullptr);
-  const cudaError_t err = allow_smem(attn_fwd_kernel<HD>, smem);
+  const size_t smem = fwd_smem_bytes(n, HD, MASKED);
+  const cudaError_t err = allow_smem(attn_fwd_kernel<HD, MASKED>, smem);
   if (err != cudaSuccess) return (int)err;
-  // head-fastest block numbering (see the design note)
-  const int64_t blocks = (int64_t)((BW + wpb - 1) / wpb) * G;
-  attn_fwd_kernel<HD><<<(unsigned int)blocks, kThreads, smem, stream>>>(
-      q, k, v, bias, bank, idx, o, BW, n, G, nW, wpb, scale);
+  const int blocks = (BW + wpb - 1) / wpb;  // each walks all G heads
+  attn_fwd_kernel<HD, MASKED><<<(unsigned int)blocks, kThreads, smem,
+                                stream>>>(q, k, v, bias, bank, idx, o, BW, n,
+                                          G, nW, wpb, scale);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_fwd(const float* q, const float* k, const float* v,
+               const float* bias, const float* bank, const int* idx, float* o,
+               int BW, int n, int G, int nW, float scale,
+               cudaStream_t stream) {
+  return bank != nullptr
+             ? launch_fwd<HD, true>(q, k, v, bias, bank, idx, o, BW, n, G,
+                                    nW, scale, stream)
+             : launch_fwd<HD, false>(q, k, v, bias, bank, idx, o, BW, n, G,
+                                     nW, scale, stream);
 }
 
 template <int HD>
@@ -485,6 +533,14 @@ int launch_bwd(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+template <int HD, bool MASKED>
+int fwd_occupancy(size_t smem, int* blocks_per_sm) {
+  const cudaError_t err = allow_smem(attn_fwd_kernel<HD, MASKED>, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, attn_fwd_kernel<HD, MASKED>, kThreads, smem);
+}
+
 template <int HD>
 int bwd_occupancy(size_t smem, int* blocks_per_sm) {
   const cudaError_t err = allow_smem(attn_bwd_kernel<HD>, smem);
@@ -497,7 +553,7 @@ int bwd_occupancy(size_t smem, int* blocks_per_sm) {
 
 // The C interface. q, k, v, o, go, dq, dk, dv: [BW, n, G, hd] float32;
 // bias: [G, n, n]; bank: [K, n, n] float32 and idx: [nW] int32, or both
-// NULL for no mask; 1 <= n <= 128; hd in {4, 8, 16}; the backward moves
+// NULL for no mask; 1 <= n <= 128; hd in {4, 8, 16}; the kernels move
 // q, k, v, o, go, dq, dk, dv as float4, so their pointers must be 16-byte
 // aligned (the wrapper checks). Launches on `stream`
 // (a cudaStream_t passed as a pointer) and returns cudaGetLastError(), or
@@ -588,6 +644,32 @@ extern "C" int idee_window_attention_bwd_occupancy(int n, int hd, int masked,
       return bwd_occupancy<8>(smem, blocks_per_sm);
     case 16:
       return bwd_occupancy<16>(smem, blocks_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The forward kernel's shared memory per block (fwd_smem_bytes) and its
+// resident blocks per SM on the current device, as for the backward.
+extern "C" int idee_window_attention_fwd_occupancy(int n, int hd, int masked,
+                                                   int* smem_bytes,
+                                                   int* blocks_per_sm) {
+  if (n < 1 || n > kThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes(n, hd, masked != 0);
+  *smem_bytes = (int)smem;
+  switch (hd * 2 + (masked != 0)) {
+    case 8:
+      return fwd_occupancy<4, false>(smem, blocks_per_sm);
+    case 9:
+      return fwd_occupancy<4, true>(smem, blocks_per_sm);
+    case 16:
+      return fwd_occupancy<8, false>(smem, blocks_per_sm);
+    case 17:
+      return fwd_occupancy<8, true>(smem, blocks_per_sm);
+    case 32:
+      return fwd_occupancy<16, false>(smem, blocks_per_sm);
+    case 33:
+      return fwd_occupancy<16, true>(smem, blocks_per_sm);
     default:
       return (int)cudaErrorInvalidValue;
   }

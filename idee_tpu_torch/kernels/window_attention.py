@@ -119,10 +119,6 @@ def _check(q, k, v, bias):
             raise ValueError(f"{name}: expected float32, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, not {q.device}")
-        # the backward kernel moves rows as float4
-        if t.device.type == "cuda" and t.data_ptr() % 16 != 0:
-            raise ValueError(f"{name}: the kernels need data that starts "
-                             "16-byte aligned")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
     if hd not in HEAD_DIMS:
@@ -239,8 +235,7 @@ def _backward(q, k, v, bias, bank, idx, scale: float, o, g):
             q, k, v, bias, (bank, idx) if bank is not None else None, scale,
             o, g)
     BW, n, G, hd = q.shape
-    if g.data_ptr() % 16 != 0:  # float4 rows: a copy starts aligned
-        g = g.clone()
+    g = _aligned(g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     n_blocks = bwd_blocks(BW, n, G)
     part = torch.empty((n_blocks, G, n, n), device=q.device)
@@ -267,12 +262,10 @@ def dbias_sum(part):
     return dbias
 
 
-def bwd_occupancy(n: int, hd: int, masked: bool) -> Tuple[int, int]:
-    """(shared-memory bytes per block, resident blocks per SM) of the
-    backward kernel at window n and head width hd, as the current card's
-    occupancy calculator gives them. Launches nothing."""
+def _occupancy(kernel: str, symbol: str, n: int, hd: int,
+               masked: bool) -> Tuple[int, int]:
     fn = build.c_function(
-        SOURCES[ATTN_BWD], "idee_window_attention_bwd_occupancy",
+        SOURCES[kernel], symbol,
         [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)])
     smem, blocks = _I(), _I()
     torch.cuda.current_device()  # initialises the card's context
@@ -280,6 +273,20 @@ def bwd_occupancy(n: int, hd: int, masked: bool) -> Tuple[int, int]:
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
     return smem.value, blocks.value
+
+
+def fwd_occupancy(n: int, hd: int, masked: bool) -> Tuple[int, int]:
+    """(shared-memory bytes per block, resident blocks per SM) of the
+    forward kernel at window n and head width hd, as the current card's
+    occupancy calculator gives them. Launches nothing."""
+    return _occupancy(ATTN_FWD, "idee_window_attention_fwd_occupancy", n, hd,
+                      masked)
+
+
+def bwd_occupancy(n: int, hd: int, masked: bool) -> Tuple[int, int]:
+    """The same for the backward kernel."""
+    return _occupancy(ATTN_BWD, "idee_window_attention_bwd_occupancy", n, hd,
+                      masked)
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -301,6 +308,15 @@ class _WindowAttention(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None, None
 
 
+def _aligned(t):
+    """``t`` contiguous, starting 16-byte aligned on a card (the kernels
+    move rows as float4): a misaligned view is copied."""
+    t = t.contiguous()
+    if t.device.type == "cuda" and t.data_ptr() % 16 != 0:
+        t = t.clone()
+    return t
+
+
 def window_attention(q, k, v, bias, mask, scale: float):
     """softmax(q k^T * scale + bias [+ mask]) v per window and head.
 
@@ -310,7 +326,7 @@ def window_attention(q, k, v, bias, mask, scale: float):
     when one of them requires a gradient."""
     _check(q, k, v, bias)
     bank, idx = _mask_parts(mask, q.shape[0], q.shape[1], q.device)
-    q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
+    q, k, v, bias = (_aligned(t) for t in (q, k, v, bias))
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (q, k, v, bias)):
         return _WindowAttention.apply(q, k, v, bias, bank, idx, float(scale))

@@ -21,7 +21,10 @@ Card (``gpu`` marker): both kernels against their plain versions at the
 bench stage shapes and odd shapes, at the same tolerances except dbias,
 whose absolute tolerance is 1e-5 x max |dbias| (a sum over up to 40,000
 windows whose entries can cancel to near 0 carries rounding of the size
-of the whole sum); and bit-equal gradients over two runs.
+of the whole sum); the forward alone at every window size with several
+heads and a ragged last window group, at rtol 1e-5 / atol 1e-5; bit-equal
+outputs and gradients over two runs; misaligned views copied, not
+refused.
 
 The JAX side is imported inside a fixture, so the card-only tests also
 collect where JAX is not installed
@@ -195,6 +198,27 @@ def test_cpu_call_counts_no_launch_and_grads_only_when_asked():
     o.sum().backward()
     assert ts[3].grad is not None
     assert wa.launches == before
+
+
+def test_takes_non_contiguous_views():
+    """Views that are not contiguous (a strided head slice) give what
+    their contiguous copies give, values and gradients."""
+    q, k, v, g, bias, mask = _case(**FWD_CASES["n8_mask"], seed=7)
+    wide = [np.concatenate([t, t[..., :1]], axis=-1) for t in (q, k, v)]
+    leaves = [torch.from_numpy(t).requires_grad_() for t in wide]
+    views = [t[..., 1:] for t in leaves]
+    assert not any(t.is_contiguous() for t in views)
+    copies = [t.detach().contiguous().requires_grad_() for t in views]
+    b = torch.from_numpy(bias)
+    o = wa.window_attention(*views, b, _torch_mask(mask), 0.35)
+    o_c = wa.window_attention(*copies, b, _torch_mask(mask), 0.35)
+    assert torch.equal(o, o_c)
+    gt = torch.from_numpy(g)
+    got = torch.autograd.grad(o, leaves, gt)
+    want = torch.autograd.grad(o_c, copies, gt)
+    for a, c in zip(got, want):
+        assert torch.equal(a[..., 1:], c)
+        assert not a[..., :1].any()
 
 
 BAD = {
@@ -371,6 +395,49 @@ def test_backward_matches_plain_at_every_window_size_on_card(cuda, hd,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("hd", wa.HEAD_DIMS)
+def test_forward_matches_plain_at_every_window_size_on_card(cuda, hd,
+                                                            masked):
+    """The forward alone, n = 1 .. 128, with G = 3 heads (the kernel walks
+    the heads of its windows in a loop) and BW = 2 (128 // n) + 1 windows
+    (a ragged last window group); masked: a random 0 / -100 mask per window
+    of three (bank, idx). One launch each, within chip_smoke.py's rtol 1e-5
+    / atol 1e-5."""
+    for n in range(1, wa.MAX_TOKENS + 1):
+        BW = 2 * (wa.MAX_TOKENS // n) + 1
+        q, k, v, _, bias, _ = _case(BW, n, 3, hd, seed=200 + n)
+        m = None
+        if masked:
+            BW -= BW % 3
+            q, k, v = q[:BW], k[:BW], v[:BW]
+            rng = np.random.default_rng(2000 + n)
+            bank = np.where(rng.random((2, n, n)) < 0.3, -100.0,
+                            0.0).astype(np.float32)
+            m = (torch.from_numpy(bank).to(cuda),
+                 torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda))
+        ts = [torch.from_numpy(np.ascontiguousarray(t)).to(cuda)
+              for t in (q, k, v, bias)]
+        before = wa.launches[wa.ATTN_FWD]
+        o = wa.window_attention(*ts, m, hd ** -0.5)
+        torch.cuda.synchronize()
+        assert wa.launches[wa.ATTN_FWD] == before + 1
+        torch.testing.assert_close(
+            o, wa.window_attention_fwd_plain(*ts, m, hd ** -0.5), rtol=1e-5,
+            atol=ATOL, msg=lambda msg: f"n={n}: {msg}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["stage0", "stage0_shifted", "stage1"])
+def test_forward_is_bitwise_deterministic_on_card(cuda, case):
+    q, k, v, _, bias, mask = _case(**CARD_CASES[case], seed=8)
+    ts = [torch.from_numpy(t).to(cuda) for t in (q, k, v, bias)]
+    m = _torch_mask(mask, cuda)
+    runs = [wa.window_attention(*ts, m, 0.35) for _ in range(2)]
+    assert torch.equal(*runs)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["stage0", "stage0_shifted", "stage1"])
 def test_backward_is_bitwise_deterministic_on_card(cuda, case):
     q, k, v, g, bias, mask = _case(**CARD_CASES[case], seed=5)
@@ -398,14 +465,29 @@ def test_dbias_sum_kernel_is_bit_equal_to_plain_on_card(cuda, shape):
 
 
 @pytest.mark.gpu
-def test_misaligned_cuda_view_is_refused(cuda):
-    """The backward moves rows as float4: a contiguous view that starts 4
-    bytes into its storage is refused, not read misaligned."""
-    q, k, v, _, bias, _ = _case(6, 8, 2, 8)
-    k, v, bias = (torch.from_numpy(t).to(cuda) for t in (k, v, bias))
-    base = torch.zeros(q.size + 1, device=cuda)
-    base[1:] = torch.from_numpy(q).reshape(-1).to(cuda)
-    q_view = base[1:].view(q.shape)
+def test_misaligned_cuda_view_matches_plain(cuda):
+    """The kernels move rows as float4. A contiguous q view that starts 4
+    bytes into its storage, and a k view that is neither contiguous nor
+    aligned, are copied to aligned storage: the output and the gradients
+    match the plain version's on the same views."""
+    q, k, v, g, bias, _ = _case(6, 8, 2, 8)
+    q_base = torch.zeros(q.size + 1, device=cuda)
+    q_base[1:] = torch.from_numpy(q).reshape(-1).to(cuda)
+    k_wide = torch.zeros(*k.shape[:-1], k.shape[-1] + 1, device=cuda)
+    k_wide[..., 1:] = torch.from_numpy(k).to(cuda)
+    v_t, bias_t = (torch.from_numpy(t).to(cuda) for t in (v, bias))
+    leaves = [t.requires_grad_() for t in (q_base, k_wide, v_t, bias_t)]
+    q_view = q_base[1:].view(q.shape)
+    k_view = k_wide[..., 1:]
     assert q_view.is_contiguous() and q_view.data_ptr() % 16 != 0
-    with pytest.raises(ValueError, match="16-byte"):
-        wa.window_attention(q_view, k, v, bias, None, 0.35)
+    assert not k_view.is_contiguous() and k_view.data_ptr() % 16 != 0
+    args = (q_view, k_view, v_t, bias_t, None, 0.35)
+    gt = torch.from_numpy(g).to(cuda)
+    o = wa.window_attention(*args)
+    got = torch.autograd.grad(o, leaves, gt)
+    o_p = wa.window_attention_fwd_plain(*args)
+    want = torch.autograd.grad(o_p, leaves, gt)
+    torch.testing.assert_close(o, o_p, rtol=1e-5, atol=ATOL)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   msg=lambda msg: f"{name}: {msg}")
