@@ -81,7 +81,8 @@ LAUNCHES_PER_STEP = {"stage0": 2, "stage1": 1}
 # state axis of 2, forward once per block and in a train step once more in
 # reverse
 D_STATE2 = 2
-LINEAR_SCAN_SHAPES = {s: (L, M * D_STATE2) for s, (L, M) in SCAN_SHAPES.items()}
+LINEAR_SCAN_SHAPES = {stage: (L, M * D_STATE2)
+                      for stage, (L, M) in SCAN_SHAPES.items()}
 # no model window has L > 64; the long check is the TPU's two-level
 # _scan_pallas_2d shape, which the CUDA kernel walks in one pass
 LONG_SCAN = (200, 1_000_000)
@@ -844,8 +845,8 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
     profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3)
 
     emit(phase=phase, encoder=cfg.encoder, shape=[1, 6, 1, 8, 200, 200],
-         d_state=cfg.d_state, epochs=n_epochs, train_steps=train_steps, val_steps=val_steps,
-         launches=launches,
+         d_state=cfg.d_state, epochs=n_epochs, train_steps=train_steps,
+         val_steps=val_steps, launches=launches,
          history={k: v for k, v in history.items() if k != "state"},
          resumed_train_loss=resumed and resumed["train_loss"],
          wall_s_with_setup=wall_s, steady_train_steps_per_s=steps_per_s,

@@ -133,7 +133,8 @@ fused_scan_n1_bwd_kernel(const float* __restrict__ delta,
     const float a = expf(__fmul_rn(dl, am));
     G = __fadd_rn(__fmul_rn(a_next, G), __fmul_rn(dy, cc));
     const float da_a = __fmul_rn(__fmul_rn(G, h_prev), a);
-    ddelta[i] = __fadd_rn(__fmul_rn(da_a, am), __fmul_rn(__fmul_rn(G, uu), bb));
+    ddelta[i] =
+        __fadd_rn(__fmul_rn(da_a, am), __fmul_rn(__fmul_rn(G, uu), bb));
     const float g_dl = __fmul_rn(G, dl);
     du[i] = __fadd_rn(__fmul_rn(dy, dm), __fmul_rn(g_dl, bb));
     dB[i] = __fmul_rn(g_dl, uu);

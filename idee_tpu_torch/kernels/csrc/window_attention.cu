@@ -41,12 +41,15 @@
 //     then one walk forms e = exp(s_ij - m), their sum l and
 //     sum_j e v_j, and o_i is that over l. While a head computes, each
 //     thread's q, k, v rows of the next head are already loading into
-//     registers. Shared memory (fwd_smem_bytes): K, V 2 wpb (n HD + 4)
-//     floats, P wpb n (n+1), bias n (n+1), mask (masked ? wpb : 0)
-//     n (n+1):
-//       n=32, HD=8: 8,320 + 16,896 + 4,224 = 29,440 B unmasked, 7 blocks
-//         (28 warps) per SM; with the mask 46,336 B, 4 blocks per SM;
-//       n=8, HD=8 (wpb=16): 8,704 + 4,608 + 288 = 13,600 B unmasked;
+//     registers (without that prefetch the stage-0 launch took 40 % longer
+//     on an H100, even at 56 instead of 80 registers). Shared memory
+//     (fwd_smem_bytes): K, V 2 wpb (n HD + 4) floats, P wpb n (n+1), bias
+//     n (n+1), mask (masked ? wpb : 0) n (n+1):
+//       n=32, HD=8: 8,320 + 16,896 + 4,224 = 29,440 B unmasked; 80
+//         registers a thread hold it to 6 blocks per SM (shared memory
+//         would allow 7); with the mask 46,336 B, 4 blocks per SM;
+//       n=8, HD=8 (wpb=16): 8,704 + 4,608 + 288 = 13,600 B unmasked, 6
+//         blocks per SM (registers);
 //       n=128, HD=16, masked (wpb=1): 16,416 + 3 x 66,048 = 214,560 B,
 //         the largest, under the 232,448 B a block may take.
 //     The grid is ceil(BW / wpb) blocks (2,500 at either stage shape).
@@ -240,6 +243,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // s_ij once into P, in the plain version's order (q k^T + bias) + mask
     float m = -INFINITY;
+#pragma unroll 4
     for (int j = 0; j < n; ++j) {
       float s = dot_row<HD>(qs, Kw + j * R4) + brow[j];
       if (MASKED) s += mrow[j];
@@ -250,6 +254,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float l = 0.0f, acc[HD];
 #pragma unroll
     for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
+#pragma unroll 4
     for (int j = 0; j < n; ++j) {
       const float e = expf(prow[j] - m);
       l += e;

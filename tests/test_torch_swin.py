@@ -386,7 +386,7 @@ def test_swin_train_step_on_card_matches_cpu(cuda):
     after = {**wa.launches, **ss.launches}
     assert {k: after[k] - before[k] for k in after} == {
         wa.ATTN_FWD: 3, wa.ATTN_BWD: 3, wa.DBIAS_SUM: 3, ss.FUSED_FWD: 0,
-        ss.LINEAR_SCAN: 0}
+        ss.FUSED_BWD: 0, ss.LINEAR_SCAN: 0}
     np.testing.assert_allclose(loss[1], loss[0], rtol=1e-4)
     for k, want in grads[0].items():
         got = grads[1][k]

@@ -590,7 +590,7 @@ def cuda():
 @pytest.mark.gpu
 def test_train_step_on_card_matches_cpu(cuda):
     """One Mamba train step on the card (fused forward kernel keeping h,
-    the reverse linear-scan kernel in the backward) against the same step
+    the fused backward kernel, no linear scan) against the same step
     on the CPU: loss and every gradient, and every encoder parameter gets
     a nonzero gradient."""
     cfg = _tiny_config()
@@ -607,7 +607,8 @@ def test_train_step_on_card_matches_cpu(cuda):
         loss.append(metrics["loss_sums"]["loss"].item())
         grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
     assert ss.launches[ss.FUSED_FWD] == before[ss.FUSED_FWD] + 3
-    assert ss.launches[ss.LINEAR_SCAN] == before[ss.LINEAR_SCAN] + 3
+    assert ss.launches[ss.FUSED_BWD] == before[ss.FUSED_BWD] + 3
+    assert ss.launches[ss.LINEAR_SCAN] == before[ss.LINEAR_SCAN]
     np.testing.assert_allclose(loss[1], loss[0], rtol=1e-4)
     for k, want in grads[0].items():
         got = grads[1][k]
