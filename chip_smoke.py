@@ -254,7 +254,7 @@ def check_linear_scan(ss, bounds):
 
 
 def fused_scan_bwd_composition(ss, delta, u, B, C, z, A, D, h, g):
-    """The backward the kernel replaced (PR 2): PyTorch elementwise ops and
+    """The backward the kernel replaced: PyTorch elementwise ops and
     two column sums around one reverse linear-scan launch. Timed beside the
     kernel, used nowhere in the port."""
     sig = torch.sigmoid(z)
