@@ -50,7 +50,27 @@ Phases, each printing one JSON line:
                  phases 3 and 4 with the CNN_3D encoder (1 epoch, no
                  resume): no kernel, so every counter must stay 0 and there
                  is no plain-op comparison
-  9. kernels     one line listing every kernel: route, source, launches by
+  9. cerra_fixture
+                 the real-world path: data/fake.py::write_fake_reanalysis
+                 writes a CERRA tree (6 variables, year 1984, seed 0,
+                 NetCDF3) on the reference's published 512x832 Europe grid
+                 into a temporary directory under build/, removed at the
+                 end; its seconds and bytes
+ 10. train_cerra train.driver_real.train_real on it with the config
+                 defaults (Mamba, in_channels=2, the 200x200 crop, weekly
+                 climatology normalisation), batch 1, 2 epochs of 9 train
+                 and 9 val steps, counters zeroed around it; checkpoints,
+                 history and a resumed third epoch; steady train steps/s,
+                 peak memory, a profile, one step's gradients against the
+                 plain scan
+ 11. test_cerra  train.driver_real.test_real at the full 512x832 crop on
+                 train_cerra's latest weights, launches counted; steady
+                 eval steps/s, busy share and peak memory; the forward
+                 against the plain scan on one batch; the fused scan
+                 forward alone at its two 512x832 shapes (kernel_cerra);
+                 then cli/predict_real.py's predict_real on the same tree
+                 (predict_cerra), its payload checked
+ 12. kernels     one line listing every kernel: route, source, launches by
                  path, error and times
 The card's name and power limit stand on a line of their own, and the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -61,10 +81,13 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -203,9 +226,9 @@ def phase_build():
                     for s in sources])
 
 
-def check_fused_forward(ss, bounds):
+def check_fused_forward(ss, bounds, shapes=SCAN_SHAPES):
     per_shape = {}
-    for i, (stage, (L, M)) in enumerate(SCAN_SHAPES.items()):
+    for i, (stage, (L, M)) in enumerate(shapes.items()):
         args = fused_inputs(L, M, seed=i)
         y_p, h_p = ss.fused_selective_scan_n1_plain(*args)
         y = ss.fused_selective_scan_n1(*args)
@@ -225,6 +248,7 @@ def check_fused_forward(ss, bounds):
                                 bound_by=bound_by,
                                 share_of_bound=bound_ms / ms)
         del args
+        torch.cuda.empty_cache()
     return per_shape
 
 
@@ -590,6 +614,21 @@ def kernel_launches_per_step(encoder: str, train: bool, d_state: int = 1):
     return {}  # CNN_3D runs no kernel
 
 
+def steady_steps_per_s(run_step, batches, warmup: int = 3):
+    """Steps/s of run_step(batch) over ``batches`` after ``warmup`` steps,
+    host batch assembly included; (steps/s, steps timed)."""
+    for _ in range(warmup):
+        run_step(next(batches))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = 0
+    for batch in batches:
+        run_step(batch)
+        timed += 1
+    torch.cuda.synchronize()
+    return timed / (time.perf_counter() - t0), timed
+
+
 def profile_steps(run_step, n: int):
     """Where a steady step's time goes: torch.profiler over ``n`` calls of
     run_step(); device time by operator, and the device's busy share of
@@ -679,17 +718,8 @@ def phase_eval(cube, encoder: str):
     loader = DataLoader(ds, 1, device="cuda",
                         keys=["x", "mask_extreme", "mask_extreme_loss",
                               "timestep"])
-    batches = iter(loader)
-    for _ in range(3):
-        step(metrics, next(batches))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    timed = 0
-    for batch in batches:
-        step(metrics, batch)
-        timed += 1
-    torch.cuda.synchronize()
-    steps_per_s = timed / (time.perf_counter() - t0)
+    steps_per_s, timed = steady_steps_per_s(lambda b: step(metrics, b),
+                                            iter(loader))
     batches = iter(loader)
     profile = profile_steps(lambda: step(metrics, next(batches)), n=5)
 
@@ -734,23 +764,54 @@ def train_config(encoder: str, d_state: int = 1, n_epochs: int = N_EPOCHS):
                             name=f"chip_smoke_train_{encoder}_n{d_state}")
 
 
-def step_gradients(cfg, params, batch, plain: bool):
-    """Every parameter's gradient of one train step from ``params``, with
-    the kernels or (plain) with autograd through the plain op."""
+def step_gradients(cfg, params, batch, plain: bool, real: bool = False):
+    """Every parameter's gradient of one train step (synthetic, or with
+    ``real`` the real-world one) from ``params``, with the kernels or
+    (plain) with autograd through the plain op."""
     from idee_tpu_torch.models.vq_model import build_model
     from idee_tpu_torch.train.state import create_train_state
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_train_step
+    from idee_tpu_torch.train.steps_real import (init_epoch_metrics_real,
+                                                 make_train_step_real)
 
     model = build_model(cfg)
     model.load_state_dict(params)
     state = create_train_state(cfg, model, "cuda", steps_per_epoch=17)
-    step = make_train_step(model, cfg, t0=float(TRAIN_WEEKS[0]),
-                           steps_per_epoch=17)
-    metrics = init_epoch_metrics((6, N_WEEKS, 200, 200), "cuda")
+    if real:
+        step = make_train_step_real(model, cfg)
+        metrics = init_epoch_metrics_real("cuda")
+    else:
+        step = make_train_step(model, cfg, t0=float(TRAIN_WEEKS[0]),
+                               steps_per_epoch=17)
+        metrics = init_epoch_metrics((6, N_WEEKS, 200, 200), "cuda")
     with plain_ops(cfg.encoder) if plain else contextlib.nullcontext():
         step(state, metrics, batch)
     torch.cuda.synchronize()
     return {k: p.grad for k, p in model.named_parameters()}
+
+
+def compare_step_gradients(cfg, params, batch, what: str, real: bool = False):
+    """One train step's gradients with the kernels against the plain op:
+    each parameter within STEP_GRAD_REL x its max |grad|, every encoder
+    parameter nonzero. Emits a train_gradients line."""
+    got = step_gradients(cfg, params, batch, plain=False, real=real)
+    want = step_gradients(cfg, params, batch, plain=True, real=real)
+    worst = 0.0
+    for k, w in want.items():
+        scale = w.abs().max().item()
+        err = (got[k] - w).abs().max().item()
+        if err > STEP_GRAD_REL * scale:
+            raise SystemExit(f"{what}: gradient of {k}: kernel vs plain "
+                             f"error {err} > {STEP_GRAD_REL} x max|grad| "
+                             f"{scale}")
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+        if k.startswith("encoder.") and got[k].abs().max().item() == 0.0:
+            raise SystemExit(f"{what}: encoder parameter {k} got no "
+                             "gradient")
+    emit(phase="train_gradients", path=what, encoder=cfg.encoder,
+         parameters=len(want),
+         encoder_parameters=sum(1 for k in got if k.startswith("encoder.")),
+         max_err_over_max_abs_grad=worst, limit=STEP_GRAD_REL)
 
 
 def phase_train(cube, encoder: str, phase: str, resume: bool,
@@ -761,8 +822,6 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
     more epoch from latest; steady train steps/s; a profile; with
     ``compare_plain`` one step's gradients with the kernels against the
     plain op."""
-    import shutil
-
     from idee_tpu_torch.data.loader import DataLoader
     from idee_tpu_torch.models.vq_model import build_model
     from idee_tpu_torch.train.driver import _make_datasets, train_synthetic
@@ -830,17 +889,8 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
     step = make_train_step(model, cfg, t0=float(TRAIN_WEEKS[0]),
                            steps_per_epoch=n_train)
     metrics = init_epoch_metrics(train_ds.anomaly.shape, "cuda")
-    batches = iter(loader)
-    for _ in range(3):
-        step(state, metrics, next(batches))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    timed = 0
-    for batch in batches:
-        step(state, metrics, batch)
-        timed += 1
-    torch.cuda.synchronize()
-    steps_per_s = timed / (time.perf_counter() - t0)
+    steps_per_s, timed = steady_steps_per_s(
+        lambda b: step(state, metrics, b), iter(loader))
     batches = iter(loader)
     profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3)
 
@@ -857,25 +907,267 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
         return launches
 
     # --- one train step's gradients, kernels against the plain op
-    batch = next(iter(loader))
-    got = step_gradients(cfg, params, batch, plain=False)
-    want = step_gradients(cfg, params, batch, plain=True)
-    worst = 0.0
-    for k, w in want.items():
-        scale = w.abs().max().item()
-        err = (got[k] - w).abs().max().item()
-        if err > STEP_GRAD_REL * scale:
-            raise SystemExit(f"{encoder}: gradient of {k}: kernel vs plain "
-                             f"error {err} > {STEP_GRAD_REL} x max|grad| "
-                             f"{scale}")
-        worst = max(worst, err / scale if scale > 0 else 0.0)
-        if k.startswith("encoder.") and got[k].abs().max().item() == 0.0:
-            raise SystemExit(f"{encoder}: encoder parameter {k} got no "
-                             "gradient")
-    emit(phase="train_gradients", encoder=encoder, parameters=len(want),
-         encoder_parameters=sum(1 for k in got if k.startswith("encoder.")),
-         max_err_over_max_abs_grad=worst, limit=STEP_GRAD_REL)
+    compare_step_gradients(cfg, params, next(iter(loader)), phase)
     return launches
+
+
+# ------------------------------------------------------------------
+# the real-world path: a CERRA tree at the published Europe geometry
+
+
+# the reference's CERRA Europe crop (dataset/CERRA_dataset.py:100-101),
+# one year of the fixture: the 1984 skip rule leaves target weeks 44-52
+CERRA_GRID = (512, 832)
+CERRA_YEAR = "1984"
+CERRA_SAMPLES = 9
+# the fused scan's (L, M) at 512x832: stage 0, 4 x 128 x 208 windows of
+# (2,4,4) x 96 channels; stage 1, 512 x 832 windows of (8,1,1) x 96
+CERRA_SCAN_SHAPES = {"stage0": (32, 10_223_616), "stage1": (8, 40_894_464)}
+# item assembly reads NetCDF files on a pool of host threads
+CERRA_LOADER_WORKERS = 4
+
+
+def cerra_config(root: str, name: str, **kw):
+    """The config defaults (Mamba, widths, in_channels=2, the 6 CERRA
+    variables, delta_t=8, the 200x200 crop, climatology normalisation) on
+    the fixture tree at ``root``, batch 1, no augmentation."""
+    from idee_tpu_torch.config import Config
+
+    base = dict(root_CERRA=os.path.join(root, "CERRA"),
+                root_NOAA_CERRA=os.path.join(root, "NOAA_CERRA"),
+                years_train=[CERRA_YEAR], years_val=[CERRA_YEAR],
+                years_test=[CERRA_YEAR], grid_override=CERRA_GRID,
+                n_epochs=N_EPOCHS, batch_size=1, is_aug=False,
+                loader_workers=CERRA_LOADER_WORKERS, dir_log=LOG_DIR,
+                name=name)
+    base.update(kw)
+    return Config(**base)
+
+
+def phase_cerra_fixture(root: str):
+    """write_fake_reanalysis: the 6 CERRA variables on the 512x832 grid,
+    one year, seed 0, NetCDF3."""
+    from idee_tpu_torch.config import CERRA_VARIABLES
+    from idee_tpu_torch.data.fake import write_fake_reanalysis
+
+    t0 = time.perf_counter()
+    write_fake_reanalysis(os.path.join(root, "CERRA"),
+                          os.path.join(root, "NOAA_CERRA"),
+                          variables=CERRA_VARIABLES, years=(CERRA_YEAR,),
+                          height=CERRA_GRID[0], width=CERRA_GRID[1], seed=0)
+    seconds = time.perf_counter() - t0
+    sizes = [os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(root) for f in files]
+    emit(phase="cerra_fixture", seconds=seconds, bytes=sum(sizes),
+         files=len(sizes), grid=CERRA_GRID, year=CERRA_YEAR)
+
+
+def phase_train_cerra(root: str):
+    """train_real on the CERRA tree at the 200x200 crop for 2 epochs,
+    launches counted; checkpoints, history, a resumed third epoch; steady
+    train steps/s, a profile and one step's gradients against the plain
+    scan. Returns (launches, path of the latest checkpoint)."""
+    from idee_tpu_torch.data.loader import DataLoader
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.train.driver_real import (TRAIN_KEYS,
+                                                  make_reanalysis_dataset,
+                                                  train_real)
+    from idee_tpu_torch.train.state import create_train_state
+    from idee_tpu_torch.train.steps_real import (init_epoch_metrics_real,
+                                                 make_train_step_real)
+
+    cfg = cerra_config(root, "chip_smoke_train_cerra")
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    history = train_real(cfg, "CERRA", device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    steps = N_EPOCHS * CERRA_SAMPLES  # train steps, and as many val steps
+    val = kernel_launches_per_step("Mamba", train=False)
+    trn = kernel_launches_per_step("Mamba", train=True)
+    expect_launches(launches, {k: val.get(k, 0) * steps + trn[k] * steps
+                               for k in trn}, "train_cerra")
+    curves = history["train_loss"] + history["val_loss"]
+    if len(curves) != 2 * N_EPOCHS or not all(map(math.isfinite, curves)):
+        raise SystemExit(f"bad loss history: {history}")
+    written = sorted(os.listdir(os.path.join(cfg.log_dir,
+                                             "model_checkpoints")))
+    if written != ["best_F1_model.pt", "best_loss_model.pt", "latest.pt"]:
+        raise SystemExit(f"checkpoints written: {written}")
+    with open(os.path.join(cfg.log_dir, "history.json")) as fh:
+        if json.load(fh)["train_loss"] != history["train_loss"]:
+            raise SystemExit("history.json differs from the run's history")
+    resumed = train_real(cfg.replace(n_epochs=N_EPOCHS + 1), "CERRA",
+                         device="cuda")
+    if (resumed["train_loss"][:N_EPOCHS] != history["train_loss"]
+            or len(resumed["train_loss"]) != N_EPOCHS + 1
+            or resumed["state"].step != (N_EPOCHS + 1) * CERRA_SAMPLES):
+        raise SystemExit(f"resume did not continue at epoch {N_EPOCHS}: "
+                         f"{resumed['train_loss']}")
+    latest = os.path.join(cfg.log_dir, "model_checkpoints", "latest.pt")
+
+    # --- steady state: train steps from fresh weights
+    ds = make_reanalysis_dataset(cfg, "CERRA", cfg.years_train, False)
+    loader = DataLoader(ds, 1, device="cuda", keys=TRAIN_KEYS, shuffle=True,
+                        workers=cfg.loader_workers)
+    params = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    model = build_model(cfg)
+    model.load_state_dict(params)
+    state = create_train_state(cfg, model, "cuda",
+                               steps_per_epoch=CERRA_SAMPLES)
+    step = make_train_step_real(model, cfg)
+    metrics = init_epoch_metrics_real("cuda")
+    steps_per_s, timed = steady_steps_per_s(
+        lambda b: step(state, metrics, b), iter(loader))
+    batches = iter(loader)
+    profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3)
+    emit(phase="train_cerra", encoder=cfg.encoder,
+         shape=[1, 6, 2, cfg.delta_t, cfg.y_max, cfg.x_max],
+         grid=CERRA_GRID, epochs=N_EPOCHS, train_steps=steps,
+         val_steps=steps, launches=launches,
+         history={k: v for k, v in history.items() if k != "state"},
+         resumed_train_loss=resumed["train_loss"], wall_s_with_setup=wall_s,
+         steady_train_steps_per_s=steps_per_s, steady_steps_timed=timed,
+         max_memory_allocated=peak_bytes, checkpoints=written,
+         loader_workers=cfg.loader_workers)
+    emit(phase="profile", path="train_cerra", **profile)
+    compare_step_gradients(cfg, params, next(iter(loader)), "train_cerra",
+                           real=True)
+    return launches, latest
+
+
+def phase_test_cerra(root: str, weights: str):
+    """test_real at the full 512x832 crop on the weights train_cerra
+    saved, launches counted; steady eval steps/s, busy share and peak
+    memory; the forward with the kernel against the plain scan on one
+    batch; the fused forward alone at its two 512x832 shapes; then
+    predict_real on the same tree. Returns ({path: launches}, the fused
+    forward's rows)."""
+    from idee_tpu_torch.cli.predict_real import predict_real
+    from idee_tpu_torch.data.loader import DataLoader, collate
+    from idee_tpu_torch.kernels import bounds
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.train.checkpoint import load_pretrained_weights
+    from idee_tpu_torch.train.driver_real import (TEST_KEYS,
+                                                  make_reanalysis_dataset,
+                                                  test_real)
+    from idee_tpu_torch.train.steps_real import (init_epoch_metrics_real,
+                                                 make_eval_step_real)
+
+    H, W = CERRA_GRID
+    cfg = cerra_config(root, "chip_smoke_test_cerra", x_max=W, y_max=H,
+                       en_de_pretrained=weights)
+    per_step = kernel_launches_per_step("Mamba", train=False)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    result = test_real(cfg, "CERRA", device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"test_cerra": read_launches()}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    expect_launches(launches["test_cerra"],
+                    {k: v * CERRA_SAMPLES for k, v in per_step.items()},
+                    "test_cerra")
+    if sorted(result) != ["drought_f1", "drought_iou", "mean_f1",
+                          "mean_iou"] or not math.isfinite(result["mean_iou"]):
+        raise SystemExit(f"test_real gave {result}")
+
+    # --- steady state, host batch assembly included
+    ds = make_reanalysis_dataset(cfg, "CERRA", cfg.years_test, False)
+    model = build_model(cfg)
+    model.load_state_dict(load_pretrained_weights(cfg, weights))
+    model.to("cuda")
+    step = make_eval_step_real(model, cfg, test_mode=True)
+    metrics = init_epoch_metrics_real("cuda")
+    loader = DataLoader(ds, 1, device="cuda", keys=TEST_KEYS,
+                        workers=cfg.loader_workers)
+    steps_per_s, timed = steady_steps_per_s(lambda b: step(metrics, b),
+                                            iter(loader))
+    batches = iter(loader)
+    profile = profile_steps(lambda: step(metrics, next(batches)), n=5)
+
+    # --- one forward with the plain scan on the same batch
+    b = {k: torch.from_numpy(v).cuda() for k, v in collate([ds[0]]).items()
+         if k in TEST_KEYS}
+    kw = dict(mask_extreme_loss=b["mask_extreme_loss"],
+              mask_exclude=b["mask_cold_surface_loss"])
+    with torch.inference_mode():
+        out_k = model(b["x"], **kw)
+        with plain_ops("Mamba"):
+            out_p = model(b["x"], **kw)
+    logit_err = max((out_k.z - out_p.z).abs().max().item(),
+                    (out_k.y - out_p.y).abs().max().item())
+    bits_agree = (out_k.anomaly == out_p.anomaly).float().mean().item()
+    if not (torch.isfinite(out_k.z).all() and logit_err <= 1e-4
+            and bits_agree >= 0.999):
+        raise SystemExit(f"CERRA: kernel forward disagrees with the plain "
+                         f"one: logit err {logit_err}, bits agree "
+                         f"{bits_agree}")
+    del out_k, out_p, b, model, step, metrics
+    torch.cuda.empty_cache()
+    emit(phase="test_cerra", encoder=cfg.encoder,
+         shape=[1, 6, 2, cfg.delta_t, H, W], metrics=result,
+         steps=CERRA_SAMPLES, launches=launches["test_cerra"],
+         wall_s_with_setup=wall_s, steady_steps_per_s=steps_per_s,
+         steady_steps_timed=timed, max_memory_allocated=peak_bytes,
+         plain_op_logit_max_abs_err=logit_err,
+         plain_op_anomaly_bit_agreement=bits_agree,
+         loader_workers=cfg.loader_workers)
+    emit(phase="profile", path="test_cerra", **profile)
+
+    # --- the fused forward alone at the 512x832 shapes
+    fused = check_fused_forward(kernel_modules()[0], bounds,
+                                CERRA_SCAN_SHAPES)
+    emit(phase="kernel_cerra", rtol=SCAN_RTOL, atol=SCAN_ATOL,
+         selective_scan_fused_n1_fwd=fused)
+
+    # --- predict_real: the exported maps
+    out_path = os.path.join(LOG_DIR, "chip_smoke_predictions_real.npz")
+    zero_launches()
+    t0 = time.perf_counter()
+    payload = predict_real(cfg, "CERRA", weights, out_path, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches["predict_cerra"] = read_launches()
+    expect_launches(launches["predict_cerra"],
+                    {k: v * CERRA_SAMPLES for k, v in per_step.items()},
+                    "predict_cerra")
+    want = {"drought_prob": ("float32", (H, W)),
+            "drought_mask": ("uint8", (H, W)),
+            "anomaly": ("uint8", (6, cfg.delta_t, H, W)),
+            "valid_mask": ("uint8", (H, W)), "name_code": ("int64", ())}
+    for k, (dtype, shape) in want.items():
+        a = payload[k]
+        if str(a.dtype) != dtype or a.shape != (CERRA_SAMPLES,) + shape:
+            raise SystemExit(f"predict_real {k}: {a.dtype} {a.shape}")
+    prob = payload["drought_prob"]
+    if not (np.isfinite(prob).all() and prob.min() >= 0 and prob.max() <= 1):
+        raise SystemExit("predict_real: drought_prob outside [0, 1]")
+    if payload["drought_mask"][payload["valid_mask"] == 0].any():
+        raise SystemExit("predict_real: drought_mask set outside valid_mask")
+    codes = payload["name_code"]
+    if not ((codes // 1000 == int(CERRA_YEAR)).all()
+            and (np.diff(codes) > 0).all()):
+        raise SystemExit(f"predict_real: name codes {codes}")
+    emit(phase="predict_cerra", launches=launches["predict_cerra"],
+         wall_s_with_setup=wall_s,
+         keys=sorted(payload), drought_mask_share=float(
+             payload["drought_mask"].mean()),
+         valid_share=float(payload["valid_mask"].mean()),
+         anomaly_share=float(payload["anomaly"].mean()),
+         bytes=os.path.getsize(out_path))
+    os.remove(out_path)
+    return launches, fused
 
 
 def main() -> int:
@@ -909,6 +1201,17 @@ def main() -> int:
         "train_cnn": phase_train(cube, "CNN_3D", "train_cnn", resume=False,
                                  n_epochs=N_EPOCHS_SHORT,
                                  compare_plain=False)}
+    del cube
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    cerra_root = tempfile.mkdtemp(prefix="chip_smoke_cerra_",
+                                  dir=os.path.join(REPO, "build"))
+    try:
+        phase_cerra_fixture(cerra_root)
+        paths["train_cerra"], weights = phase_train_cerra(cerra_root)
+        cerra_paths, fused_cerra = phase_test_cerra(cerra_root, weights)
+        paths.update(cerra_paths)
+    finally:
+        shutil.rmtree(cerra_root, ignore_errors=True)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
@@ -948,6 +1251,13 @@ def main() -> int:
         "bound_ms": per_step(fused, lambda r: r["bound_ms"]),
         "bound_by": fused["stage0"]["bound_by"],
         "library_ms": None,
+        # per step at the CERRA 512x832 crop (test_cerra's launches)
+        "cerra_512x832": {
+            "max_abs_err": max(v["max_abs_err"]
+                               for v in fused_cerra.values()),
+            "ms": per_step(fused_cerra, lambda r: r["ms"]),
+            "plain_ms": per_step(fused_cerra, lambda r: r["plain_ms"]),
+            "bound_ms": per_step(fused_cerra, lambda r: r["bound_ms"])},
     }, {
         # the custom VJP of the ported fused forward (XLA around the Pallas
         # linear scan in the TPU package)

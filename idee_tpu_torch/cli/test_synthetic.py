@@ -11,23 +11,19 @@ Takes the same flags as the JAX script (every Config field), plus
 """
 # ------------------------------------------------------------------
 
-import argparse
-import sys
-
 from idee_tpu_torch import config as config_file
+from idee_tpu_torch.cli import split_device
 from idee_tpu_torch.config import SYNTHETIC_VARIABLES, Config
 from idee_tpu_torch.train.evaluate import test_synthetic
 
 
 def main(argv=None):
-    pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--device", default=None)
-    ns, rest = pre.parse_known_args(sys.argv[1:] if argv is None else argv)
+    device, rest = split_device(argv)
     defaults = Config(variables=list(SYNTHETIC_VARIABLES), in_channels=1,
                       encoder="CNN_3D")
     cfg = config_file.read_arguments(train=False, defaults=defaults,
                                      argv=rest)
-    return test_synthetic(cfg, device=ns.device)
+    return test_synthetic(cfg, device=device)
 
 
 if __name__ == "__main__":

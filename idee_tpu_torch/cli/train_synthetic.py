@@ -12,23 +12,19 @@ checkpoint.
 """
 # ------------------------------------------------------------------
 
-import argparse
-import sys
-
 from idee_tpu_torch import config as config_file
+from idee_tpu_torch.cli import split_device
 from idee_tpu_torch.config import SYNTHETIC_VARIABLES, Config
 from idee_tpu_torch.train.driver import train_synthetic
 
 
 def main(argv=None):
-    pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--device", default=None)
-    ns, rest = pre.parse_known_args(sys.argv[1:] if argv is None else argv)
+    device, rest = split_device(argv)
     defaults = Config(variables=list(SYNTHETIC_VARIABLES), in_channels=1,
                       encoder="CNN_3D")
     cfg = config_file.read_arguments(train=True, defaults=defaults,
                                      argv=rest)
-    return train_synthetic(cfg, device=ns.device)
+    return train_synthetic(cfg, device=device)
 
 
 if __name__ == "__main__":

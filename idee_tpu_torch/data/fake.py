@@ -1,17 +1,21 @@
 # ------------------------------------------------------------------
-"""Fake synthetic-datacube generator for tests and the chip smoke run (the
-port's copy of idee_tpu/data/fake.py::make_fake_cube: the same numpy draws
-give the same cube from the same seed).
+"""Fake datasets for tests and the chip smoke run (the port's copy of
+idee_tpu/data/fake.py: the same numpy draws in the same order give the
+same arrays from the same seed).
 
-The cube has the statistic/climatology schema of the real synthetic
-dataset: per-variable seasonal background plus planted anomaly blobs that
-precede extreme events.
+* make_fake_cube: a synthetic datacube with the statistic/climatology
+  schema of the real synthetic dataset, per-variable seasonal background
+  plus planted anomaly blobs that precede extreme events;
+* write_fake_reanalysis, write_structured_reanalysis: CERRA / ERA5-Land
+  directory trees. The JAX package writes them as NetCDF4 through h5py;
+  these write NetCDF3 (64-bit offset) through scipy, so they need no h5py,
+  and string coordinates become char matrices.
 """
 # ------------------------------------------------------------------
 
 import json
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -123,3 +127,351 @@ def write_cube_npz(root: str, cube: SyntheticCube,
              timestep=np.arange(t0, t0 + T, dtype=np.float32),
              stats=np.array(json.dumps(cube.stats)), **extras)
     return path
+
+
+# ------------------------------------------------------------------
+# reanalysis trees
+
+
+def _write_nc3(path: str,
+              variables: Dict[str, Tuple[Sequence[str], np.ndarray]]) -> None:
+    """Write {name: (dimension names, array)} as a NetCDF3 file (64-bit
+    offset, so variables of more than 2 GB in all fit). String arrays
+    become [n, nchar] char matrices, which NetCDFFile.coord decodes."""
+    from scipy.io import netcdf_file
+
+    with netcdf_file(path, "w", version=2) as f:
+        for name, (dims, data) in variables.items():
+            data = np.asarray(data)
+            dims = tuple(dims)
+            if data.dtype.kind in ("U", "S"):
+                strs = [s.decode() if isinstance(s, bytes) else str(s)
+                        for s in data.tolist()]
+                chars = np.zeros((len(strs), max(map(len, strs))), "S1")
+                for i, s in enumerate(strs):
+                    chars[i, :len(s)] = list(s)
+                data, dims = chars, dims + (f"nchar_{name}",)
+            for d, n in zip(dims, data.shape):
+                if d not in f.dimensions:
+                    f.createDimension(d, n)
+            f.createVariable(name, data.dtype, dims)[:] = data
+
+
+def _smooth_field(rng, height, width, length):
+    """Unit-variance Gaussian random field with correlation length `length`
+    (spectral smoothing)."""
+    f = rng.normal(size=(height, width))
+    ky = np.fft.fftfreq(height)[:, None]
+    kx = np.fft.fftfreq(width)[None, :]
+    filt = np.exp(-0.5 * ((ky * length) ** 2 + (kx * length) ** 2)
+                  * (2 * np.pi) ** 2)
+    s = np.fft.ifft2(np.fft.fft2(f) * filt).real
+    s = (s - s.mean()) / (s.std() + 1e-12)
+    return s.astype(np.float32)
+
+
+YX = ("y", "x")
+
+
+def _tree_roots(root_main: str, root_noaa: str, era5_region: Optional[str]):
+    """(root_main, root_noaa, file prefix, masks file name), directories
+    made."""
+    if era5_region:
+        root_main = os.path.join(root_main, era5_region)
+        root_noaa = os.path.join(root_noaa, era5_region)
+        prefix, masks_name = era5_region + "_", era5_region + "_masks.nc"
+    else:
+        prefix, masks_name = "CERRA_", "masks.nc"
+    os.makedirs(root_main, exist_ok=True)
+    os.makedirs(root_noaa, exist_ok=True)
+    return root_main, root_noaa, prefix, masks_name
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path, "w") as fh:
+        json.dump(obj, fh)
+
+
+def write_structured_reanalysis(
+    root_main: str,
+    root_noaa: str,
+    variables: Optional[List[str]] = None,
+    years=("1989", "1990", "1991", "1992"),
+    height: int = 512,
+    width: int = 832,
+    era5_region: Optional[str] = None,
+    seed: int = 0,
+    events_per_year: float = 12.0,
+    distractors_per_year: float = 12.0,
+    mag_lo: float = 2.0,
+    mag_hi: float = 3.5,
+    vhi_event_drop: float = 45.0,
+    write_climatology: bool = False,
+) -> dict:
+    """Learnable CERRA/ERA5-Land-shaped tree at real-world geometry (the
+    reference's published CERRA Europe crop is 512x832,
+    dataset/CERRA_dataset.py:100-101).
+
+    write_fake_reanalysis draws random VCI/TCI, so its drought labels are
+    noise: fine for plumbing, useless for training. Here:
+    * per-variable weekly `mean` channel: seasonal cycle with smooth
+      amplitude/phase fields + AR(1) spatially correlated noise; `std`
+      channel: smooth positive base + weekly noise;
+    * droughts: spatio-temporal ellipsoids where VHI (written as VCI = TCI,
+      so any alpha gives the same VHI) drops below the 26/35 thresholds,
+      while a random majority of the variables turn anomalous (+-2-3.5
+      sigma on the mean channel), each leading the drought by 0-3 weeks;
+    * single-variable distractor anomalies with no VHI response;
+    * cold-surface masks concentrated in winter weeks, static water and
+      no-vegetation masks from thresholded smooth fields.
+
+    Returns a summary dict (drought rate, event count).
+    """
+    rng = np.random.default_rng(seed)
+    variables = sorted(variables or
+                       ["al", "hcc", "lcc", "msl", "si10", "wdir10"])
+    V = len(variables)
+    years = [str(y) for y in years]
+    n_time = 52 * len(years)
+    need = max(2, V // 2)
+    root_main, root_noaa, prefix, masks_name = _tree_roots(
+        root_main, root_noaa, era5_region)
+
+    week_of_year = (np.arange(n_time) % 52).astype(np.float32)
+
+    # --- dynamic variables: seasonal + AR(1) noise (mean channel) ---
+    mean_ch = np.empty((V, n_time, height, width), np.float32)
+    for v in range(V):
+        amp = 0.5 + 0.5 * np.abs(_smooth_field(rng, height, width, 60))
+        phase = 0.8 * _smooth_field(rng, height, width, 60)
+        mean_ch[v] = amp[None] * np.sin(
+            2 * np.pi * week_of_year[:, None, None] / 52.0 + phase[None])
+    rho, sigma = 0.65, 0.55
+    state = np.zeros((V, height, width), np.float32)
+    scale = sigma * np.sqrt(1.0 - rho * rho)
+    for t in range(n_time):
+        innov = np.stack([_smooth_field(rng, height, width, 12)
+                          for _ in range(V)])
+        state = rho * state + scale * innov
+        mean_ch[:, t] += state
+
+    # --- std channel: smooth positive base + weekly noise ---
+    std_base = np.stack([0.8 + 0.4 * np.abs(_smooth_field(rng, height,
+                                                          width, 40))
+                         for _ in range(V)])  # [V, H, W]
+
+    # --- VHI: smooth base ~55 + seasonal dip + AR(1) noise ---
+    vhi_base = 55.0 + 8.0 * _smooth_field(rng, height, width, 80)
+    vhi = np.empty((n_time, height, width), np.float32)
+    vstate = np.zeros((height, width), np.float32)
+    for t in range(n_time):
+        vstate = 0.7 * vstate + 5.0 * np.sqrt(1 - 0.49) * _smooth_field(
+            rng, height, width, 30)
+        vhi[t] = (vhi_base + vstate
+                  + 4.0 * np.sin(2 * np.pi * week_of_year[t] / 52.0))
+
+    # --- plant droughts (events) and distractors ---
+    yy = np.arange(height, dtype=np.float32)
+    xx = np.arange(width, dtype=np.float32)
+
+    def ellipse(cy, cx, ry, rx, theta):
+        dy = yy[:, None] - cy
+        dx = xx[None, :] - cx
+        c, s = np.cos(theta), np.sin(theta)
+        u = (c * dx + s * dy) / rx
+        w_ = (-s * dx + c * dy) / ry
+        return u * u + w_ * w_
+
+    r_lo = max(6.0, 0.06 * min(height, width))
+    r_hi = max(12.0, 0.2 * min(height, width))
+
+    def plant(vars_hit, t0, dur, is_event):
+        r2 = ellipse(float(rng.uniform(0.1 * height, 0.9 * height)),
+                     float(rng.uniform(0.1 * width, 0.9 * width)),
+                     float(rng.uniform(r_lo, r_hi)),
+                     float(rng.uniform(r_lo, r_hi)),
+                     float(rng.uniform(0, np.pi)))
+        halo = r2 <= 1.69
+        if not halo.any():
+            return
+        shape = np.clip(1.0 - 0.3 * r2, 0.0, None) * halo
+        hi = min(n_time, t0 + dur)
+        for v in vars_hit:
+            mag = float(rng.uniform(mag_lo, mag_hi)) * (
+                1 if rng.random() < 0.5 else -1)
+            lead = int(rng.integers(0, 4)) if is_event else 0
+            lo = max(0, t0 - lead)
+            if hi <= lo:
+                continue
+            mean_ch[v, lo:hi] += mag * shape[None]
+        if is_event and hi > t0:
+            vhi[t0:hi] -= vhi_event_drop * np.clip(
+                1.0 - 0.5 * r2, 0.0, None) * halo
+
+    n_events = int(events_per_year * n_time / 52.0)
+    for _ in range(n_events):
+        m = int(rng.integers(need, V + 1))
+        plant(rng.choice(V, size=m, replace=False),
+              t0=int(rng.integers(4, n_time - 2)),
+              dur=int(rng.integers(3, 11)), is_event=True)
+    for _ in range(int(distractors_per_year * n_time / 52.0)):
+        plant([int(rng.integers(V))], t0=int(rng.integers(0, n_time - 2)),
+              dur=int(rng.integers(3, 11)), is_event=False)
+    vhi = np.clip(vhi, 2.0, 98.0)
+
+    # --- masks: water / no-vegetation static, cold seasonal ---
+    water = (_smooth_field(rng, height, width, 100) > 0.9).astype(np.float32)
+    noveg = ((_smooth_field(rng, height, width, 70) > 1.3)
+             & (water == 0)).astype(np.float32)
+    cold_field = _smooth_field(rng, height, width, 60)
+
+    # --- weekly files ---
+    for yi, year in enumerate(years):
+        os.makedirs(os.path.join(root_main, year), exist_ok=True)
+        os.makedirs(os.path.join(root_noaa, year), exist_ok=True)
+        for week in range(1, 53):
+            t = yi * 52 + week - 1
+            wnr = f"{week:03d}"
+            stds = (std_base + rng.normal(0, 0.1, (V, height, width))
+                    ).astype(np.float32)
+            _write_nc3(os.path.join(root_main, year, f"{year}{wnr}.nc"), {
+                "statistic": (("statistic",), np.array(["mean", "std"])),
+                **{name: (("statistic",) + YX,
+                          np.stack([mean_ch[v, t], stds[v]]))
+                   for v, name in enumerate(variables)}})
+            # winter weeks get a cold band; rare cold elsewhere
+            is_winter = week >= 45 or week <= 8
+            thr_c = 1.2 if is_winter else 2.6
+            cold = ((cold_field + 0.3 * rng.standard_normal()) > thr_c
+                    ).astype(np.float32)
+            # VCI == TCI -> VHI == vhi for any alpha
+            _write_nc3(os.path.join(root_noaa, year, f"{year}{wnr}_00.nc"), {
+                "VCI": (YX, vhi[t]), "TCI": (YX, vhi[t]),
+                "mask_cold_surface": (YX, cold)})
+
+    # --- global statistics of the mean channel (the std channel is
+    # scaled by the same per-variable std, CERRA_dataset.py:618-620) ---
+    _write_json(os.path.join(root_main, prefix + "statistic_train.json"), {
+        "min": {v: float(mean_ch[i].min()) for i, v in enumerate(variables)},
+        "max": {v: float(mean_ch[i].max()) for i, v in enumerate(variables)},
+        "mean": {v: float(mean_ch[i].mean()) for i, v in enumerate(variables)},
+        "std": {v: float(mean_ch[i].std()) for i, v in enumerate(variables)},
+    })
+
+    if write_climatology:
+        wk = np.arange(n_time) % 52
+        clima = {"climatology": (("climatology",), np.array(["mean", "std"])),
+                 "week": (("week",), np.arange(1, 53, dtype=np.float64))}
+        for v, name in enumerate(variables):
+            cm = np.stack([mean_ch[v, wk == w].mean(0) for w in range(52)])
+            cs = np.stack([mean_ch[v, wk == w].std(0) + 1e-2
+                           for w in range(52)])
+            # [climatology, statistic(mean,std-ch), week, y, x]; the std
+            # channel's climatology reuses the mean channel's moments
+            clima[name] = (("climatology", "statistic", "week") + YX,
+                           np.stack([np.stack([cm, cm]),
+                                     np.stack([cs, cs])]).astype(np.float32))
+        _write_nc3(os.path.join(root_main,
+                               prefix + "climatology_pixels_train.nc"), clima)
+
+    masks = {"mask_no_vegetation": (YX, noveg)}
+    if era5_region:
+        masks["lsm"] = (YX, 1.0 - water)  # land fraction
+    _write_nc3(os.path.join(root_noaa, masks_name), masks)
+    if not era5_region:
+        _write_nc3(os.path.join(root_main, "CERRA_static_variables.nc"), {
+            "lsm": (YX, 1.0 - water),
+            "orog": (YX, _smooth_field(rng, height, width, 50)),
+            "latitude": (YX, np.tile(np.linspace(30, 70, height)[:, None],
+                                     (1, width)).astype(np.float32)),
+            "longitude": (YX, np.tile(np.linspace(-10, 40, width)[None],
+                                      (height, 1)).astype(np.float32))})
+
+    valid = np.clip(1.0 - water - noveg, 0.0, 1.0)
+    drought = (vhi < 26.0) & (valid[None] > 0)
+    return {
+        "n_events": n_events,
+        "drought_rate_valid": float(drought.sum()
+                                    / max(valid.sum() * n_time, 1.0)),
+        "water_frac": float(water.mean()),
+        "noveg_frac": float(noveg.mean()),
+        "variables": variables,
+        "years": years,
+        "height": height, "width": width,
+    }
+
+
+def write_fake_reanalysis(root_main: str, root_noaa: str,
+                          variables: Optional[List[str]] = None,
+                          years=("1990", "1991"), height: int = 16,
+                          width: int = 16, era5_region: Optional[str] = None,
+                          seed: int = 0,
+                          missing_weeks=()) -> List[str]:
+    """A CERRA/ERA5-Land-shaped tree of random values: weekly files
+    root/<year>/<year><www>.nc with a 'statistic' (mean, std, min, max)
+    axis, NOAA VCI/TCI/cold files, masks, statistics json and weekly
+    climatology (schema per reference dataset/CERRA_dataset.py).
+
+    missing_weeks: (year, week) pairs left out of the NOAA tree (the
+    missing-week fallback). Returns the weekly main files written.
+    """
+    rng = np.random.default_rng(seed)
+    variables = sorted(variables or ["t2m", "tp", "al"])
+    root_main, root_noaa, prefix, masks_name = _tree_roots(
+        root_main, root_noaa, era5_region)
+    missing = set(missing_weeks)
+    stat_axis = (("statistic",), np.array(["mean", "std", "min", "max"]))
+
+    written = []
+    for year in years:
+        os.makedirs(os.path.join(root_main, year), exist_ok=True)
+        os.makedirs(os.path.join(root_noaa, year), exist_ok=True)
+        for week in range(1, 53):
+            wnr = f"{week:03d}"
+            main_path = os.path.join(root_main, year, f"{year}{wnr}.nc")
+            _write_nc3(main_path, {
+                "statistic": stat_axis,
+                **{v: (("statistic",) + YX, rng.normal(
+                    size=(4, height, width)).astype(np.float32))
+                   for v in variables}})
+            written.append(main_path)
+            if (year, week) in missing:
+                continue
+            vci = rng.uniform(0, 100, (height, width)).astype(np.float32)
+            tci = rng.uniform(0, 100, (height, width)).astype(np.float32)
+            cold = (rng.random((height, width)) < 0.05).astype(np.float32)
+            _write_nc3(os.path.join(root_noaa, year, f"{year}{wnr}_00.nc"), {
+                "VCI": (YX, vci), "TCI": (YX, tci),
+                "mask_cold_surface": (YX, cold)})
+
+    _write_json(os.path.join(root_main, prefix + "statistic_train.json"),
+                {k: {v: float(x) for v, x in
+                     zip(variables, rng.uniform(0.5, 2.0, len(variables)))}
+                 for k in ("min", "max", "mean", "std")})
+
+    clima = {"climatology": (("climatology",), np.array(["mean", "std"])),
+             "week": (("week",), np.arange(1, 53, dtype=np.float64))}
+    for v in variables:
+        data = rng.normal(size=(2, 2, 52, height, width)).astype(np.float32)
+        data[1] = np.abs(data[1]) + 0.5  # std > 0
+        clima[v] = (("climatology", "statistic", "week") + YX, data)
+    _write_nc3(os.path.join(root_main, prefix + "climatology_pixels_train.nc"),
+              clima)
+
+    masks = {"mask_no_vegetation": (YX, (rng.random((height, width)) < 0.1)
+                                    .astype(np.float32))}
+    if era5_region:
+        masks["lsm"] = (YX, rng.uniform(0, 1, (height, width)).astype(
+            np.float32))
+    _write_nc3(os.path.join(root_noaa, masks_name), masks)
+
+    if not era5_region:
+        _write_nc3(os.path.join(root_main, "CERRA_static_variables.nc"), {
+            "lsm": (YX, (rng.random((height, width)) > 0.3).astype(
+                np.float32)),
+            "orog": (YX, rng.normal(size=(height, width)).astype(np.float32)),
+            "latitude": (YX, np.tile(np.linspace(30, 70, height)[:, None],
+                                     (1, width)).astype(np.float32)),
+            "longitude": (YX, np.tile(np.linspace(-10, 40, width)[None],
+                                      (height, 1)).astype(np.float32))})
+    return written

@@ -6,9 +6,22 @@ Batches are collated on the host from the dataset's numpy items, staged in
 pinned memory and copied to the device with ``non_blocking=True``. The
 steps never wait on the device, so while the card computes step k the
 host already assembles and enqueues batch k+1.
+
+Batch assembly runs off the consumer's thread, as in the JAX loader:
+``prefetch`` batches are built ahead by one background thread, or with
+``workers`` > 0 by a pool of threads (the item pipelines read NetCDF files,
+and h5py, scipy and numpy release the GIL while they read and copy).
+Batches come out in order either way, with the values of the serial path
+(``prefetch=0``). The copies go on the thread's current stream, which is
+the default stream unless the caller made another current in that thread:
+the same stream as the steps that read them, so they are ordered before
+those steps.
 """
 # ------------------------------------------------------------------
 
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
@@ -34,17 +47,24 @@ class DataLoader:
         ``shuffle(arange(n))`` at the start of each epoch), so both visit
         the items in the same order.
       drop_last: drop the trailing partial batch.
+      prefetch: batches staged ahead by a background thread (0: built on
+        the consumer's thread when asked for).
+      workers: > 0 builds up to this many batches at once on a thread
+        pool; at most prefetch + workers are staged ahead.
     """
 
     def __init__(self, dataset, batch_size: int = 1, device=None,
                  keys: Optional[Sequence[str]] = None, shuffle: bool = False,
-                 drop_last: bool = True, seed: int = 0):
+                 drop_last: bool = True, seed: int = 0, prefetch: int = 2,
+                 workers: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.keys = list(keys) if keys is not None else None
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.workers = workers
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -73,5 +93,61 @@ class DataLoader:
         return out
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
-        for indices in self._index_batches():
-            yield self._make_batch(indices)
+        if self.workers > 0:
+            return self._iter_pooled()
+        if self.prefetch <= 0:
+            return map(self._make_batch, self._index_batches())
+        return self._iter_prefetched()
+
+    def _iter_prefetched(self) -> Iterator[Dict[str, torch.Tensor]]:
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        done = object()
+        stop = threading.Event()
+
+        def work():
+            try:
+                for indices in self._index_batches():
+                    if stop.is_set():
+                        return
+                    q.put(self._make_batch(indices))
+            except Exception as e:  # raised again on the consumer's thread
+                q.put(e)
+            finally:
+                q.put(done)
+
+        t = threading.Thread(target=work, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            # a consumer that stops early must not leave the thread blocked
+            # on a full queue: drain until it has seen ``stop`` and ended
+            stop.set()
+            while t.is_alive():
+                try:
+                    while True:
+                        q.get_nowait()
+                except queue.Empty:
+                    pass
+                t.join(timeout=0.1)
+
+    def _iter_pooled(self) -> Iterator[Dict[str, torch.Tensor]]:
+        window = max(self.prefetch, 1) + self.workers
+        with ThreadPoolExecutor(max_workers=self.workers) as pool:
+            pending = []
+            try:
+                for indices in self._index_batches():
+                    pending.append(pool.submit(self._make_batch, indices))
+                    if len(pending) >= window:
+                        yield pending.pop(0).result()
+                while pending:
+                    yield pending.pop(0).result()
+            finally:
+                for fut in pending:
+                    fut.cancel()

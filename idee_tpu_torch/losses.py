@@ -55,15 +55,39 @@ def bce_loss_synthetic(pred, target, weighting: str = "reference",
     return torch.mean(bce_with_logits(pred, target) * weights)
 
 
+def bce_loss(pred, target, mask_valid):
+    """Masked frequency-weighted BCE for real-world data (reference:
+    losses.py:64-95). pred/target/mask_valid [N, H, W]: the class histogram
+    counts valid pixels only, invalid pixels get weight 0, and the sum is
+    divided by sum(mask_valid)."""
+    target = target.float()
+    mask = mask_valid.float()
+    hist = torch.stack([((target == 0) * mask).sum(),
+                        ((target == 1) * mask).sum()])
+    weights = _inv_freq_weights(hist).detach()[target.long()] * mask
+    return (bce_with_logits(pred, target) * weights).sum() / mask.sum()
+
+
+def _anomaly_l1(z_q, mask, vq0):
+    weights = 1.0 - torch.clamp(mask.float(), 0.0, 1.0)[:, None, None, None]
+    target = vq0.detach()[None, None, :, None, None, None]
+    l1 = (z_q.float() - target).abs() * weights
+    return l1.sum() / torch.broadcast_to(weights, z_q.shape).sum()
+
+
 def anomaly_l1_loss_synthetic(z_q, mask_extreme_loss, vq0):
     """Driver-supervision L1 (reference: losses.py:127-168).
     z_q [N, V, C, T, H, W]; mask_extreme_loss [N, H, W]; vq0 [C]."""
-    z_q = z_q.float()
-    mask = mask_extreme_loss.float()[:, None, None, None, :, :]
-    weights = 1.0 - torch.clamp(mask, 0.0, 1.0)
-    target = vq0.detach()[None, None, :, None, None, None]
-    l1 = (z_q - target).abs() * weights
-    return l1.sum() / torch.broadcast_to(weights, z_q.shape).sum()
+    return _anomaly_l1(z_q, mask_extreme_loss, vq0)
+
+
+def anomaly_l1_loss(z_q, mask_extreme_loss, mask_exclude, vq0):
+    """Real-world variant (reference: losses.py:15-61): the pixels of
+    ``mask_exclude`` [N, H, W] (cold surface) are left unconstrained too.
+    The reference calls it mask_valid, but adds it to the extreme mask
+    (losses.py:50)."""
+    return _anomaly_l1(z_q, mask_extreme_loss.float() + mask_exclude.float(),
+                       vq0)
 
 
 class _AnomalyL1LFQ(torch.autograd.Function):

@@ -132,10 +132,13 @@ class VQModel(nn.Module):
                                       "(codebook_size=2) is ported")
 
     def forward(self, x_d, train: bool = False, mask_extreme_loss=None,
+                mask_exclude=None,
                 generator: Optional[torch.Generator] = None) -> VQOutput:
         """Packed 1-bit LFQ flow: activations keep [N, T, H, W, V*C]; the
         quantizer works on per-(variable, voxel) scalars and the anomaly
-        L1 is the collapsed losses.anomaly_l1_lfq."""
+        L1 is the collapsed losses.anomaly_l1_lfq. The L1 leaves the pixels
+        of mask_extreme_loss, and of mask_exclude (the real-world cold
+        surface) when given, unconstrained."""
         V = self.config.in_channels_dynamic
         zp = self.encoder(x_d.float(), train=train, packed_out=True,
                           generator=generator)
@@ -155,7 +158,10 @@ class VQModel(nn.Module):
         vq0 = (b_out - w_out).detach()  # project_out(-1)
         loss_anomaly = None
         if mask_extreme_loss is not None:
-            w_pix = 1.0 - torch.clamp(mask_extreme_loss.float(), 0.0, 1.0)
+            w_pix = mask_extreme_loss.float()
+            if mask_exclude is not None:
+                w_pix = w_pix + mask_exclude.float()
+            w_pix = 1.0 - torch.clamp(w_pix, 0.0, 1.0)
             loss_anomaly = losses.anomaly_l1_lfq(s_q, w_pix, w_out, b_out)
 
         z_q = zq_packed.reshape(N, T, H, W, V, C).permute(0, 4, 5, 1, 2, 3)

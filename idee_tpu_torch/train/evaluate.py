@@ -34,6 +34,22 @@ def _state_dict(cfg: Config, params: Mapping) -> Dict[str, torch.Tensor]:
     return load_flax_params(cfg, params)
 
 
+def load_weights(model, cfg: Config, params: Optional[Mapping],
+                 logger) -> None:
+    """Load ``params`` (a port state_dict or the JAX package's flax
+    params), else cfg.en_de_pretrained (the JAX package's params as a
+    flax-path .npz, or a checkpoint of the port's trainer), else keep the
+    random initialization from cfg.seed."""
+    if params is not None:
+        model.load_state_dict(_state_dict(cfg, params))
+    elif cfg.en_de_pretrained:
+        model.load_state_dict(load_pretrained_weights(cfg,
+                                                      cfg.en_de_pretrained))
+    else:
+        log_string(logger, "WARNING: no pretrained model (en_de_pretrained "
+                           "unset); evaluating a random initialization")
+
+
 def test_synthetic(cfg: Config, cube: Optional[SyntheticCube] = None,
                    params: Optional[Mapping] = None,
                    device=None) -> Dict:
@@ -59,16 +75,7 @@ def test_synthetic(cfg: Config, cube: Optional[SyntheticCube] = None,
     log_string(logger, "# testing samples: %d" % len(ds))
 
     model = build_model(cfg)
-    if params is not None:
-        model.load_state_dict(_state_dict(cfg, params))
-    elif cfg.en_de_pretrained:
-        # the JAX package's params as a flax-path-keyed .npz, or a
-        # checkpoint of the port's trainer
-        model.load_state_dict(load_pretrained_weights(cfg,
-                                                      cfg.en_de_pretrained))
-    else:
-        log_string(logger, "WARNING: no pretrained model (en_de_pretrained "
-                           "unset); evaluating a random initialization")
+    load_weights(model, cfg, params, logger)
     model.to(dev)
 
     loader = DataLoader(ds, cfg.batch_size, device=dev,

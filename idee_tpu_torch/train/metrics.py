@@ -1,8 +1,9 @@
 # ------------------------------------------------------------------
-"""Evaluators of the synthetic benchmark (the port's numpy copy of the
-parts of idee_tpu/train/metrics.py that evaluation uses).
+"""Evaluators (the port's numpy copy of the parts of
+idee_tpu/train/metrics.py that evaluation uses).
 
 Parity targets (metric definitions ARE the published numbers):
+  evaluator (real world)     -- reference utils/utils_train.py:175-266
   evaluator_synthetic        -- reference utils/utils_train.py:269-347
   evaluator_anomaly_synthetic-- reference utils/utils_train.py:350-526
   anomaly_collector vote     -- reference utils/utils_train.py:529-554
@@ -76,6 +77,68 @@ class EvaluatorSynthetic:
                 self.precision[label], self.accuracy[label],
                 self.F1[label], self.iou[label])
         msg += "\n%s mean accuracy : %.4f" % (self.mode, np.nanmean(self.accuracy))
+        msg += "\n%s mean IoU      : %.4f" % (self.mode, np.nanmean(self.iou))
+        msg += "\n%s mean F1       : %.4f" % (self.mode, np.nanmean(self.F1))
+        msg += "\n%s mean loss     : %.4f" % (self.mode, mean_loss)
+        msg += "\n%s best mean loss: %.4f\n" % (self.mode, best_loss)
+        if self.logger is not None:
+            self.logger.info(msg)
+        return msg
+
+
+class Evaluator:
+    """Real-world per-class {normal, drought} evaluator over valid pixels
+    (reference: utils/utils_train.py:175-266), fed the device counters of
+    steps_real.drought_counts."""
+
+    def __init__(self, logger=None, mode: str = "Training"):
+        self.classes = ["normal", "drought"]
+        self.n_classes = 2
+        self.mode = mode
+        self.logger = logger
+        self.reset()
+
+    def reset(self):
+        n = self.n_classes
+        self.correct_all = 0
+        self.seen_all = 0
+        self.seen_label_all = np.zeros(n, np.int64)
+        self.correct_label_all = np.zeros(n, np.int64)
+        self.iou_de_label_all = np.zeros(n, np.int64)
+        self.predicted_label_all = np.zeros(n, np.int64)
+        self.F1 = np.zeros(n)
+        self.iou = np.zeros(n)
+
+    def update_counts(self, counts: Dict[str, np.ndarray]):
+        """Per-class counters of shape [n_classes] plus the two totals."""
+        self.correct_label_all += np.asarray(counts["correct"], np.int64)
+        self.seen_label_all += np.asarray(counts["seen"], np.int64)
+        self.iou_de_label_all += np.asarray(counts["iou_de"], np.int64)
+        self.predicted_label_all += np.asarray(counts["predicted"], np.int64)
+        self.correct_all += int(counts["correct_all"])
+        self.seen_all += int(counts["seen_all"])
+
+    def get_results(self, mean_loss: float = np.nan,
+                    best_loss: float = np.nan) -> str:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            weights = self.seen_label_all / np.sum(self.seen_label_all)
+            accuracy_all = self.correct_all / float(max(self.seen_all, 1))
+            precision = (self.correct_label_all
+                         / self.predicted_label_all.astype(float))
+            accuracy = self.correct_label_all / (self.seen_label_all + 1e-6)
+            self.F1 = _f1(precision, accuracy)
+            self.iou = (self.correct_label_all
+                        / self.iou_de_label_all.astype(float))
+
+        msg = "-----------------   %s   -----------------\n" % self.mode
+        for label in range(self.n_classes):
+            msg += ("class %s weight: %.4f, precision: %.4f, accuracy: %.4f, "
+                    "F1: %.4f IoU: %.4f \n") % (
+                self.classes[label] + " " * (14 - len(self.classes[label])),
+                weights[label], precision[label], accuracy[label],
+                self.F1[label], self.iou[label])
+        msg += "\n%s accuracy      : %.4f" % (self.mode, accuracy_all)
+        msg += "\n%s mean accuracy : %.4f" % (self.mode, np.nanmean(accuracy))
         msg += "\n%s mean IoU      : %.4f" % (self.mode, np.nanmean(self.iou))
         msg += "\n%s mean F1       : %.4f" % (self.mode, np.nanmean(self.F1))
         msg += "\n%s mean loss     : %.4f" % (self.mode, mean_loss)
