@@ -923,14 +923,16 @@ CERRA_SAMPLES = 9
 # the fused scan's (L, M) at 512x832: stage 0, 4 x 128 x 208 windows of
 # (2,4,4) x 96 channels; stage 1, 512 x 832 windows of (8,1,1) x 96
 CERRA_SCAN_SHAPES = {"stage0": (32, 10_223_616), "stage1": (8, 40_894_464)}
-# item assembly reads NetCDF files on a pool of host threads
-CERRA_LOADER_WORKERS = 4
+# the reference's loader, DataLoader(num_workers=8) (idee_tpu/config.py:50,
+# 211), timed beside the config's default (one prefetch thread)
+REFERENCE_LOADER_WORKERS = 8
 
 
 def cerra_config(root: str, name: str, **kw):
     """The config defaults (Mamba, widths, in_channels=2, the 6 CERRA
-    variables, delta_t=8, the 200x200 crop, climatology normalisation) on
-    the fixture tree at ``root``, batch 1, no augmentation."""
+    variables, delta_t=8, the 200x200 crop, climatology normalisation,
+    the loader's one prefetch thread) on the fixture tree at ``root``,
+    batch 1, no augmentation."""
     from idee_tpu_torch.config import Config
 
     base = dict(root_CERRA=os.path.join(root, "CERRA"),
@@ -938,8 +940,7 @@ def cerra_config(root: str, name: str, **kw):
                 years_train=[CERRA_YEAR], years_val=[CERRA_YEAR],
                 years_test=[CERRA_YEAR], grid_override=CERRA_GRID,
                 n_epochs=N_EPOCHS, batch_size=1, is_aug=False,
-                loader_workers=CERRA_LOADER_WORKERS, dir_log=LOG_DIR,
-                name=name)
+                dir_log=LOG_DIR, name=name)
     base.update(kw)
     return Config(**base)
 
@@ -1045,8 +1046,9 @@ def phase_train_cerra(root: str):
 
 def phase_test_cerra(root: str, weights: str):
     """test_real at the full 512x832 crop on the weights train_cerra
-    saved, launches counted; steady eval steps/s, busy share and peak
-    memory; the forward with the kernel against the plain scan on one
+    saved, launches counted; the host's ms per item; steady eval steps/s
+    and busy share with the config's loader and with the reference's 8
+    workers; peak memory; the forward with the kernel against the plain scan on one
     batch; the fused forward alone at its two 512x832 shapes; then
     predict_real on the same tree. Returns ({path: launches}, the fused
     forward's rows)."""
@@ -1082,19 +1084,37 @@ def phase_test_cerra(root: str, weights: str):
                           "mean_iou"] or not math.isfinite(result["mean_iou"]):
         raise SystemExit(f"test_real gave {result}")
 
-    # --- steady state, host batch assembly included
+    # --- the host's item build alone, on this thread
     ds = make_reanalysis_dataset(cfg, "CERRA", cfg.years_test, False)
+    t0 = time.perf_counter()
+    for i in range(3):
+        ds[i]
+    host_item_ms = 1e3 * (time.perf_counter() - t0) / 3
+
+    # --- steady state, host batch assembly included: the config's loader
+    # (the metric's setting) and the reference's 8 workers
     model = build_model(cfg)
     model.load_state_dict(load_pretrained_weights(cfg, weights))
     model.to("cuda")
     step = make_eval_step_real(model, cfg, test_mode=True)
     metrics = init_epoch_metrics_real("cuda")
-    loader = DataLoader(ds, 1, device="cuda", keys=TEST_KEYS,
-                        workers=cfg.loader_workers)
-    steps_per_s, timed = steady_steps_per_s(lambda b: step(metrics, b),
-                                            iter(loader))
-    batches = iter(loader)
-    profile = profile_steps(lambda: step(metrics, next(batches)), n=5)
+    by_workers = {}
+    for workers in (cfg.loader_workers, REFERENCE_LOADER_WORKERS):
+        loader = DataLoader(ds, 1, device="cuda", keys=TEST_KEYS,
+                            workers=workers)
+        steps_per_s, timed = steady_steps_per_s(lambda b: step(metrics, b),
+                                                iter(loader))
+        batches = iter(loader)
+        prof = profile_steps(lambda: step(metrics, next(batches)), n=5)
+        batches.close()
+        by_workers[workers] = dict(
+            steady_steps_per_s=steps_per_s, steady_steps_timed=timed,
+            device_busy_share=prof["device_busy_share"],
+            device_ms_per_step=prof["device_ms_per_step"])
+        if workers == cfg.loader_workers:
+            profile = prof
+    steps_per_s = by_workers[cfg.loader_workers]["steady_steps_per_s"]
+    timed = by_workers[cfg.loader_workers]["steady_steps_timed"]
 
     # --- one forward with the plain scan on the same batch
     b = {k: torch.from_numpy(v).cuda() for k, v in collate([ds[0]]).items()
@@ -1122,7 +1142,8 @@ def phase_test_cerra(root: str, weights: str):
          steady_steps_timed=timed, max_memory_allocated=peak_bytes,
          plain_op_logit_max_abs_err=logit_err,
          plain_op_anomaly_bit_agreement=bits_agree,
-         loader_workers=cfg.loader_workers)
+         loader_workers=cfg.loader_workers, host_item_ms=host_item_ms,
+         steady_by_loader_workers=by_workers)
     emit(phase="profile", path="test_cerra", **profile)
 
     # --- the fused forward alone at the 512x832 shapes

@@ -12,7 +12,9 @@ Batch assembly runs off the consumer's thread, as in the JAX loader:
 ``workers`` > 0 by a pool of threads (the item pipelines read NetCDF files,
 and h5py, scipy and numpy release the GIL while they read and copy).
 Batches come out in order either way, with the values of the serial path
-(``prefetch=0``). The copies go on the thread's current stream, which is
+(``prefetch=0``): a dataset that augments at random (``draw_aug`` and
+``item``) has its draws made in index order on the thread that hands out
+the indices, never on the pool's threads. The copies go on the thread's current stream, which is
 the default stream unless the caller made another current in that thread:
 the same stream as the steps that read them, so they are ordered before
 those steps.
@@ -80,8 +82,13 @@ class DataLoader:
         for b in range(len(self)):
             yield idx[b * self.batch_size:(b + 1) * self.batch_size]
 
-    def _make_batch(self, indices) -> Dict[str, torch.Tensor]:
-        batch = collate([self.dataset[int(i)] for i in indices])
+    def _make_batch(self, indices, augs=None) -> Dict[str, torch.Tensor]:
+        if augs is None:
+            items = [self.dataset[int(i)] for i in indices]
+        else:
+            items = [self.dataset.item(int(i), a)
+                     for i, a in zip(indices, augs)]
+        batch = collate(items)
         if self.keys is not None:
             batch = {k: batch[k] for k in self.keys}
         out = {}
@@ -139,11 +146,15 @@ class DataLoader:
 
     def _iter_pooled(self) -> Iterator[Dict[str, torch.Tensor]]:
         window = max(self.prefetch, 1) + self.workers
+        draw = getattr(self.dataset, "draw_aug", None)
         with ThreadPoolExecutor(max_workers=self.workers) as pool:
             pending = []
             try:
                 for indices in self._index_batches():
-                    pending.append(pool.submit(self._make_batch, indices))
+                    # the dataset's one random stream, read in index order
+                    augs = [draw() for _ in indices] if draw else None
+                    pending.append(pool.submit(self._make_batch, indices,
+                                               augs))
                     if len(pending) >= window:
                         yield pending.pop(0).result()
                 while pending:

@@ -33,7 +33,7 @@ import numpy as np
 
 from idee_tpu_torch.config import CORDEX_REGIONS
 from idee_tpu_torch.data.netcdf import NetCDFFile
-from idee_tpu_torch.data.synthetic import _window_mean
+from idee_tpu_torch.data.synthetic import _window_mean, draw_aug
 
 
 @dataclass
@@ -404,7 +404,16 @@ class ReanalysisDataset:
     def __len__(self):
         return len(self.files)
 
+    def draw_aug(self):
+        """The next item's augmentation (``draw_aug``) from the dataset's
+        random stream; None without ``is_aug``."""
+        return draw_aug(self._rng) if self.is_aug else None
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return self.item(index, self.draw_aug())
+
+    def item(self, index: int, aug) -> Dict[str, np.ndarray]:
+        """Item ``index`` with the augmentation ``aug`` of draw_aug."""
         files_main, files_noaa, weeks = self.files[index]
 
         x = self.load_datacube(files_main)
@@ -450,14 +459,14 @@ class ReanalysisDataset:
             with np.errstate(all="ignore"):
                 x = _window_mean(x, self.window_size, (3, 4))
 
-        if self.is_aug:
+        if aug is not None:
+            rotate, flip = aug
             arrays = [x, mask_drought, mask_drought_loss, mask_cold,
                       mask_cold_loss, mask_sea, mask_noveg]
-            if self._rng.integers(2):
+            if rotate:
                 arrays = [np.rot90(a, k=2, axes=(-1, -2)) for a in arrays]
-            if self._rng.integers(2):
-                ax = int(self._rng.integers(1, 3))
-                arrays = [np.flip(a, axis=-ax) for a in arrays]
+            if flip:
+                arrays = [np.flip(a, axis=-flip) for a in arrays]
             (x, mask_drought, mask_drought_loss, mask_cold,
              mask_cold_loss, mask_sea, mask_noveg) = arrays
 

@@ -65,6 +65,15 @@ def _window_mean(x: np.ndarray, w: int, axes: Tuple[int, int]) -> np.ndarray:
     return np.nanmean(y, axis=(h_ax + 1, h_ax + 3))
 
 
+def draw_aug(rng: np.random.Generator):
+    """One item's augmentation, drawn from ``rng`` as the reference draws
+    it: (rotate by 180 degrees, axis to flip counted from the end or 0).
+    The datasets' ``item(index, aug)`` applies it."""
+    rotate = bool(rng.integers(2))
+    flip = int(rng.integers(1, 3)) if rng.integers(2) else 0
+    return rotate, flip
+
+
 def load_cube_npz(path: str, variables: List[str],
                   variables_static: List[str], times: Tuple[int, int],
                   x_min: int, x_max: int, y_min: int, y_max: int
@@ -223,7 +232,16 @@ class SyntheticDataset:
     def __len__(self):
         return self._dynamic.shape[1] - self.delta_t + 1
 
+    def draw_aug(self):
+        """The next item's augmentation (``draw_aug``) from the dataset's
+        random stream; None without ``is_aug``."""
+        return draw_aug(self._rng) if self.is_aug else None
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return self.item(index, self.draw_aug())
+
+    def item(self, index: int, aug) -> Dict[str, np.ndarray]:
+        """Item ``index`` with the augmentation ``aug`` of draw_aug."""
         dt = self.delta_t
         x = np.flip(self._dynamic[:, index:index + dt], 1)[:, None]
         week = np.flip(self._week[index:index + dt] + 1)
@@ -240,8 +258,9 @@ class SyntheticDataset:
         mask_anomaly = np.flip(self._anomaly[:, index:index + dt], 1)
         static = self._static.copy() if self._static is not None else None
 
-        if self.is_aug:
-            if self._rng.integers(2):
+        if aug is not None:
+            rotate, flip = aug
+            if rotate:
                 args = dict(k=2, axes=(-1, -2))
                 x = np.rot90(x, **args)
                 mask_extreme = np.rot90(mask_extreme, **args)
@@ -250,8 +269,8 @@ class SyntheticDataset:
                 mask_anomaly = np.rot90(mask_anomaly, **args)
                 if static is not None:
                     static = np.rot90(static, **args)
-            if self._rng.integers(2):
-                ax = int(self._rng.integers(1, 3))
+            if flip:
+                ax = flip
                 x = np.flip(x, axis=-ax)
                 mask_extreme = np.flip(mask_extreme, axis=-ax)
                 mask_extreme_loss = np.flip(mask_extreme_loss, axis=-ax)

@@ -313,6 +313,23 @@ def test_loader_prefetch_and_workers_match_serial(cerra):
                     == [np.asarray(b["i"]).ravel().tolist() for b in want])
 
 
+def test_loader_workers_keep_the_serial_augmentations(cerra):
+    """With is_aug, the pool's batches hold the serial path's rotations and
+    flips: the draws are made in index order, not on the pool's threads."""
+    def batches(**kw):
+        ds, _ = _datasets(cerra, "CERRA", is_aug=True, is_norm=False)
+        return _batches(DataLoader(ds, 2, device="cpu", **kw))
+
+    serial = batches(prefetch=0)
+    for kw in (dict(prefetch=2), dict(workers=3), dict(workers=3,
+                                                        prefetch=0)):
+        got = batches(**kw)
+        assert len(got) == len(serial), kw
+        for a, b in zip(got, serial):
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=str(kw))
+
+
 def test_loader_stopped_early_leaves_no_thread_and_raises_errors(cerra):
     ds, _ = _datasets(cerra, "CERRA", is_norm=False)
     before = set(threading.enumerate())
