@@ -50,27 +50,41 @@ Phases, each printing one JSON line:
                  phases 3 and 4 with the CNN_3D encoder (1 epoch, no
                  resume): no kernel, so every counter must stay 0 and there
                  is no plain-op comparison
-  9. cerra_fixture
+  9. train_vq_ema
+                 phase 4 with the VQ codebook of BASELINE.md's anchored
+                 VQ-EMA arm (EMA, k-means init, dead-code expiry at 2.0,
+                 commitment 0.25) on the generic VQModel path, 1 epoch and
+                 a resumed second: the k-means init runs once, in the first
+                 step; initted and both codes' cluster sizes checked after
+                 each run; a restore gives back the saved buffers; the step
+                 gradients from the trained codebook state, with the share
+                 of equal code indices
+ 10. main_FSQ, main_LatentQuantize, main_Random_VQ, main_VQ, main_LFQ_4,
+     codebooks
+                 phase 3 with each other codebook (LFQ with codebook_size
+                 4), then one train step each: launches, a finite loss,
+                 nonzero gradients except where the JAX package has none
+ 11. cerra_fixture
                  the real-world path: data/fake.py::write_fake_reanalysis
                  writes a CERRA tree (6 variables, year 1984, seed 0,
                  NetCDF3) on the reference's published 512x832 Europe grid
                  into a temporary directory under build/, removed at the
                  end; its seconds and bytes
- 10. train_cerra train.driver_real.train_real on it with the config
+ 12. train_cerra train.driver_real.train_real on it with the config
                  defaults (Mamba, in_channels=2, the 200x200 crop, weekly
                  climatology normalisation), batch 1, 2 epochs of 9 train
                  and 9 val steps, counters zeroed around it; checkpoints,
                  history and a resumed third epoch; steady train steps/s,
                  peak memory, a profile, one step's gradients against the
                  plain scan
- 11. test_cerra  train.driver_real.test_real at the full 512x832 crop on
+ 13. test_cerra  train.driver_real.test_real at the full 512x832 crop on
                  train_cerra's latest weights, launches counted; steady
                  eval steps/s, busy share and peak memory; the forward
                  against the plain scan on one batch; the fused scan
                  forward alone at its two 512x832 shapes (kernel_cerra);
                  then cli/predict_real.py's predict_real on the same tree
                  (predict_cerra), its payload checked
- 12. kernels     one line listing every kernel: route, source, launches by
+ 14. kernels     one line listing every kernel: route, source, launches by
                  path, error and times
 The card's name and power limit stand on a line of their own, and the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -668,11 +682,12 @@ def profile_steps(run_step, n: int):
 EVAL_PHASES = {"Mamba": "main", "Swin_3D": "main_swin", "CNN_3D": "main_cnn"}
 
 
-def phase_eval(cube, encoder: str):
-    """Phase main (Mamba), main_swin or main_cnn: test_synthetic at the
-    bench width, launches counted; steady steps/s; a profile; the forward
-    with the kernels against the forward with the plain op (CNN_3D has no
-    kernel, so no plain op)."""
+def phase_eval(cube, encoder: str, phase: str = None, **cfg_kw):
+    """Phase main (Mamba), main_swin or main_cnn (or ``phase``, with the
+    config overrides ``cfg_kw``, e.g. another codebook): test_synthetic at
+    the bench width, launches counted; steady steps/s; a profile; the
+    forward with the kernels against the forward with the plain op (CNN_3D
+    has no kernel, so no plain op)."""
     from idee_tpu_torch.config import synthetic_config
     from idee_tpu_torch.data.loader import DataLoader
     from idee_tpu_torch.data.synthetic import SyntheticDataset
@@ -680,10 +695,11 @@ def phase_eval(cube, encoder: str):
     from idee_tpu_torch.train.evaluate import test_synthetic
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_eval_step
 
+    phase = phase or EVAL_PHASES[encoder]
     cfg = synthetic_config(encoder=encoder, x_max=200, y_max=200,
                            times_test=(1, N_WEEKS), dir_log=LOG_DIR,
                            is_clima_scale=IS_CLIMA_SCALE,
-                           name=f"chip_smoke_{encoder}")
+                           name=f"chip_smoke_{phase}", **cfg_kw)
     params = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
     n_steps = N_WEEKS - cfg.delta_t + 1
 
@@ -740,8 +756,8 @@ def phase_eval(cube, encoder: str):
                              f"plain one: logit err {logit_err}, bits agree "
                              f"{bits_agree}")
 
-    emit(phase=EVAL_PHASES[encoder], encoder=cfg.encoder,
-         shape=[1, 6, 1, 8, 200, 200],
+    emit(phase=phase, encoder=cfg.encoder, codebook=cfg.codebook,
+         codebook_size=cfg.codebook_size, shape=[1, 6, 1, 8, 200, 200],
          metrics=result, steps=n_steps, launches=launches,
          launches_per_step={k: v / n_steps for k, v in launches.items()},
          wall_s_with_setup=wall_s, steady_steps_per_s=steps_per_s,
@@ -749,25 +765,32 @@ def phase_eval(cube, encoder: str):
          max_memory_allocated=peak_bytes,
          plain_op_logit_max_abs_err=logit_err,
          plain_op_anomaly_bit_agreement=bits_agree)
-    emit(phase="profile", path=f"eval_{encoder}", **profile)
+    emit(phase="profile", path=f"eval_{encoder}" if phase == EVAL_PHASES[
+        encoder] else phase, **profile)
     return launches
 
 
-def train_config(encoder: str, d_state: int = 1, n_epochs: int = N_EPOCHS):
+def train_config(encoder: str, d_state: int = 1, n_epochs: int = N_EPOCHS,
+                 **cfg_kw):
     from idee_tpu_torch.config import synthetic_config
 
-    return synthetic_config(encoder=encoder, x_max=200, y_max=200,
-                            times_train=TRAIN_WEEKS, times_val=VAL_WEEKS,
-                            n_epochs=n_epochs, is_aug=False, batch_size=1,
-                            is_clima_scale=IS_CLIMA_SCALE, dir_log=LOG_DIR,
-                            d_state=[d_state, d_state],
-                            name=f"chip_smoke_train_{encoder}_n{d_state}")
+    kw = dict(encoder=encoder, x_max=200, y_max=200,
+              times_train=TRAIN_WEEKS, times_val=VAL_WEEKS,
+              n_epochs=n_epochs, is_aug=False, batch_size=1,
+              is_clima_scale=IS_CLIMA_SCALE, dir_log=LOG_DIR,
+              d_state=[d_state, d_state],
+              name=f"chip_smoke_train_{encoder}_n{d_state}")
+    if cfg_kw:
+        kw["name"] += "_" + cfg_kw.get("codebook", "")
+    return synthetic_config(**kw, **cfg_kw)
 
 
-def step_gradients(cfg, params, batch, plain: bool, real: bool = False):
+def step_gradients(cfg, params, batch, plain: bool, real: bool = False,
+                   loss: list = None):
     """Every parameter's gradient of one train step (synthetic, or with
     ``real`` the real-world one) from ``params``, with the kernels or
-    (plain) with autograd through the plain op."""
+    (plain) with autograd through the plain op; the step's loss is
+    appended to ``loss`` when given."""
     from idee_tpu_torch.models.vq_model import build_model
     from idee_tpu_torch.train.state import create_train_state
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_train_step
@@ -787,15 +810,37 @@ def step_gradients(cfg, params, batch, plain: bool, real: bool = False):
     with plain_ops(cfg.encoder) if plain else contextlib.nullcontext():
         step(state, metrics, batch)
     torch.cuda.synchronize()
+    if loss is not None:
+        loss.append(metrics["loss_sums"]["loss"].item())
     return {k: p.grad for k, p in model.named_parameters()}
+
+
+def index_agreement(cfg, params, batch) -> float:
+    """Share of code indices equal between the forward with the kernels and
+    with the plain op, from ``params`` (buffers included) on one batch;
+    without sampling the train forward assigns the same codes."""
+    from idee_tpu_torch.models.vq_model import build_model
+
+    model = build_model(cfg)
+    model.load_state_dict(params)
+    model.to("cuda")
+    with torch.inference_mode():
+        got = model(batch["x"]).anomaly
+        with plain_ops(cfg.encoder):
+            want = model(batch["x"]).anomaly
+    return (got == want).float().mean().item()
 
 
 def compare_step_gradients(cfg, params, batch, what: str, real: bool = False):
     """One train step's gradients with the kernels against the plain op:
     each parameter within STEP_GRAD_REL x its max |grad|, every encoder
-    parameter nonzero. Emits a train_gradients line."""
+    parameter nonzero. Emits a train_gradients line; for a codebook other
+    than the 1-bit LFQ also the share of equal code indices."""
     got = step_gradients(cfg, params, batch, plain=False, real=real)
     want = step_gradients(cfg, params, batch, plain=True, real=real)
+    agree = None
+    if cfg.codebook != "LFQ" or cfg.codebook_size != 2:
+        agree = index_agreement(cfg, params, batch)
     worst = 0.0
     for k, w in want.items():
         scale = w.abs().max().item()
@@ -809,27 +854,31 @@ def compare_step_gradients(cfg, params, batch, what: str, real: bool = False):
             raise SystemExit(f"{what}: encoder parameter {k} got no "
                              "gradient")
     emit(phase="train_gradients", path=what, encoder=cfg.encoder,
-         parameters=len(want),
+         codebook=cfg.codebook, index_agreement=agree, parameters=len(want),
          encoder_parameters=sum(1 for k in got if k.startswith("encoder.")),
          max_err_over_max_abs_grad=worst, limit=STEP_GRAD_REL)
 
 
 def phase_train(cube, encoder: str, phase: str, resume: bool,
                 d_state: int = 1, n_epochs: int = N_EPOCHS,
-                compare_plain: bool = True):
-    """Phase ``phase``: train_synthetic at the bench width for ``n_epochs``,
-    launches counted; losses, checkpoints, history; with ``resume`` one
-    more epoch from latest; steady train steps/s; a profile; with
-    ``compare_plain`` one step's gradients with the kernels against the
-    plain op."""
+                compare_plain: bool = True, cfg_kw=None, check=None):
+    """Phase ``phase``: train_synthetic at the bench width for ``n_epochs``
+    (with the config overrides ``cfg_kw``), launches counted; losses,
+    checkpoints, history; with ``resume`` one more epoch from latest;
+    steady train steps/s; a profile; with ``compare_plain`` one step's
+    gradients with the kernels against the plain op, from the trained
+    weights when ``check`` is given. ``check(stage, cfg, run)`` runs after
+    the first run ("trained") and after the resume ("resumed"); what it
+    returns goes into the phase's line."""
     from idee_tpu_torch.data.loader import DataLoader
     from idee_tpu_torch.models.vq_model import build_model
     from idee_tpu_torch.train.driver import _make_datasets, train_synthetic
     from idee_tpu_torch.train.state import create_train_state
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_train_step
 
-    cfg = train_config(encoder, d_state, n_epochs)
+    cfg = train_config(encoder, d_state, n_epochs, **(cfg_kw or {}))
     shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    checked = {}
     train_cube, val_cube = cube.time_slice(*TRAIN_WEEKS), \
         cube.time_slice(*VAL_WEEKS)
     n_train = (TRAIN_WEEKS[1] - TRAIN_WEEKS[0] + 1) - cfg.delta_t + 1
@@ -864,6 +913,8 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
     with open(os.path.join(cfg.log_dir, "history.json")) as fh:
         if json.load(fh)["train_loss"] != history["train_loss"]:
             raise SystemExit("history.json differs from the run's history")
+    if check:
+        checked["trained"] = check("trained", cfg, history)
 
     resumed = None
     if resume:  # one more epoch resumes from latest
@@ -875,6 +926,9 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
                 or resumed["state"].step != (n_epochs + 1) * n_train):
             raise SystemExit(f"resume did not continue at epoch {n_epochs}:"
                              f" {resumed['train_loss']}")
+        if check:
+            checked["resumed"] = check("resumed", cfg, resumed)
+    trained = (resumed or history)["state"].model.state_dict()
 
     # --- steady state: train steps from fresh weights, host batch assembly
     # included
@@ -901,14 +955,166 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
          resumed_train_loss=resumed and resumed["train_loss"],
          wall_s_with_setup=wall_s, steady_train_steps_per_s=steps_per_s,
          steady_steps_timed=timed, max_memory_allocated=peak_bytes,
-         checkpoints=written)
+         checkpoints=written, codebook=cfg.codebook, **checked)
     emit(phase="profile", path=phase, **profile)
     if not compare_plain:
         return launches
 
     # --- one train step's gradients, kernels against the plain op
-    compare_step_gradients(cfg, params, next(iter(loader)), phase)
+    compare_step_gradients(cfg, trained if check else params,
+                           next(iter(loader)), phase)
     return launches
+
+
+# ------------------------------------------------------------------
+# the codebooks of cfg.codebook on the generic VQModel path
+
+
+# BASELINE.md's anchored VQ-EMA arm (scripts/train_benchmark_accuracy.py:
+# 108-116): EMA codebook, k-means init, dead-code expiry at 2.0; with the
+# commitment weight of its "VQ-EMA, commitment 0.25" arm
+VQ_EMA = dict(codebook="VQ", vq_ema_update=True, vq_kmeans_init=True,
+              vq_threshold_ema_dead_code=2.0, lambda_commitment=0.25)
+# every other codebook at the config defaults (codebook_size 2,
+# codebook_dim 16), and LFQ with 2 bits
+CODEBOOK_ARMS = {"FSQ": dict(codebook="FSQ"),
+                 "LatentQuantize": dict(codebook="LatentQuantize"),
+                 "Random_VQ": dict(codebook="Random_VQ"),
+                 "VQ": dict(codebook="VQ"),
+                 "LFQ_4": dict(codebook="LFQ", codebook_size=4)}
+
+
+def _buffers(model):
+    names = {n for n, _ in model.named_parameters()}
+    return {k: v for k, v in model.state_dict().items() if k not in names}
+
+
+def phase_train_vq_ema(cube):
+    """Phase train_vq_ema: phase ``train`` for the VQ-EMA arm, 1 epoch and
+    a resumed second. The k-means init runs once, in the first step, and
+    never in the resumed epoch; initted is 1 and both codes hold
+    cluster_size > 0 after each run; a restore gives back the saved buffers
+    and the host flag; the step gradients (kernels against the plain scan)
+    start from the trained codebook state."""
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.quant.vq import VQ
+    from idee_tpu_torch.train.checkpoint import CheckpointManager
+    from idee_tpu_torch.train.state import create_train_state
+
+    calls = []
+    kmeans = VQ.kmeans
+
+    def counted(self, *a):
+        calls.append(1)
+        return kmeans(self, *a)
+
+    def check(stage, cfg, run):
+        vq = run["state"].model.vq
+        want_calls = 1 if stage == "trained" else 0
+        cluster = vq.cluster_size.cpu().tolist()
+        if (len(calls) != want_calls or vq.initted.item() != 1.0
+                or not vq._initted or not (vq.cluster_size > 0).all()):
+            raise SystemExit(f"{stage}: k-means ran {len(calls)} times "
+                             f"(want {want_calls}), initted "
+                             f"{vq.initted.item()}, cluster_size {cluster}")
+        calls.clear()
+        if stage != "trained":
+            return {"kmeans_runs": 0, "cluster_size": cluster}
+        saved = torch.load(os.path.join(cfg.log_dir, "model_checkpoints",
+                                        "latest.pt"), map_location="cpu",
+                           weights_only=True)["model"]
+        fresh = build_model(cfg)
+        CheckpointManager(cfg.log_dir).restore(
+            "latest", create_train_state(cfg, fresh, "cuda"))
+        for k, v in _buffers(run["state"].model).items():
+            if not (torch.equal(saved[k], v.cpu())
+                    and torch.equal(_buffers(fresh)[k], v)):
+                raise SystemExit(f"buffer {k} not saved or restored as is")
+        if not fresh.vq._initted:
+            raise SystemExit("the restored model would re-run k-means")
+        return {"kmeans_runs": 1, "cluster_size": cluster,
+                "buffers_restored": sorted(_buffers(fresh))}
+
+    VQ.kmeans = counted
+    try:
+        return phase_train(cube, "Mamba", "train_vq_ema", resume=True,
+                           n_epochs=N_EPOCHS_SHORT, cfg_kw=VQ_EMA,
+                           check=check)
+    finally:
+        VQ.kmeans = kmeans
+
+
+# parameters without a gradient path in the JAX package too: Random_VQ's
+# output is stop-gradient (its encoder learns nothing), and LatentQuantize's
+# level values reach the loss only through the straight-through estimator
+NO_GRADIENT = {"Random_VQ": ("encoder.",),
+               "LatentQuantize": ("vq.values_per_latent",)}
+
+
+def codebook_train_step(cube, name: str, cfg_kw):
+    """One train step of codebook ``name`` at the bench width from seeded
+    weights, with the kernels (3 fused forward and 3 backward launches; no
+    backward where the encoder gets no gradient) and with the plain scan:
+    finite losses; each gradient within STEP_GRAD_REL x its max |grad| of
+    the plain one, and zero in both or in neither; every encoder parameter
+    nonzero and NO_GRADIENT's exactly 0. Which other parameters get no
+    gradient depends on the codes: FSQ at 2 levels maps an encoder near 0
+    onto the code 0, a zero vector, so the classifier sees zeros."""
+    from idee_tpu_torch.data.loader import DataLoader
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.train.driver import _make_datasets
+
+    cfg = train_config("Mamba", **cfg_kw)
+    train_ds, _ = _make_datasets(cfg, cube.time_slice(*TRAIN_WEEKS),
+                                 cube.time_slice(*VAL_WEEKS))
+    batch = next(iter(DataLoader(train_ds, 1, device="cuda", keys=[
+        "x", "mask_extreme", "mask_extreme_loss", "timestep"])))
+    params = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    losses = []
+    no_grad = NO_GRADIENT.get(name, ())
+    launches = kernel_launches_per_step("Mamba", train=True)
+    if "encoder." in no_grad:  # no backward reaches the encoder
+        del launches[kernel_modules()[0].FUSED_BWD]
+    zero_launches()
+    got = step_gradients(cfg, params, batch, plain=False, loss=losses)
+    expect_launches(read_launches(), launches, f"{name} train step")
+    want = step_gradients(cfg, params, batch, plain=True, loss=losses)
+    if not all(map(math.isfinite, losses)):
+        raise SystemExit(f"{name}: train losses {losses}")
+    worst, zero = 0.0, []
+    for k, w in want.items():
+        scale = w.abs().max().item()
+        err = (got[k] - w).abs().max().item()
+        if err > STEP_GRAD_REL * scale:
+            raise SystemExit(f"{name}: gradient of {k}: kernel vs plain "
+                             f"error {err} > {STEP_GRAD_REL} x {scale}")
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+        is_zero = got[k].abs().max().item() == 0.0
+        if is_zero != (scale == 0.0):
+            raise SystemExit(f"{name}: {k} is zero in one run only")
+        if is_zero:
+            zero.append(k)
+        if k.startswith(no_grad) != is_zero and (
+                k.startswith(no_grad) or k.startswith("encoder.")):
+            raise SystemExit(f"{name}: {k} gradient zero={is_zero}")
+    return {"train_loss": losses[0], "plain_train_loss": losses[1],
+            "parameters": len(want), "max_err_over_max_abs_grad": worst,
+            "limit": STEP_GRAD_REL, "zero_gradient": zero}
+
+
+def phase_codebooks(cube):
+    """Phase codebooks: per arm of CODEBOOK_ARMS, phase ``main`` with that
+    codebook (test_synthetic over the cube with exact launch counts, steady
+    eval steps/s, peak memory, a profile, the forward against the plain
+    scan) and one train step (codebook_train_step). Returns the eval
+    launches by path."""
+    paths, steps = {}, {}
+    for name, kw in CODEBOOK_ARMS.items():
+        paths[f"eval_{name}"] = phase_eval(cube, "Mamba",
+                                           phase=f"main_{name}", **kw)
+        steps[name] = codebook_train_step(cube, name, kw)
+    emit(phase="codebooks", train_steps=steps)
+    return paths
 
 
 # ------------------------------------------------------------------
@@ -1221,7 +1427,9 @@ def main() -> int:
         "eval_cnn": phase_eval(cube, "CNN_3D"),
         "train_cnn": phase_train(cube, "CNN_3D", "train_cnn", resume=False,
                                  n_epochs=N_EPOCHS_SHORT,
-                                 compare_plain=False)}
+                                 compare_plain=False),
+        "train_vq_ema": phase_train_vq_ema(cube)}
+    paths.update(phase_codebooks(cube))
     del cube
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     cerra_root = tempfile.mkdtemp(prefix="chip_smoke_cerra_",

@@ -13,8 +13,11 @@ layout:
       -> .../project_{in,out}.weight [out, in]
 
 Trees arrive as nested dicts of numpy arrays (``jax.device_get`` of the
-flax params), optionally wrapped as {"params": ...}, or as a ``.npz``
-keyed by '/'-joined flax paths (``load_flax_npz``).
+flax params), or as the JAX variables dict {"params": ..., "codebook":
+...}, or as a ``.npz`` keyed by '/'-joined flax paths (``load_flax_npz``).
+The "codebook" collection (VQ's embed / cluster_size / embed_avg /
+initted, Random_VQ's rand_projs and its inner VQ's state) maps onto the
+port's buffers by the same path rule as the parameters.
 """
 # ------------------------------------------------------------------
 
@@ -56,22 +59,39 @@ def _convert_leaf(path: Tuple[str, ...], value: np.ndarray):
     return ".".join(path), value
 
 
+_COLLECTIONS = ("params", "codebook")
+
+
+def _leaves(tree: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
+    """The leaves of a params sub-tree, or of a variables dict's "params"
+    and "codebook" collections together (their paths are disjoint)."""
+    if not any(isinstance(tree.get(k), Mapping) for k in _COLLECTIONS):
+        return flatten_flax(tree)
+    leaves = {}
+    for name in _COLLECTIONS:
+        for path, v in flatten_flax(tree.get(name, {})).items():
+            if path in leaves:
+                raise ValueError(f"{'/'.join(path)} is in two collections")
+            leaves[path] = v
+    return leaves
+
+
 def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax params (any sub-tree) -> the matching port module's state_dict
-    (float32 tensors)."""
-    if "params" in tree and isinstance(tree["params"], Mapping):
-        tree = tree["params"]
+    """Flax params (any sub-tree), or a variables dict with its "codebook"
+    collection -> the matching port module's state_dict (float32
+    tensors)."""
     sd = {}
-    for path, value in flatten_flax(tree).items():
+    for path, value in _leaves(tree).items():
         key, v = _convert_leaf(path, value)
         sd[key] = torch.from_numpy(np.array(v, dtype=np.float32))  # a copy
     return sd
 
 
 def load_flax_params(cfg, flax_params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX VQModel's params -> the port VQModel's state_dict, checked
-    strictly against the port model built from ``cfg`` (every key present,
-    no extra key, every shape equal)."""
+    """The JAX VQModel's params, or its variables dict {"params": ...,
+    "codebook": ...} -> the port VQModel's state_dict, checked strictly
+    against the port model built from ``cfg`` (every key present, buffers
+    included, no extra key, every shape equal)."""
     from idee_tpu_torch.models.vq_model import build_model
 
     sd = flax_to_state_dict(flax_params)
@@ -102,8 +122,12 @@ def load_flax_npz(path: str) -> Dict:
 
 
 def save_flax_npz(path: str, flax_params: Mapping) -> None:
-    """Inverse of load_flax_npz."""
-    if "params" in flax_params and isinstance(flax_params["params"], Mapping):
-        flax_params = flax_params["params"]
-    np.savez(path, **{"/".join(p): v
-                      for p, v in flatten_flax(flax_params).items()})
+    """Inverse of load_flax_npz. A variables dict keeps its collections as
+    the first path component when it has a "codebook" one; bare params
+    (or {"params": ...} alone) are written by their paths."""
+    tree = flax_params
+    if any(isinstance(tree.get(k), Mapping) for k in _COLLECTIONS):
+        tree = {k: tree[k] for k in _COLLECTIONS if k in tree}
+        if list(tree) == ["params"]:
+            tree = tree["params"]
+    np.savez(path, **{"/".join(p): v for p, v in flatten_flax(tree).items()})

@@ -1,20 +1,26 @@
 # ------------------------------------------------------------------
-"""The composite model: encoder -> 1-bit LFQ bottleneck -> classifier
-(counterpart of idee_tpu/models/vq_model.py; reference
-models/build.py:130-159). The per-(variable, time, pixel) code index from
-the quantizer is the anomaly/driver mask.
+"""The composite model: encoder -> codebook -> classifier (counterpart of
+idee_tpu/models/vq_model.py; reference models/build.py:130-159). The
+per-(variable, time, pixel) code index from the quantizer is the
+anomaly/driver mask.
 
 forward(x [N,V,C,T,H,W]) ->
   z        [N, n_classes, H, W]   joint extreme logits
   y        [N, V, 1, H, W]        per-variable extreme logits
-  anomaly  [N, V, T, H, W]        anomaly bits (code indices)
-  z_q      [N, V, C', T, H, W]    quantized features (a view of the packed
-                                  codes, float32)
+  anomaly  [N, V, T, H, W]        code indices (anomaly bits for LFQ with
+                                  codebook_size 2)
+  z_q      [N, V, C', T, H, W]    quantized features (float32)
   loss_z_q scalar                 quantizer aux loss
-  vq0      [C']                   the 'normal' code vector (detached)
+  vq0      [C']                   the 'normal' code vq.indices_to_codes(0)
+                                  (detached)
   loss_anomaly                    anomaly L1, when mask_extreme_loss given
 
-Only the packed 1-bit LFQ path is ported; other codebooks raise.
+Two flows. LFQ with codebook_size 2 (the default) runs the packed 1-bit
+path: activations keep [N, T, H, W, V*C] and the quantizer works on one
+scalar per (variable, voxel). Every other codebook of ``cfg.codebook``
+(VQ, FSQ, LatentQuantize, Random_VQ, LFQ with a larger codebook) runs the
+generic path: tokens [N, V*T*H*W, C] through the quantizer, z_q in
+float32, the classifier on the unpacked codes.
 """
 # ------------------------------------------------------------------
 
@@ -30,6 +36,7 @@ from idee_tpu_torch.nn.cnn3d import CNN_3D
 from idee_tpu_torch.nn.layers import reference_init, trunc_normal_init
 from idee_tpu_torch.nn.mamba import Mamba
 from idee_tpu_torch.nn.swin3d import Swin_3D
+from idee_tpu_torch.quant import get_quantizer
 from idee_tpu_torch.quant.lfq import LFQ
 
 
@@ -74,18 +81,47 @@ def build_encoder(cfg: Config, kernel_init, generator=None) -> nn.Module:
         f"Encoder {cfg.encoder} is not ported yet (ROADMAP.md, open items)")
 
 
-def build_quantizer(cfg: Config, kernel_init=None, generator=None) -> LFQ:
-    if cfg.codebook != "LFQ":
-        raise NotImplementedError(
-            f"Codebook {cfg.codebook} is not ported yet (ROADMAP.md, open "
-            "items)")
-    return LFQ(dim=cfg.codebook_dim, codebook_size=cfg.codebook_size,
-               entropy_loss_weight=cfg.lambda_entropy,
-               diversity_gamma=cfg.diversity_gamma,
-               commitment_loss_weight=cfg.lambda_commitment,
-               freeze_project_out=cfg.codebook_freeze_out,
-               inv_temperature=cfg.codebook_inv_temperature,
-               kernel_init=kernel_init, generator=generator)
+def build_quantizer(cfg: Config, kernel_init=None,
+                    generator=None) -> nn.Module:
+    """The codebook ``cfg.codebook`` names, with the JAX package's keyword
+    mapping (idee_tpu/models/vq_model.py:114-168; the reference hard-codes
+    LFQ, models/build.py:86-91). ``kernel_init`` reaches LFQ's projections
+    only: the other codebooks initialise theirs N(0.02, 0.02), as in the
+    JAX package."""
+    cls = get_quantizer(cfg.codebook)
+    name = cfg.codebook
+    if name == "LFQ":
+        return cls(dim=cfg.codebook_dim, codebook_size=cfg.codebook_size,
+                   entropy_loss_weight=cfg.lambda_entropy,
+                   diversity_gamma=cfg.diversity_gamma,
+                   commitment_loss_weight=cfg.lambda_commitment,
+                   freeze_project_out=cfg.codebook_freeze_out,
+                   inv_temperature=cfg.codebook_inv_temperature,
+                   kernel_init=kernel_init, generator=generator)
+    if name == "VQ":
+        ema = cfg.vq_ema_update
+        return cls(dim=cfg.codebook_dim, codebook_size=cfg.codebook_size,
+                   codebook_dim=cfg.codebook_dim,
+                   commitment_weight=cfg.lambda_commitment,
+                   orthogonal_reg_weight=cfg.lambda_ortho,
+                   sync_axis=cfg.codebook_sync_axis,
+                   ema_update=ema, learnable_codebook=not ema,
+                   decay=cfg.vq_decay, kmeans_init=cfg.vq_kmeans_init,
+                   kmeans_iters=cfg.vq_kmeans_iters,
+                   threshold_ema_dead_code=cfg.vq_threshold_ema_dead_code,
+                   use_cosine_sim=cfg.vq_use_cosine_sim,
+                   generator=generator)
+    if name == "FSQ":
+        return cls(dim=cfg.codebook_dim, levels=(cfg.codebook_size,),
+                   generator=generator)
+    if name == "LatentQuantize":
+        return cls(dim=cfg.codebook_dim, levels=(cfg.codebook_size,),
+                   commitment_loss_weight=cfg.lambda_commitment,
+                   generator=generator)
+    # Random_VQ
+    return cls(dim=cfg.codebook_dim, codebook_size=cfg.codebook_size,
+               codebook_dim=cfg.codebook_dim,
+               sync_axis=cfg.codebook_sync_axis, generator=generator)
 
 
 class VQOutput(NamedTuple):
@@ -126,22 +162,60 @@ class VQModel(nn.Module):
                                      drop_rate=cfg.cls_drop_rate,
                                      kernel_init=init, generator=generator)
         self.vq = build_quantizer(cfg, kernel_init=init, generator=generator)
-        if not (self.vq.codebook_dims == 1 and self.vq.has_projections
-                and self.vq.codebook_scale == 1.0):
-            raise NotImplementedError("only the 1-bit LFQ path "
-                                      "(codebook_size=2) is ported")
+
+    def normal_code(self, device=None) -> torch.Tensor:
+        """vq.indices_to_codes(0): the feature-space 'normal' code."""
+        return self.vq.indices_to_codes(
+            torch.zeros((1,), dtype=torch.long, device=device))[0]
+
+    def _scalar_lfq(self) -> bool:
+        """True when the quantizer takes the packed 1-bit path."""
+        return (isinstance(self.vq, LFQ) and self.vq.codebook_dims == 1
+                and self.vq.has_projections
+                and self.vq.codebook_scale == 1.0)
 
     def forward(self, x_d, train: bool = False, mask_extreme_loss=None,
                 mask_exclude=None,
                 generator: Optional[torch.Generator] = None) -> VQOutput:
-        """Packed 1-bit LFQ flow: activations keep [N, T, H, W, V*C]; the
-        quantizer works on per-(variable, voxel) scalars and the anomaly
-        L1 is the collapsed losses.anomaly_l1_lfq. The L1 leaves the pixels
-        of mask_extreme_loss, and of mask_exclude (the real-world cold
-        surface) when given, unconstrained."""
+        """The anomaly L1 leaves the pixels of mask_extreme_loss, and of
+        mask_exclude (the real-world cold surface) when given,
+        unconstrained. ``generator`` draws dropout and drop-path masks and
+        the codebook's random draws."""
         V = self.config.in_channels_dynamic
         zp = self.encoder(x_d.float(), train=train, packed_out=True,
                           generator=generator)
+        if self._scalar_lfq():
+            return self._forward_packed(zp, V, train, mask_extreme_loss,
+                                        mask_exclude, generator)
+
+        # generic path (idee_tpu/models/vq_model.py:248-277): tokens in
+        # (V, T, H, W) order (build.py:149-150)
+        N, T, H, W, VC = zp.shape
+        C = VC // V
+        tokens = zp.reshape(N, T, H, W, V, C).permute(0, 4, 1, 2, 3, 5) \
+            .reshape(N, V * T * H * W, C)
+        z_q, indices, loss_z_q = self.vq(tokens, train=train,
+                                         generator=generator)
+        z_q = z_q.reshape(N, V, T, H, W, C).permute(0, 1, 5, 2, 3, 4)
+        anomaly = indices.reshape(N, V, T, H, W)
+        # classify on the quantized codes only (build.py:157)
+        zc, y = self.cls(z_q, train=train, generator=generator)
+        vq0 = self.normal_code(z_q.device).detach()
+        loss_anomaly = None
+        if mask_extreme_loss is not None:
+            if mask_exclude is not None:
+                loss_anomaly = losses.anomaly_l1_loss(
+                    z_q, mask_extreme_loss, mask_exclude, vq0)
+            else:
+                loss_anomaly = losses.anomaly_l1_loss_synthetic(
+                    z_q, mask_extreme_loss, vq0)
+        return VQOutput(zc, y, anomaly, z_q, loss_z_q, vq0, loss_anomaly)
+
+    def _forward_packed(self, zp, V: int, train: bool, mask_extreme_loss,
+                        mask_exclude, generator) -> VQOutput:
+        """Packed 1-bit LFQ flow: activations keep [N, T, H, W, V*C]; the
+        quantizer works on per-(variable, voxel) scalars and the anomaly
+        L1 is the collapsed losses.anomaly_l1_lfq."""
         N, T, H, W, VC = zp.shape
         C = VC // V
 

@@ -10,6 +10,10 @@ in both.
 optax reads its schedule at the count of updates already applied, so
 ``TrainState.apply_gradients`` sets every group's lr from the schedule at
 ``step`` (the steps taken so far) before ``optimizer.step()``.
+
+The optimizer holds exactly the JAX package's ``params`` tree: the model's
+parameters. Codebook state (VQ's EMA statistics, Random_VQ's projections)
+lives in buffers, which it never sees.
 """
 # ------------------------------------------------------------------
 
@@ -71,10 +75,16 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """One optimizer step at the lr the schedule gives for the steps
-        taken so far."""
+        taken so far. A parameter the loss does not reach (a frozen LFQ
+        project_out, Random_VQ's encoder) steps with a zero gradient, as in
+        the JAX package, whose gradient tree holds zeros there: torch's Adam
+        would skip it, and so skip its weight decay."""
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.step += 1
 

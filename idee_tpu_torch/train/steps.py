@@ -99,7 +99,11 @@ def make_train_step(model, cfg: Config, t0: float = 0.0,
     """step(state, metrics, batch) -> (state, metrics): forward with
     train=True and the mask, total_loss_synthetic, backward, one optimizer
     step, then the metric updates on detached outputs (JAX
-    ``_train_step_body``). Nothing waits for the device.
+    ``_train_step_body``). Nothing waits for the device. A stateful
+    codebook (VQ-EMA, k-means init, expiry) quantizes with the state it
+    finds and moves its buffers in the forward, drawing from
+    ``state.generator``: JAX's "codebook" collection, kept after the
+    update.
 
     t0: absolute timestep of the dataset's first timeline slot.
     steps_per_epoch enables the anomaly-L1 curriculum

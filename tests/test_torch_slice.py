@@ -97,6 +97,8 @@ def test_port_imports_nothing_of_jax():
     modules = sorted(".".join(f.relative_to(REPO).with_suffix("").parts)
                      for f in package if f.name != "__init__.py")
     assert "idee_tpu_torch.train.driver_real" in modules
+    assert {f"idee_tpu_torch.quant.{m}" for m in (
+        "lfq", "vq", "fsq", "latent_quantize", "random_vq")} <= set(modules)
     code = ("import sys, importlib; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
