@@ -84,8 +84,28 @@ Phases, each printing one JSON line:
                  forward alone at its two 512x832 shapes (kernel_cerra);
                  then cli/predict_real.py's predict_real on the same tree
                  (predict_cerra), its payload checked
- 14. kernels     one line listing every kernel: route, source, launches by
+ 14. main_mamba_bf16, train_mamba_bf16, main_swin_bf16, train_swin_bf16,
+     main_cnn_bf16, train_cnn_bf16
+                 phases 3 and 4 at cfg.dtype "bfloat16" (1 epoch, no
+                 resume): the Swin attention through its bf16 kernels, the
+                 scans through their float32 ones, CNN_3D none; the plain-op
+                 logits held where no code bit flipped; then
+                 predict_synthetic (cli/predict_synthetic.py) over the cube
+                 with train_swin_bf16's weights, its payload checked; and
+                 bf16_vs_float32, each bf16 phase's steps/s, device ms, busy
+                 share and peak memory beside its float32 phase's. The
+                 kernel phase also holds the bf16 attention kernels against
+                 their plain bf16 versions (one bf16 ulp), reruns them bit
+                 for bit and times them beside SDPA on bf16 inputs
+ 15. kernels     one line listing every kernel: route, source, launches by
                  path, error and times
+Each "profile" line gives a path's device ms per step by operator and by
+kind of kernel (disjoint: cuDNN wgrad, dgrad, other GEMMs and implicit
+GEMMs, the rest); for the synthetic eval and train paths also, from one
+more step profiled with input shapes, the ms by pass (forward, backward,
+optimizer) and kind and each top kernel's launching operators. The bf16
+eval phases also hold the encoder's output before the quantizer with the
+kernels against the plain op's.
 The card's name and power limit stand on a line of their own, and the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
 that line; without a CUDA card the script exits non-zero at once.
@@ -142,10 +162,33 @@ ATTN_SHAPES = {"stage0": (10_000, 32, None),
                "stage1": (40_000, 8, None)}
 ATTN_RTOL, ATTN_ATOL = 1e-5, 1e-5
 ATTN_GRAD_RTOL, ATTN_GRAD_ATOL = 1e-4, 1e-5
+# the bf16 instantiations against the plain bf16 versions: both round
+# float32 values that sum in other orders, so an output may sit one bf16
+# ulp (2^(floor(log2 |x|) - 7)) off, plus the float32 kernels' absolute
+# tolerances; dbias stays float32 and is held as at float32
+ATTN_BF16_ULPS = 1
 # dbias sums ds over 10,000-40,000 windows whose terms cancel: its rounding
 # error scales with the sum's size, so its absolute tolerance is this
 # fraction of max |dbias|
 DBIAS_REL = 1e-5
+
+# the bf16 paths (cfg.dtype "bfloat16") against their plain ops: a kernel
+# output one bf16 ulp off flips an LFQ code bit where the latent lies within
+# bf16 noise of 0, and a flipped code moves every logit in view of the
+# classifier (7x7 pixels, every variable and week). So the logits are held
+# at BF16_LOGIT_REL x max |logit| on the pixels with no flipped code in
+# view, the bits at BF16_BITS_AGREE, one step's gradients at BF16_GRAD_REL
+# x max |grad| (tests/test_torch_bf16*.py's tolerances against JAX). The
+# encoder's output before the quantizer, where the attention kernels act
+# and no code flip enters, at BF16_ENCODER_REL x max |output| (the module
+# tolerance of tests/test_torch_bf16.py)
+BF16_ENCODER_REL = 2e-2
+BF16_LOGIT_REL = 5e-2
+BF16_BITS_AGREE = 0.99
+BF16_GRAD_REL = 5e-2
+BF16 = dict(dtype="bfloat16")
+# phase results that the bf16_vs_float32 line sets side by side
+SUMMARY = {}
 
 N_WEEKS = 40  # fake cube length: 33 eval samples at delta_t=8
 # global (not weekly-climatology) normalisation: a cube shorter than two
@@ -393,7 +436,8 @@ def sdpa_times(q, k, v, go, bias, mask, scale, o_plain):
     if mask is not None:
         bank, idx = mask
         add = add + bank[idx.long()][:, None]
-    add = add.contiguous().requires_grad_()
+    # SDPA takes a mask of q's dtype
+    add = add.to(q.dtype).contiguous().requires_grad_()
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     gt = go.transpose(1, 2)
@@ -408,7 +452,7 @@ def sdpa_times(q, k, v, go, bias, mask, scale, o_plain):
                                              scale=scale)
         torch.autograd.grad(out, (qt, kt, vt, add), gt)
 
-    err = (fwd().transpose(1, 2) - o_plain).abs().max()
+    err = (fwd().transpose(1, 2).float() - o_plain.float()).abs().max()
     fwd_ms = cuda_ms(fwd, iters=20)
     return fwd_ms, cuda_ms(fwd_bwd, iters=10) - fwd_ms, err.item()
 
@@ -554,6 +598,111 @@ def check_attention(bounds):
     return per_shape
 
 
+def bf16_ulp(x):
+    """The spacing of bf16 values (8 significant bits) at |x|; 0 at 0."""
+    m, e = torch.frexp(x.float().abs())
+    return torch.where(m == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def max_err_bf16(got, want, name, atol) -> float:
+    """Max |got - want| of two bf16 tensors, each entry within
+    ATTN_BF16_ULPS bf16 ulps of want plus ``atol``."""
+    err = (got.float() - want.float()).abs()
+    lim = ATTN_BF16_ULPS * bf16_ulp(want) + atol
+    if not bool((err <= lim).all()):
+        raise SystemExit(f"{name}: {int((err > lim).sum())} entries beyond "
+                         f"{ATTN_BF16_ULPS} bf16 ulp + {atol}, worst "
+                         f"{(err - lim).max().item()} over")
+    return err.max().item()
+
+
+def check_attention_bf16(bounds, f32_rows):
+    """The bf16 forward and backward kernels against their plain bf16
+    versions at each stage shape (q, k, v and the output gradient rounded
+    to bf16; bias and mask float32), each run twice and compared bit for
+    bit; timed beside SDPA on the same bf16 inputs and their bounds; their
+    shared memory and blocks per SM. The backward's time is its two
+    launches less the float32 row's dbias sum (the same launch on the same
+    shape)."""
+    wa = kernel_modules()[1]
+    bf16 = torch.bfloat16
+    per_shape = {}
+    for i, (stage, (BW, n, geom)) in enumerate(ATTN_SHAPES.items()):
+        q, k, v, go, bias, mask = attention_inputs(BW, n, geom, seed=60 + i)
+        q, k, v, go = (t.to(bf16) for t in (q, k, v, go))
+        scale = ATTN_HD ** -0.5
+        before = dict(wa.launches)
+        o = wa.window_attention(q, k, v, bias, mask, scale)
+        o_p = wa.window_attention_fwd_plain(q, k, v, bias, mask, scale)
+        torch.cuda.synchronize()
+        fwd_err = max_err_bf16(o, o_p, f"{stage} bf16 forward", ATTN_ATOL)
+        if not torch.equal(o, wa.window_attention(q, k, v, bias, mask,
+                                                  scale)):
+            raise SystemExit(f"{stage}: two bf16 forward runs differ")
+
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        runs = [torch.autograd.grad(
+            wa.window_attention(*leaves, mask, scale), leaves, go)
+            for _ in range(2)]
+        want = wa.window_attention_bwd_plain(q, k, v, bias, mask, scale,
+                                             o_p, go)
+        torch.cuda.synchronize()
+        launched = {kk: wa.launches[kk] - before[kk] for kk in wa.launches}
+        expect_launches(launched, {wa.ATTN_FWD_BF16: 4, wa.ATTN_BWD_BF16: 2,
+                                   wa.DBIAS_SUM: 2}, f"{stage} bf16 check")
+        bwd_err = max(max_err_bf16(a, b, f"{stage} bf16 {name}",
+                                   ATTN_GRAD_ATOL)
+                      for name, a, b in zip(("dq", "dk", "dv"), runs[0],
+                                            want))
+        bwd_err = max(bwd_err, max_err(
+            runs[0][3], want[3], f"{stage} bf16 dbias", ATTN_GRAD_RTOL,
+            DBIAS_REL * want[3].abs().max().item()))
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise SystemExit(f"{stage}: two bf16 backward runs differ")
+        del runs, want, leaves
+
+        def fwd():
+            wa.window_attention(q, k, v, bias, mask, scale)
+
+        def bwd():
+            wa._backward(q, k, v, bias, *(mask or (None, None)), scale, o,
+                         go)
+
+        def plain_bwd():
+            wa.window_attention_bwd_plain(q, k, v, bias, mask, scale, o_p,
+                                          go)
+
+        sdpa_fwd, sdpa_bwd, sdpa_err = sdpa_times(q, k, v, go, bias, mask,
+                                                  scale, o_p)
+        row = dict(BW=BW, n=n, G=ATTN_G, hd=ATTN_HD, shifted=geom is not None,
+                   dtype="bfloat16")
+        smem, per_sm = wa.fwd_occupancy(n, ATTN_HD, geom is not None, bf16)
+        row["forward"] = dict(
+            max_abs_err=fwd_err, bitwise_deterministic=True,
+            ms=cuda_ms(fwd, iters=50),
+            plain_ms=cuda_ms(lambda: wa.window_attention_fwd_plain(
+                q, k, v, bias, mask, scale), iters=5, warmup=1),
+            library_ms=sdpa_fwd, library_max_abs_err=sdpa_err,
+            smem_bytes_per_block=smem, blocks_per_sm=per_sm)
+        smem, per_sm = wa.bwd_occupancy(n, ATTN_HD, geom is not None, bf16)
+        row["backward"] = dict(
+            max_abs_err=bwd_err, bitwise_deterministic=True,
+            ms=cuda_ms(bwd, iters=20) - f32_rows[stage]["dbias_sum"]["ms"],
+            plain_ms=cuda_ms(plain_bwd, iters=5, warmup=1),
+            library_ms=sdpa_bwd, smem_bytes_per_block=smem,
+            blocks_per_sm=per_sm)
+        for key, fn in (("forward", bounds.window_attention_fwd),
+                        ("backward", bounds.window_attention_bwd)):
+            r = row[key]
+            r["bound_ms"], r["bound_by"] = fn(BW, n, ATTN_G, ATTN_HD,
+                                              "bfloat16")
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        per_shape[stage] = row
+        del q, k, v, go, bias, mask, o, o_p
+        torch.cuda.empty_cache()
+    return per_shape
+
+
 def phase_kernel():
     from idee_tpu_torch.kernels import bounds
 
@@ -562,15 +711,18 @@ def phase_kernel():
     scan = check_linear_scan(ss, bounds)
     backward = check_fused_backward(ss, bounds)
     attention = check_attention(bounds)
+    attention_bf16 = check_attention_bf16(bounds, attention)
     emit(phase="kernel", rtol=SCAN_RTOL, atol=SCAN_ATOL,
          grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL,
          attention_rtol=ATTN_RTOL, attention_atol=ATTN_ATOL,
          attention_grad_rtol=ATTN_GRAD_RTOL,
          attention_grad_atol=ATTN_GRAD_ATOL,
          attention_dbias_atol_over_max=DBIAS_REL,
+         attention_bf16_ulps=ATTN_BF16_ULPS,
          **{ss.FUSED_FWD: fused, ss.LINEAR_SCAN: scan,
-            "fused_scan_backward": backward, "window_attention": attention})
-    return fused, scan, backward, attention
+            "fused_scan_backward": backward, "window_attention": attention,
+            "window_attention_bf16": attention_bf16})
+    return fused, scan, backward, attention, attention_bf16
 
 
 def zero_launches():
@@ -613,18 +765,22 @@ def plain_ops(encoder: str):
         setattr(mod, name, kernel_op)
 
 
-def kernel_launches_per_step(encoder: str, train: bool, d_state: int = 1):
+def kernel_launches_per_step(encoder: str, train: bool, d_state: int = 1,
+                             dtype: str = "float32"):
     """Launches per train (or eval / val) step at the bench width: three
     blocks, one launch each of the forward kernel, and in a train step of
-    each backward kernel (at d_state > 1 the linear scan is both)."""
+    each backward kernel (at d_state > 1 the linear scan is both). At
+    bf16 the attention launches its bf16 kernels (and the float32 dbias
+    sum); the scans take float32 inputs whatever the compute dtype."""
     ss, wa = kernel_modules()
     if encoder == "Mamba" and d_state == 1:
         return {ss.FUSED_FWD: 3, **({ss.FUSED_BWD: 3} if train else {})}
     if encoder == "Mamba":
         return {ss.LINEAR_SCAN: 6 if train else 3}
     if encoder == "Swin_3D":
-        return {wa.ATTN_FWD: 3,
-                **({wa.ATTN_BWD: 3, wa.DBIAS_SUM: 3} if train else {})}
+        fwd, bwd = ((wa.ATTN_FWD, wa.ATTN_BWD) if dtype == "float32"
+                    else (wa.ATTN_FWD_BF16, wa.ATTN_BWD_BF16))
+        return {fwd: 3, **({bwd: 3, wa.DBIAS_SUM: 3} if train else {})}
     return {}  # CNN_3D runs no kernel
 
 
@@ -643,10 +799,56 @@ def steady_steps_per_s(run_step, batches, warmup: int = 3):
     return timed / (time.perf_counter() - t0), timed
 
 
-def profile_steps(run_step, n: int):
+# device kernels by kind, disjoint (a kernel counts under its first match):
+# cuDNN's weight gradients, its data gradients, every other GEMM or
+# implicit GEMM (cuBLAS, CUTLASS, cuDNN's forward convolutions), the rest
+KERNEL_KINDS = (("wgrad", ("wgrad",)), ("dgrad", ("dgrad",)),
+                ("gemm_or_implicit_gemm", ("gemm", "xmma", "cutlass",
+                                           "wmma")))
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    for kind, words in KERNEL_KINDS:
+        if any(w in low for w in words):
+            return kind
+    return "other"
+
+
+def _kernel_sources(prof):
+    """Each device kernel's launching operators from a profile taken with
+    record_shapes: {kernel: {(pass, op, input shapes): us}}, the pass
+    "backward" under an autograd node, "optimizer" under an optimizer's
+    step, else "forward" (loss and metrics included). The kernel's name
+    carries its dtypes."""
+    out = {}
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        where, p = "forward", e
+        while p is not None:
+            if p.name.startswith("autograd::engine::evaluate_function"):
+                where = "backward"
+                break
+            if p.name.startswith("Optimizer."):
+                where = "optimizer"
+                break
+            p = p.cpu_parent
+        src = (where, e.name, str(e.input_shapes)[:160])
+        for kern in e.kernels:
+            by_src = out.setdefault(kern.name, {})
+            by_src[src] = by_src.get(src, 0.0) + kern.duration
+    return out
+
+
+def profile_steps(run_step, n: int, attribute: bool = False):
     """Where a steady step's time goes: torch.profiler over ``n`` calls of
-    run_step(); device time by operator, and the device's busy share of
-    the wall time (the profiler's own host cost included)."""
+    run_step(); device time by operator and by kind of kernel, and the
+    device's busy share of the wall time (the profiler's own host cost
+    included). With ``attribute``, one more call is profiled with its
+    operators' input shapes (kept out of the timed calls): device ms of
+    that step by pass and kind, and for each top kernel the operators that
+    launched it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -672,14 +874,73 @@ def profile_steps(run_step, n: int):
             rows.append((dev_us / 1e3 / n, e.key))
     rows.sort(reverse=True)
     device_ms = sum(ms for ms, _ in rows)
-    return dict(steps=n, wall_ms_per_step=wall_ms,
-                device_ms_per_step=device_ms,
-                device_busy_share=device_ms / wall_ms,
-                top_device_ops=[{"op": k[:80], "ms_per_step": ms}
-                                for ms, k in rows[:14]])
+    by_kind = {kind: 0.0 for kind, _ in KERNEL_KINDS + (("other", ()),)}
+    for ms, k in rows:
+        by_kind[kernel_kind(k)] += ms
+    top = [{"op": k[:80], "ms_per_step": ms} for ms, k in rows[:14]]
+    out = dict(steps=n, wall_ms_per_step=wall_ms,
+               device_ms_per_step=device_ms,
+               device_busy_share=device_ms / wall_ms,
+               ms_per_step_by_kind=by_kind, top_device_ops=top)
+    if attribute:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            run_step()
+            torch.cuda.synchronize()
+        sources = _kernel_sources(prof)
+        by_pass = {}
+        for k, by_src in sources.items():
+            for (where, *_), us in by_src.items():
+                kinds = by_pass.setdefault(where, {})
+                kinds[kernel_kind(k)] = (kinds.get(kernel_kind(k), 0.0)
+                                         + us / 1e3)
+        out["attributed_ms_by_pass_and_kind"] = by_pass
+        for row, (_, k) in zip(top, rows):
+            srcs = sorted(sources.get(k, {}).items(), key=lambda t: -t[1])
+            row["launched_by"] = [
+                {"pass": w, "op": op, "shapes": sh, "ms": us / 1e3}
+                for (w, op, sh), us in srcs[:3]]
+    return out
 
 
 EVAL_PHASES = {"Mamba": "main", "Swin_3D": "main_swin", "CNN_3D": "main_cnn"}
+
+
+def bf16_logits_agree(out_k, out_p, what):
+    """The bf16 forward with the kernels against the one with the plain op:
+    (largest logit error over max |logit| on the pixels with no flipped
+    code in view, the share of such pixels, the share of equal bits)."""
+    import torch.nn.functional as F
+
+    flipped = out_k.anomaly != out_p.anomaly                  # N,V,T,H,W
+    bits = 1.0 - flipped.float().mean().item()
+    seen = F.max_pool2d(flipped.any(2).any(1)[:, None].float(), 7, 1, 3)
+    clean = (seen == 0).expand_as(out_k.z)
+    err = (out_k.z - out_p.z).abs() / out_p.z.abs().max()
+    worst = err[clean].max().item() if clean.any() else None
+    if not (torch.isfinite(out_k.z).all() and bits >= BF16_BITS_AGREE
+            and worst is not None and worst <= BF16_LOGIT_REL):
+        raise SystemExit(f"{what}: bf16 kernel forward disagrees with the "
+                         f"plain one: bits agree {bits}, logit error "
+                         f"{worst} x max where no code flipped")
+    return worst, clean.float().mean().item(), bits
+
+
+def bf16_encoder_agrees(model, x, encoder: str, what):
+    """The bf16 encoder's packed output (before the quantizer) with the
+    kernels against the one with the plain op: its largest error over its
+    max |output|."""
+    with torch.inference_mode():
+        xd = x.to(model.dtype)
+        zk = model.encoder(xd, packed_out=True).float()
+        with plain_ops(encoder):
+            zp = model.encoder(xd, packed_out=True).float()
+    err = ((zk - zp).abs().max() / zp.abs().max()).item()
+    if not (torch.isfinite(zk).all() and err <= BF16_ENCODER_REL):
+        raise SystemExit(f"{what}: bf16 encoder output with the kernels is "
+                         f"{err} x max from the plain op's")
+    return err
 
 
 def phase_eval(cube, encoder: str, phase: str = None, **cfg_kw):
@@ -691,9 +952,10 @@ def phase_eval(cube, encoder: str, phase: str = None, **cfg_kw):
     from idee_tpu_torch.config import synthetic_config
     from idee_tpu_torch.data.loader import DataLoader
     from idee_tpu_torch.data.synthetic import SyntheticDataset
-    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.models.vq_model import build_model, compute_dtype
     from idee_tpu_torch.train.evaluate import test_synthetic
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_eval_step
+
 
     phase = phase or EVAL_PHASES[encoder]
     cfg = synthetic_config(encoder=encoder, x_max=200, y_max=200,
@@ -715,8 +977,8 @@ def phase_eval(cube, encoder: str, phase: str = None, **cfg_kw):
     peak_bytes = torch.cuda.max_memory_allocated()
 
     expect_launches(launches, {
-        k: v * n_steps
-        for k, v in kernel_launches_per_step(encoder, train=False).items()},
+        k: v * n_steps for k, v in kernel_launches_per_step(
+            encoder, train=False, dtype=cfg.dtype).items()},
         f"{encoder} eval")
     if not math.isfinite(result["mean_loss"]):
         raise SystemExit(f"non-finite mean loss: {result}")
@@ -733,38 +995,53 @@ def phase_eval(cube, encoder: str, phase: str = None, **cfg_kw):
     metrics = init_epoch_metrics(ds.anomaly.shape, "cuda")
     loader = DataLoader(ds, 1, device="cuda",
                         keys=["x", "mask_extreme", "mask_extreme_loss",
-                              "timestep"])
+                              "timestep"], x_dtype=compute_dtype(cfg))
     steps_per_s, timed = steady_steps_per_s(lambda b: step(metrics, b),
                                             iter(loader))
     batches = iter(loader)
-    profile = profile_steps(lambda: step(metrics, next(batches)), n=5)
+    profile = profile_steps(lambda: step(metrics, next(batches)), n=5,
+                            attribute=True)
 
     # --- one forward with the plain op, against the kernel's
-    logit_err = bits_agree = None
+    logit_err = bits_agree = clean_share = encoder_err = None
     if encoder != "CNN_3D":
         x = torch.from_numpy(ds[0]["x"][None]).cuda()
         with torch.inference_mode():
             out_k = model(x)
             with plain_ops(encoder):
                 out_p = model(x)
-        logit_err = max((out_k.z - out_p.z).abs().max().item(),
-                        (out_k.y - out_p.y).abs().max().item())
-        bits_agree = (out_k.anomaly == out_p.anomaly).float().mean().item()
-        if not (torch.isfinite(out_k.z).all() and logit_err <= 1e-4
-                and bits_agree >= 0.999):
-            raise SystemExit(f"{encoder}: kernel forward disagrees with the "
-                             f"plain one: logit err {logit_err}, bits agree "
-                             f"{bits_agree}")
+        if cfg.dtype == "bfloat16":
+            encoder_err = bf16_encoder_agrees(model, x, encoder, phase)
+            logit_err, clean_share, bits_agree = bf16_logits_agree(
+                out_k, out_p, f"{phase}")
+        else:
+            logit_err = max((out_k.z - out_p.z).abs().max().item(),
+                            (out_k.y - out_p.y).abs().max().item())
+            bits_agree = (out_k.anomaly == out_p.anomaly).float().mean() \
+                .item()
+            if not (torch.isfinite(out_k.z).all() and logit_err <= 1e-4
+                    and bits_agree >= 0.999):
+                raise SystemExit(f"{encoder}: kernel forward disagrees with "
+                                 f"the plain one: logit err {logit_err}, "
+                                 f"bits agree {bits_agree}")
 
+    SUMMARY[phase] = dict(
+        steady_steps_per_s=steps_per_s,
+        device_ms_per_step=profile["device_ms_per_step"],
+        device_busy_share=profile["device_busy_share"],
+        max_memory_allocated=peak_bytes)
     emit(phase=phase, encoder=cfg.encoder, codebook=cfg.codebook,
-         codebook_size=cfg.codebook_size, shape=[1, 6, 1, 8, 200, 200],
+         codebook_size=cfg.codebook_size, dtype=cfg.dtype,
+         shape=[1, 6, 1, 8, 200, 200],
          metrics=result, steps=n_steps, launches=launches,
          launches_per_step={k: v / n_steps for k, v in launches.items()},
          wall_s_with_setup=wall_s, steady_steps_per_s=steps_per_s,
          steady_samples_per_s=steps_per_s, steady_steps_timed=timed,
          max_memory_allocated=peak_bytes,
          plain_op_logit_max_abs_err=logit_err,
-         plain_op_anomaly_bit_agreement=bits_agree)
+         plain_op_anomaly_bit_agreement=bits_agree,
+         plain_op_clean_pixel_share=clean_share,
+         plain_op_encoder_rel_err=encoder_err)
     emit(phase="profile", path=f"eval_{encoder}" if phase == EVAL_PHASES[
         encoder] else phase, **profile)
     return launches
@@ -781,7 +1058,7 @@ def train_config(encoder: str, d_state: int = 1, n_epochs: int = N_EPOCHS,
               d_state=[d_state, d_state],
               name=f"chip_smoke_train_{encoder}_n{d_state}")
     if cfg_kw:
-        kw["name"] += "_" + cfg_kw.get("codebook", "")
+        kw["name"] += "_" + cfg_kw.get("codebook", cfg_kw.get("dtype", ""))
     return synthetic_config(**kw, **cfg_kw)
 
 
@@ -833,9 +1110,11 @@ def index_agreement(cfg, params, batch) -> float:
 
 def compare_step_gradients(cfg, params, batch, what: str, real: bool = False):
     """One train step's gradients with the kernels against the plain op:
-    each parameter within STEP_GRAD_REL x its max |grad|, every encoder
-    parameter nonzero. Emits a train_gradients line; for a codebook other
-    than the 1-bit LFQ also the share of equal code indices."""
+    each parameter within STEP_GRAD_REL (BF16_GRAD_REL at bf16) x its max
+    |grad|, every encoder parameter nonzero. Emits a train_gradients line;
+    for a codebook other than the 1-bit LFQ also the share of equal code
+    indices."""
+    limit = BF16_GRAD_REL if cfg.dtype == "bfloat16" else STEP_GRAD_REL
     got = step_gradients(cfg, params, batch, plain=False, real=real)
     want = step_gradients(cfg, params, batch, plain=True, real=real)
     agree = None
@@ -845,9 +1124,9 @@ def compare_step_gradients(cfg, params, batch, what: str, real: bool = False):
     for k, w in want.items():
         scale = w.abs().max().item()
         err = (got[k] - w).abs().max().item()
-        if err > STEP_GRAD_REL * scale:
+        if err > limit * scale:
             raise SystemExit(f"{what}: gradient of {k}: kernel vs plain "
-                             f"error {err} > {STEP_GRAD_REL} x max|grad| "
+                             f"error {err} > {limit} x max|grad| "
                              f"{scale}")
         worst = max(worst, err / scale if scale > 0 else 0.0)
         if k.startswith("encoder.") and got[k].abs().max().item() == 0.0:
@@ -856,7 +1135,7 @@ def compare_step_gradients(cfg, params, batch, what: str, real: bool = False):
     emit(phase="train_gradients", path=what, encoder=cfg.encoder,
          codebook=cfg.codebook, index_agreement=agree, parameters=len(want),
          encoder_parameters=sum(1 for k in got if k.startswith("encoder.")),
-         max_err_over_max_abs_grad=worst, limit=STEP_GRAD_REL)
+         max_err_over_max_abs_grad=worst, limit=limit, dtype=cfg.dtype)
 
 
 def phase_train(cube, encoder: str, phase: str, resume: bool,
@@ -871,7 +1150,7 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
     the first run ("trained") and after the resume ("resumed"); what it
     returns goes into the phase's line."""
     from idee_tpu_torch.data.loader import DataLoader
-    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.models.vq_model import build_model, compute_dtype
     from idee_tpu_torch.train.driver import _make_datasets, train_synthetic
     from idee_tpu_torch.train.state import create_train_state
     from idee_tpu_torch.train.steps import init_epoch_metrics, make_train_step
@@ -897,8 +1176,10 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
     peak_bytes = torch.cuda.max_memory_allocated()
 
     train_steps, val_steps = n_epochs * n_train, n_epochs * n_val
-    val = kernel_launches_per_step(encoder, train=False, d_state=d_state)
-    trn = kernel_launches_per_step(encoder, train=True, d_state=d_state)
+    val = kernel_launches_per_step(encoder, train=False, d_state=d_state,
+                                   dtype=cfg.dtype)
+    trn = kernel_launches_per_step(encoder, train=True, d_state=d_state,
+                                   dtype=cfg.dtype)
     want = {k: val.get(k, 0) * val_steps + trn.get(k, 0) * train_steps
             for k in set(val) | set(trn)}
     expect_launches(launches, want, phase)
@@ -935,7 +1216,7 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
     train_ds, _ = _make_datasets(cfg, train_cube, val_cube)
     loader = DataLoader(train_ds, 1, device="cuda", shuffle=True,
                         keys=["x", "mask_extreme", "mask_extreme_loss",
-                              "timestep"])
+                              "timestep"], x_dtype=compute_dtype(cfg))
     params = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
     model = build_model(cfg)
     model.load_state_dict(params)
@@ -946,9 +1227,17 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
     steps_per_s, timed = steady_steps_per_s(
         lambda b: step(state, metrics, b), iter(loader))
     batches = iter(loader)
-    profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3)
+    profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3,
+                            attribute=True)
 
+    SUMMARY[phase] = dict(
+        steady_train_steps_per_s=steps_per_s,
+        device_ms_per_step=profile["device_ms_per_step"],
+        device_busy_share=profile["device_busy_share"],
+        max_memory_allocated=peak_bytes,
+        ms_per_step_by_kind=profile["ms_per_step_by_kind"])
     emit(phase=phase, encoder=cfg.encoder, shape=[1, 6, 1, 8, 200, 200],
+         dtype=cfg.dtype,
          d_state=cfg.d_state, epochs=n_epochs, train_steps=train_steps,
          val_steps=val_steps, launches=launches,
          history={k: v for k, v in history.items() if k != "state"},
@@ -964,6 +1253,95 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
     compare_step_gradients(cfg, trained if check else params,
                            next(iter(loader)), phase)
     return launches
+
+
+# ------------------------------------------------------------------
+# bf16 compute (cfg.dtype "bfloat16")
+
+BF16_PHASES = {"Mamba": "mamba", "Swin_3D": "swin", "CNN_3D": "cnn"}
+
+
+def phase_predict_synthetic(cube):
+    """cli/predict_synthetic.py's predict_synthetic over the bench cube
+    with train_swin_bf16's latest weights, at bf16: launches counted, the
+    payload's keys, dtypes, shapes and NaN warm-up rows checked. Returns
+    its launches."""
+    from idee_tpu_torch.cli.predict_synthetic import predict_synthetic
+
+    cfg = train_config("Swin_3D", n_epochs=N_EPOCHS_SHORT, **BF16).replace(
+        times_test=(1, N_WEEKS))
+    ckpt = os.path.join(cfg.log_dir, "model_checkpoints", "latest.pt")
+    out_path = os.path.join(LOG_DIR, "chip_smoke_predictions.npz")
+    n_steps = N_WEEKS - cfg.delta_t + 1
+    zero_launches()
+    t0 = time.perf_counter()
+    payload = predict_synthetic(cfg, ckpt, out_path, cube=cube,
+                                device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches(launches, {
+        k: v * n_steps for k, v in kernel_launches_per_step(
+            "Swin_3D", train=False, dtype=cfg.dtype).items()},
+        "predict_synthetic")
+    T, V = N_WEEKS, 6
+    want = {"extreme_prob": ("float32", (T, 200, 200)),
+            "extreme_mask": ("uint8", (T, 200, 200)),
+            "anomaly": ("float32", (V, T, 200, 200)),
+            "timestep": ("int32", (T,)), "variables": (None, (V,))}
+    if sorted(payload) != sorted(want):
+        raise SystemExit(f"predict_synthetic keys {sorted(payload)}")
+    for k, (dtype, shape) in want.items():
+        a = payload[k]
+        if (dtype and str(a.dtype) != dtype) or a.shape != shape:
+            raise SystemExit(f"predict_synthetic {k}: {a.dtype} {a.shape}")
+    prob, warm = payload["extreme_prob"], cfg.delta_t - 1
+    if not (np.isnan(prob[:warm]).all() and np.isfinite(prob[warm:]).all()
+            and prob[warm:].min() >= 0 and prob[warm:].max() <= 1):
+        raise SystemExit("predict_synthetic: extreme_prob is not NaN on the "
+                         "warm-up weeks and in [0, 1] after them")
+    if not np.array_equal(payload["extreme_mask"],
+                          (np.nan_to_num(prob) > 0.5).astype(np.uint8)):
+        raise SystemExit("predict_synthetic: extreme_mask != prob > 0.5")
+    anomaly = payload["anomaly"]
+    if not np.isin(anomaly[~np.isnan(anomaly)], (0.0, 1.0)).all():
+        raise SystemExit("predict_synthetic: anomaly votes outside {0, 1}")
+    if not np.array_equal(payload["timestep"], np.arange(1, T + 1)):
+        raise SystemExit(f"predict_synthetic timestep {payload['timestep']}")
+    emit(phase="predict_synthetic", dtype=cfg.dtype, launches=launches,
+         steps=n_steps, wall_s_with_setup=wall_s, keys=sorted(payload),
+         extreme_mask_share=float(payload["extreme_mask"].mean()),
+         anomaly_covered_share=float(np.isfinite(anomaly).mean()),
+         anomaly_share=float(np.nanmean(anomaly)),
+         bytes=os.path.getsize(out_path))
+    os.remove(out_path)
+    return launches
+
+
+def phase_bf16(cube):
+    """The three encoders at bf16: main_<enc>_bf16 (eval over the cube) and
+    train_<enc>_bf16 (1 epoch), each as its float32 phase, then
+    predict_synthetic with the bf16 Swin weights, and one line setting
+    each bf16 phase's steps/s, device ms per step, busy share and peak
+    memory beside its float32 phase's of this run. Returns the launches by
+    path."""
+    paths = {}
+    for encoder, short in BF16_PHASES.items():
+        paths[f"eval_{short}_bf16"] = phase_eval(
+            cube, encoder, phase=f"main_{short}_bf16", **BF16)
+        paths[f"train_{short}_bf16"] = phase_train(
+            cube, encoder, f"train_{short}_bf16", resume=False,
+            n_epochs=N_EPOCHS_SHORT, compare_plain=encoder != "CNN_3D",
+            cfg_kw=BF16)
+    paths["predict_synthetic"] = phase_predict_synthetic(cube)
+    f32 = {"main_mamba": "main", "main_swin": "main_swin",
+           "main_cnn": "main_cnn", "train_mamba": "train",
+           "train_swin": "train_swin", "train_cnn": "train_cnn"}
+    emit(phase="bf16_vs_float32", paths={
+        name: {"float32": SUMMARY[f32_phase],
+               "bfloat16": SUMMARY[f"{name}_bf16"]}
+        for name, f32_phase in f32.items()})
+    return paths
 
 
 # ------------------------------------------------------------------
@@ -1408,11 +1786,14 @@ def main() -> int:
     ss, wa = kernel_modules()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products reduce in float32 (as resolve_device sets for every
+    # entry point)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_name_and_power()
     print(card, flush=True)
 
     phase_build()
-    fused, scan, backward, attn = phase_kernel()
+    fused, scan, backward, attn, attn_bf16 = phase_kernel()
     cube = make_fake_cube(n_vars=6, n_time=N_WEEKS, height=200, width=200,
                           seed=0)
     paths = {
@@ -1430,6 +1811,7 @@ def main() -> int:
                                  compare_plain=False),
         "train_vq_ema": phase_train_vq_ema(cube)}
     paths.update(phase_codebooks(cube))
+    paths.update(phase_bf16(cube))
     del cube
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     cerra_root = tempfile.mkdtemp(prefix="chip_smoke_cerra_",
@@ -1450,20 +1832,20 @@ def main() -> int:
         # the stage-1 shape
         return sum(key(rows[s]) * n for s, n in LAUNCHES_PER_STEP.items())
 
-    def attn_row(name, key, source_line, path):
+    def attn_row(name, key, source_line, path, rows=attn):
         # times per step: one launch at each of the three stage shapes
         def total(field):
-            return sum(r[key][field] for r in attn.values())
+            return sum(r[key][field] for r in rows.values())
 
         return {
             "name": name, "route": "cuda",
             "source": "idee_tpu_torch/kernels/csrc/window_attention.cu",
             "replaces": f"idee_tpu/kernels/window_attention.py:{source_line}",
             "launches": paths[path][name], "launches_by_path": by_path(name),
-            "max_abs_err": max(r[key]["max_abs_err"] for r in attn.values()),
+            "max_abs_err": max(r[key]["max_abs_err"] for r in rows.values()),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
-            "bound_by": attn["stage0"][key]["bound_by"],
+            "bound_by": rows["stage0"][key]["bound_by"],
             "library_ms": total("library_ms"),
         }
 
@@ -1526,6 +1908,12 @@ def main() -> int:
         attn_row(wa.ATTN_BWD, "backward", 240, "train_swin"),
         # library: torch.sum of the partials over the block axis
         attn_row(wa.DBIAS_SUM, "dbias_sum", 272, "train_swin"),
+        # the bf16 instantiations (compute dtype "bfloat16"); library: SDPA
+        # on the same bf16 inputs
+        attn_row(wa.ATTN_FWD_BF16, "forward", 192, "train_swin_bf16",
+                 attn_bf16),
+        attn_row(wa.ATTN_BWD_BF16, "backward", 240, "train_swin_bf16",
+                 attn_bf16),
     ], card=card)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

@@ -22,4 +22,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
+    if dev.type == "cuda":
+        # every entry point passes here: float32 convolutions and products
+        # run in float32, not TF32 (cuDNN's default), and bf16 products
+        # reduce in float32 as JAX's do on the TPU (cuBLAS may otherwise
+        # reduce in bf16)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     return dev

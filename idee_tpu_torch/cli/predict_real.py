@@ -38,7 +38,7 @@ from idee_tpu_torch import resolve_device
 from idee_tpu_torch.config import Config, load_config
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.reanalysis import ReanalysisDataset
-from idee_tpu_torch.models.vq_model import build_model
+from idee_tpu_torch.models.vq_model import build_model, compute_dtype
 from idee_tpu_torch.train.checkpoint import load_pretrained_weights
 from idee_tpu_torch.train.driver_real import TEST_KEYS, make_reanalysis_dataset
 from idee_tpu_torch.train.metrics import Evaluator
@@ -68,7 +68,8 @@ def predict_real(cfg: Config, family: str, ckpt_path: str, out_path: str,
     step = make_eval_step_real(model, cfg, test_mode=True, return_preds=True)
     loader = DataLoader(test_ds, cfg.batch_size, device=dev,
                         keys=TEST_KEYS + ["name_code"], drop_last=False,
-                        seed=cfg.seed, workers=cfg.loader_workers)
+                        seed=cfg.seed, workers=cfg.loader_workers,
+                        x_dtype=compute_dtype(cfg))
 
     parts = {k: [] for k in ("drought_prob", "drought_mask", "anomaly",
                              "valid_mask", "name_code")}

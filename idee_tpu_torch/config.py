@@ -172,7 +172,9 @@ class Config:
     # reanalysis cache, loader workers) are kept so snapshots round-trip;
     # their meaning is documented in idee_tpu/config.py.
     grid_override: Optional[Tuple[int, int]] = None
-    dtype: str = "float32"  # compute dtype; the port runs float32 only
+    # compute dtype: "float32", or "bfloat16" (parameters, the quantizer,
+    # the scans and the losses stay float32; models/vq_model.py)
+    dtype: str = "float32"
     mesh_shape: Optional[List[int]] = None
     mesh_axes: List[str] = field(default_factory=lambda: ["data"])
     log_every: int = 50

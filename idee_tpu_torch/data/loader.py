@@ -17,7 +17,9 @@ Batches come out in order either way, with the values of the serial path
 the indices, never on the pool's threads. The copies go on the thread's current stream, which is
 the default stream unless the caller made another current in that thread:
 the same stream as the steps that read them, so they are ordered before
-those steps.
+those steps. x is converted to ``x_dtype`` on the host before the pinned
+copy, as the JAX drivers cast it: the drivers upload x in the compute
+dtype, which halves its bytes at bfloat16.
 """
 # ------------------------------------------------------------------
 
@@ -53,13 +55,16 @@ class DataLoader:
         the consumer's thread when asked for).
       workers: > 0 builds up to this many batches at once on a thread
         pool; at most prefetch + workers are staged ahead.
+      x_dtype: the dtype x is converted to on the host before the copy
+        (the model's compute dtype; float32 leaves it as built).
     """
 
     def __init__(self, dataset, batch_size: int = 1, device=None,
                  keys: Optional[Sequence[str]] = None, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 2,
-                 workers: int = 0):
+                 workers: int = 0, x_dtype: torch.dtype = torch.float32):
         self.dataset = dataset
+        self.x_dtype = x_dtype
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.keys = list(keys) if keys is not None else None
@@ -94,6 +99,8 @@ class DataLoader:
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
+            if k == "x":
+                t = t.to(self.x_dtype)
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t

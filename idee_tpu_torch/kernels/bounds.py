@@ -1,8 +1,9 @@
 # ------------------------------------------------------------------
 """Least time one H100 SXM could take for each kernel's work: the larger
 of the bytes it must move (each input read once, each output written
-once) over the HBM rate and its float32 operations over the peak rate
-outside the tensor cores (NVIDIA's H100 SXM data sheet, 700 W).
+once) over the HBM rate and its operations over the peak rate for their
+type: float32 outside the tensor cores, and for the bf16 attention kernels
+the dense bf16 tensor-core rate (NVIDIA's H100 SXM data sheet, 700 W).
 
     python -m idee_tpu_torch.kernels.bounds
 
@@ -17,16 +18,23 @@ from typing import Tuple
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
+
+# bytes per element of q, k, v, o and their gradients, and the peak rate of
+# the attention's products on such inputs
+ATTN_TYPES = {"float32": (4, PEAK_FP32_PER_S),
+              "bfloat16": (2, PEAK_BF16_PER_S)}
 
 # float32 operations per element of the fused scan: 8 mul, 3 add, 1 div,
 # 2 exp (recurrence, skip term and silu gating)
 SCAN_OPS_PER_ELEMENT = 14
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> Tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_FP32_PER_S) -> Tuple[float, str]:
     """(least ms, "bytes" or "operations")."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = n_ops / PEAK_FP32_PER_S
+    t_ops = n_ops / peak_ops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -52,22 +60,26 @@ def linear_scan(L: int, M: int):
     return bound_ms(4 * 3 * L * M, 2 * L * M)
 
 
-def window_attention_fwd(BW: int, n: int, G: int, hd: int):
+def window_attention_fwd(BW: int, n: int, G: int, hd: int,
+                         dtype: str = "float32"):
     """softmax(q k^T scale + bias + mask) v over BW windows of n tokens and
-    G heads of width hd: reads q, k, v, writes o (the [G, n, n] bias and
-    the small mask bank are negligible); 4 n^2 hd flops per window-head
-    for the two products."""
-    qkvo = 4 * 4 * BW * n * G * hd
-    return bound_ms(qkvo, 4 * n * n * hd * BW * G)
+    G heads of width hd, q, k, v and o of ``dtype``: reads q, k, v, writes
+    o (the [G, n, n] bias and the small mask bank are negligible); 4 n^2
+    hd flops per window-head for the two products."""
+    size, peak = ATTN_TYPES[dtype]
+    qkvo = 4 * size * BW * n * G * hd
+    return bound_ms(qkvo, 4 * n * n * hd * BW * G, peak)
 
 
-def window_attention_bwd(BW: int, n: int, G: int, hd: int):
-    """Reads q, k, v, g [BW, n, G, hd] and bias [G, n, n]; writes dq, dk,
-    dv [BW, n, G, hd] and dbias [G, n, n] (summed over the windows);
-    recomputes the scores, then four products: 10 n^2 hd flops per
-    window-head."""
-    n_bytes = 7 * 4 * BW * n * G * hd + 2 * 4 * G * n * n
-    return bound_ms(n_bytes, 10 * n * n * hd * BW * G)
+def window_attention_bwd(BW: int, n: int, G: int, hd: int,
+                         dtype: str = "float32"):
+    """Reads q, k, v, g [BW, n, G, hd] of ``dtype`` and bias [G, n, n]
+    float32; writes dq, dk, dv [BW, n, G, hd] of ``dtype`` and dbias [G,
+    n, n] float32 (summed over the windows); recomputes the scores, then
+    four products: 10 n^2 hd flops per window-head."""
+    size, peak = ATTN_TYPES[dtype]
+    n_bytes = 7 * size * BW * n * G * hd + 2 * 4 * G * n * n
+    return bound_ms(n_bytes, 10 * n * n * hd * BW * G, peak)
 
 
 def window_attention_dbias_sum(n_blocks: int, G: int, n: int):
@@ -101,6 +113,16 @@ BENCH = {
                               (10_000, 32, 12, 8)),
                              ("stage1", window_attention_bwd,
                               (40_000, 8, 12, 8))],
+    # the bf16 instantiations at the same shapes (compute dtype
+    # "bfloat16": 2 bytes per q, k, v, o, g, dq, dk, dv element)
+    "window_attention_fwd_bf16": [("stage0", window_attention_fwd,
+                                   (10_000, 32, 12, 8, "bfloat16")),
+                                  ("stage1", window_attention_fwd,
+                                   (40_000, 8, 12, 8, "bfloat16"))],
+    "window_attention_bwd_bf16": [("stage0", window_attention_bwd,
+                                   (10_000, 32, 12, 8, "bfloat16")),
+                                  ("stage1", window_attention_bwd,
+                                   (40_000, 8, 12, 8, "bfloat16"))],
     # 171 blocks per head (kernels/window_attention.py: 2048 / G, fewer
     # than the 2,500 window groups of either stage)
     "window_attention_dbias_sum": [("stage0", window_attention_dbias_sum,

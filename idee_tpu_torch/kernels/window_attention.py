@@ -22,11 +22,21 @@ and ``window_attention_bwd_plain``, the backward's formulas in torch ops),
 which are also what the tests and ``chip_smoke.py`` hold the kernels
 against.
 
-Layout: q, k, v [BW, n, G, hd] float32 with the window index batch-major
-then window-minor (``nn/swin3d.py::window_partition``), G = variables x
-heads (V-major), bias [G, n, n]. The mask is None, a (bank [K, n, n], idx
-[nW]) pair (window w uses bank[idx[w % nW]]; ``nn/swin3d.py::
-compute_shift_mask``), or a dense [nW, n, n] tensor.
+Layout: q, k, v [BW, n, G, hd] with the window index batch-major then
+window-minor (``nn/swin3d.py::window_partition``), G = variables x heads
+(V-major), bias [G, n, n] float32. The mask is None, a (bank [K, n, n],
+idx [nW]) pair (window w uses bank[idx[w % nW]]; ``nn/swin3d.py::
+compute_shift_mask``), or a dense [nW, n, n] float32 tensor.
+
+q, k, v are float32, or bfloat16 (the compute dtype "bfloat16") with a
+float32 bias, as the TPU kernels take the input dtype. Their dtype picks
+the kernels: float32 the float kernels, bfloat16 their bf16 instantiations
+(``window_attention_fwd_bf16``, ``window_attention_bwd_bf16``), which
+compute in float32 and round each output once; dbias and the dbias sum
+stay float32. At bf16 the plain versions upcast, run the float32 math and
+round the outputs, and the backward's D_i = sum_j p_ij dp_ij is formed
+from the recomputed scores (JAX's ``_bwd_kernel``), not from the rounded
+output.
 """
 # ------------------------------------------------------------------
 
@@ -40,14 +50,20 @@ from idee_tpu_torch.kernels import build
 
 ATTN_FWD = "window_attention_fwd"
 ATTN_BWD = "window_attention_bwd"
+ATTN_FWD_BF16 = "window_attention_fwd_bf16"
+ATTN_BWD_BF16 = "window_attention_bwd_bf16"
 DBIAS_SUM = "window_attention_dbias_sum"
 # the csrc/<source>.cu of each kernel
-SOURCES = {ATTN_FWD: "window_attention", ATTN_BWD: "window_attention",
-           DBIAS_SUM: "window_attention"}
+SOURCES = {name: "window_attention" for name in (
+    ATTN_FWD, ATTN_BWD, ATTN_FWD_BF16, ATTN_BWD_BF16, DBIAS_SUM)}
 
 # launches of each CUDA kernel in this process; the plain CPU versions do
 # not count
-launches: Dict[str, int] = {ATTN_FWD: 0, ATTN_BWD: 0, DBIAS_SUM: 0}
+launches: Dict[str, int] = {name: 0 for name in SOURCES}
+
+# the forward and backward kernels by the dtype of q, k and v
+KERNELS = {torch.float32: (ATTN_FWD, ATTN_BWD),
+           torch.bfloat16: (ATTN_FWD_BF16, ATTN_BWD_BF16)}
 
 # head widths the kernels are instantiated for, and the largest window
 HEAD_DIMS = (4, 8, 16)
@@ -69,6 +85,11 @@ _SIGNATURES = {
                [_P] * 7 + [_I] * 5 + [_F, _P]),
     ATTN_BWD: ("idee_window_attention_bwd",
                [_P] * 12 + [_I] * 6 + [_F, _P]),
+    ATTN_FWD_BF16: ("idee_window_attention_fwd_bf16",
+                    [_P] * 7 + [_I] * 5 + [_F, _P]),
+    # no saved output: the bf16 backward forms D from the scores
+    ATTN_BWD_BF16: ("idee_window_attention_bwd_bf16",
+                    [_P] * 11 + [_I] * 6 + [_F, _P]),
     DBIAS_SUM: ("idee_window_attention_dbias_sum",
                 [_P, _P, _I, ctypes.c_int64, _I, _I, _P]),
 }
@@ -109,14 +130,19 @@ def _mask_parts(mask, BW: int, n: int, device) -> Mask:
 def _check(q, k, v, bias):
     if q.dim() != 4:
         raise ValueError(f"q must be [BW, n, G, hd], got {tuple(q.shape)}")
+    if q.dtype not in KERNELS:
+        raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
     BW, n, G, hd = q.shape
-    for name, t, shape in (("q", q, q.shape), ("k", k, q.shape),
-                           ("v", v, q.shape), ("bias", bias, (G, n, n))):
+    for name, t, shape, dtype in (
+            ("q", q, q.shape, q.dtype), ("k", k, q.shape, q.dtype),
+            ("v", v, q.shape, q.dtype),
+            ("bias", bias, (G, n, n), torch.float32)):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} (q is {q.dtype}), "
+                             f"got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, not {q.device}")
     if q.device.type not in ("cpu", "cuda"):
@@ -147,26 +173,37 @@ def _scores(q, k, bias, bank, idx, scale):
 
 def window_attention_fwd_plain(q, k, v, bias, mask, scale: float):
     """Plain PyTorch version of the forward kernel (the JAX package's
-    ``_xla_impl``): [BW, n, G, hd]."""
+    ``_xla_impl``): [BW, n, G, hd] in q's dtype. At bfloat16 the inputs
+    are upcast, the float32 math runs, and the output is rounded once."""
     bank, idx = _mask_parts(mask, q.shape[0], q.shape[1], q.device)
+    dtype = q.dtype
+    q, k, v = (t.float() for t in (q, k, v))
     p = torch.softmax(_scores(q, k, bias, bank, idx, scale), dim=-1)
-    return torch.einsum("bgnm,bmgd->bngd", p, v)
+    return torch.einsum("bgnm,bmgd->bngd", p, v).to(dtype)
 
 
 def window_attention_bwd_plain(q, k, v, bias, mask, scale: float, o, g):
     """Plain PyTorch version of the backward kernels: (dq, dk, dv, dbias)
     from the output ``o`` and its gradient ``g``, by the explicit formulas
-    dp = g v^T, ds = p (dp - rowsum(g o)), dq = scale ds k, dk = scale
-    ds^T q, dv = p^T g, dbias = sum over windows of ds."""
+    dp = g v^T, ds = p (dp - D), dq = scale ds k, dk = scale ds^T q,
+    dv = p^T g, dbias = sum over windows of ds, with D = rowsum(g o). At
+    bfloat16 the inputs are upcast, D = rowsum(dp p) in float32 (``o`` is
+    not read: its rounding would enter every ds, then dbias), and dq, dk,
+    dv are rounded once; dbias stays float32."""
     bank, idx = _mask_parts(mask, q.shape[0], q.shape[1], q.device)
+    dtype = q.dtype
+    q, k, v, g = (t.float() for t in (q, k, v, g))
     p = torch.softmax(_scores(q, k, bias, bank, idx, scale), dim=-1)
     dp = torch.einsum("bngd,bmgd->bgnm", g, v)
-    delta = (g * o).sum(-1).permute(0, 2, 1)[..., None]     # [BW, G, n, 1]
+    if dtype == torch.float32:
+        delta = (g * o).sum(-1).permute(0, 2, 1)[..., None]  # [BW, G, n, 1]
+    else:
+        delta = (dp * p).sum(-1, keepdim=True)
     ds = p * (dp - delta)
     dq = scale * torch.einsum("bgnm,bmgd->bngd", ds, k)
     dk = scale * torch.einsum("bgnm,bngd->bmgd", ds, q)
     dv = torch.einsum("bgnm,bngd->bmgd", p, g)
-    return dq, dk, dv, ds.sum(0)
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype), ds.sum(0)
 
 
 @functools.lru_cache(maxsize=64)
@@ -224,8 +261,8 @@ def _forward(q, k, v, bias, bank, idx, scale: float):
     BW, n, G, hd = q.shape
     o = torch.empty_like(q)
     nW = idx.shape[0] if idx is not None else 1
-    _launch(ATTN_FWD, q.device, q, k, v, bias, bank, idx, o, BW, n, G, hd,
-            nW, float(scale))
+    _launch(KERNELS[q.dtype][0], q.device, q, k, v, bias, bank, idx, o, BW,
+            n, G, hd, nW, float(scale))
     return o
 
 
@@ -240,8 +277,9 @@ def _backward(q, k, v, bias, bank, idx, scale: float, o, g):
     n_blocks = bwd_blocks(BW, n, G)
     part = torch.empty((n_blocks, G, n, n), device=q.device)
     nW = idx.shape[0] if idx is not None else 1
-    _launch(ATTN_BWD, q.device, q, k, v, bias, bank, idx, o, g, dq, dk, dv,
-            part, BW, n, G, hd, nW, n_blocks, float(scale))
+    saved = (o,) if q.dtype == torch.float32 else ()
+    _launch(KERNELS[q.dtype][1], q.device, q, k, v, bias, bank, idx, *saved,
+            g, dq, dk, dv, part, BW, n, G, hd, nW, n_blocks, float(scale))
     return dq, dk, dv, dbias_sum(part)
 
 
@@ -262,10 +300,10 @@ def dbias_sum(part):
     return dbias
 
 
-def _occupancy(kernel: str, symbol: str, n: int, hd: int,
+def _occupancy(kernel: str, n: int, hd: int,
                masked: bool) -> Tuple[int, int]:
     fn = build.c_function(
-        SOURCES[kernel], symbol,
+        SOURCES[kernel], f"{_SIGNATURES[kernel][0]}_occupancy",
         [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)])
     smem, blocks = _I(), _I()
     torch.cuda.current_device()  # initialises the card's context
@@ -275,18 +313,19 @@ def _occupancy(kernel: str, symbol: str, n: int, hd: int,
     return smem.value, blocks.value
 
 
-def fwd_occupancy(n: int, hd: int, masked: bool) -> Tuple[int, int]:
+def fwd_occupancy(n: int, hd: int, masked: bool,
+                  dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """(shared-memory bytes per block, resident blocks per SM) of the
-    forward kernel at window n and head width hd, as the current card's
-    occupancy calculator gives them. Launches nothing."""
-    return _occupancy(ATTN_FWD, "idee_window_attention_fwd_occupancy", n, hd,
-                      masked)
+    forward kernel for q, k, v of ``dtype`` at window n and head width hd,
+    as the current card's occupancy calculator gives them. Launches
+    nothing."""
+    return _occupancy(KERNELS[dtype][0], n, hd, masked)
 
 
-def bwd_occupancy(n: int, hd: int, masked: bool) -> Tuple[int, int]:
+def bwd_occupancy(n: int, hd: int, masked: bool,
+                  dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """The same for the backward kernel."""
-    return _occupancy(ATTN_BWD, "idee_window_attention_bwd_occupancy", n, hd,
-                      masked)
+    return _occupancy(KERNELS[dtype][1], n, hd, masked)
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -296,7 +335,11 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, bank, idx, scale):
         o = _forward(q, k, v, bias, bank, idx, scale)
-        ctx.save_for_backward(q, k, v, bias, o, bank, idx)
+        # only the float32 backward reads o (D = rowsum(g o)); the bf16 one
+        # forms D from the scores
+        ctx.save_for_backward(q, k, v, bias,
+                              o if q.dtype == torch.float32 else None,
+                              bank, idx)
         ctx.scale = scale
         return o
 
@@ -310,7 +353,9 @@ class _WindowAttention(torch.autograd.Function):
 
 def _aligned(t):
     """``t`` contiguous, starting 16-byte aligned on a card (the kernels
-    move rows as float4): a misaligned view is copied."""
+    move rows in groups of four elements: a float4, or 8 bytes of bf16,
+    and a row starts at a multiple of hd >= 4 elements): a misaligned view
+    is copied."""
     t = t.contiguous()
     if t.device.type == "cuda" and t.data_ptr() % 16 != 0:
         t = t.clone()
@@ -320,10 +365,11 @@ def _aligned(t):
 def window_attention(q, k, v, bias, mask, scale: float):
     """softmax(q k^T * scale + bias [+ mask]) v per window and head.
 
-    q/k/v: [BW, n, G, hd] float32; bias: [G, n, n]; mask: None, a (bank
-    [K, n, n], idx [nW]) pair or a dense [nW, n, n] tensor, a constant on
-    q's device. Returns [BW, n, G, hd]. Differentiable in q, k, v and bias
-    when one of them requires a gradient."""
+    q/k/v: [BW, n, G, hd] float32 or bfloat16; bias: [G, n, n] float32;
+    mask: None, a (bank [K, n, n], idx [nW]) pair or a dense [nW, n, n]
+    tensor, a constant on q's device. Returns [BW, n, G, hd] in q's dtype.
+    Differentiable in q, k, v and bias when one of them requires a
+    gradient."""
     _check(q, k, v, bias)
     bank, idx = _mask_parts(mask, q.shape[0], q.shape[1], q.device)
     q, k, v, bias = (_aligned(t) for t in (q, k, v, bias))

@@ -21,6 +21,13 @@ scalar per (variable, voxel). Every other codebook of ``cfg.codebook``
 (VQ, FSQ, LatentQuantize, Random_VQ, LFQ with a larger codebook) runs the
 generic path: tokens [N, V*T*H*W, C] through the quantizer, z_q in
 float32, the classifier on the unpacked codes.
+
+cfg.dtype is the compute dtype ("float32" or "bfloat16"), as in the JAX
+package: parameters stay float32; x_d is cast to it, the encoder and the
+classifier compute in it; every quantizer is a float32 island (its input
+upcast), z_q and the anomaly L1 stay float32 and z_q is cast to the
+compute dtype only at the classifier's input; the logits z and y come back
+as float32.
 """
 # ------------------------------------------------------------------
 
@@ -40,15 +47,29 @@ from idee_tpu_torch.quant import get_quantizer
 from idee_tpu_torch.quant.lfq import LFQ
 
 
+# cfg.dtype -> the compute dtype
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"dtype {cfg.dtype!r}: the port computes in "
+                         f"{sorted(DTYPES)}")
+    return DTYPES[cfg.dtype]
+
+
 def build_encoder(cfg: Config, kernel_init, generator=None) -> nn.Module:
-    """Construct the configured backbone (reference: models/build.py:34-84)."""
+    """Construct the configured backbone (reference: models/build.py:34-84),
+    computing in cfg.dtype."""
+    dtype = compute_dtype(cfg)
     if cfg.encoder == "CNN_3D":
         return CNN_3D(in_vars=cfg.in_channels_dynamic,
                       in_channels=cfg.in_channels,
                       out_channels=list(cfg.en_embed_dim),
                       drop_path_rate=cfg.en_drop_path_rate,
                       use_checkpoint=cfg.en_use_checkpoint,
-                      kernel_init=kernel_init, generator=generator)
+                      kernel_init=kernel_init, generator=generator,
+                      dtype=dtype)
     if cfg.encoder == "Swin_3D":
         return Swin_3D(in_vars=cfg.in_channels_dynamic,
                        in_chans=cfg.in_channels,
@@ -63,7 +84,8 @@ def build_encoder(cfg: Config, kernel_init, generator=None) -> nn.Module:
                        qkv_bias=cfg.en_qkv_bias, qk_scale=cfg.en_qk_scale,
                        patch_size=tuple(cfg.en_patch_size),
                        use_checkpoint=cfg.en_use_checkpoint,
-                       kernel_init=kernel_init, generator=generator)
+                       kernel_init=kernel_init, generator=generator,
+                       dtype=dtype)
     if cfg.encoder == "Mamba":
         return Mamba(in_vars=cfg.in_channels_dynamic,
                      in_chans=cfg.in_channels,
@@ -76,7 +98,8 @@ def build_encoder(cfg: Config, kernel_init, generator=None) -> nn.Module:
                      d_state=list(cfg.d_state), d_conv=list(cfg.d_conv),
                      expand=list(cfg.expand),
                      use_checkpoint=cfg.en_use_checkpoint,
-                     kernel_init=kernel_init, generator=generator)
+                     kernel_init=kernel_init, generator=generator,
+                     dtype=dtype)
     raise NotImplementedError(
         f"Encoder {cfg.encoder} is not ported yet (ROADMAP.md, open items)")
 
@@ -143,9 +166,7 @@ class VQModel(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = self.config = config
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"dtype {cfg.dtype}: the port runs "
-                                      "float32 only (ROADMAP.md, open items)")
+        self.dtype = compute_dtype(cfg)
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         scheme = cfg.init_scheme
@@ -160,7 +181,8 @@ class VQModel(nn.Module):
                                      embed_dim=cfg.codebook_dim,
                                      dim=cfg.cls_dim,
                                      drop_rate=cfg.cls_drop_rate,
-                                     kernel_init=init, generator=generator)
+                                     kernel_init=init, generator=generator,
+                                     dtype=self.dtype)
         self.vq = build_quantizer(cfg, kernel_init=init, generator=generator)
 
     def normal_code(self, device=None) -> torch.Tensor:
@@ -182,7 +204,7 @@ class VQModel(nn.Module):
         unconstrained. ``generator`` draws dropout and drop-path masks and
         the codebook's random draws."""
         V = self.config.in_channels_dynamic
-        zp = self.encoder(x_d.float(), train=train, packed_out=True,
+        zp = self.encoder(x_d.to(self.dtype), train=train, packed_out=True,
                           generator=generator)
         if self._scalar_lfq():
             return self._forward_packed(zp, V, train, mask_extreme_loss,
@@ -199,7 +221,8 @@ class VQModel(nn.Module):
         z_q = z_q.reshape(N, V, T, H, W, C).permute(0, 1, 5, 2, 3, 4)
         anomaly = indices.reshape(N, V, T, H, W)
         # classify on the quantized codes only (build.py:157)
-        zc, y = self.cls(z_q, train=train, generator=generator)
+        zc, y = self.cls(z_q.to(self.dtype), train=train,
+                         generator=generator)
         vq0 = self.normal_code(z_q.device).detach()
         loss_anomaly = None
         if mask_extreme_loss is not None:
@@ -209,7 +232,8 @@ class VQModel(nn.Module):
             else:
                 loss_anomaly = losses.anomaly_l1_loss_synthetic(
                     z_q, mask_extreme_loss, vq0)
-        return VQOutput(zc, y, anomaly, z_q, loss_z_q, vq0, loss_anomaly)
+        return VQOutput(zc.float(), y.float(), anomaly, z_q, loss_z_q, vq0,
+                        loss_anomaly)
 
     def _forward_packed(self, zp, V: int, train: bool, mask_extreme_loss,
                         mask_exclude, generator) -> VQOutput:
@@ -226,7 +250,7 @@ class VQModel(nn.Module):
         w_out, b_out = self.vq.out_proj_params()
         # zq[.., v*C + c] = s_q[.., v] * w_out[c] + b_out[c]
         zq_packed = (s_q[..., None] * w_out + b_out).reshape(N, T, H, W, VC)
-        zc, y = self.cls(zq_packed, train=train, packed=True,
+        zc, y = self.cls(zq_packed.to(self.dtype), train=train, packed=True,
                          generator=generator)
 
         vq0 = (b_out - w_out).detach()  # project_out(-1)
@@ -239,8 +263,8 @@ class VQModel(nn.Module):
             loss_anomaly = losses.anomaly_l1_lfq(s_q, w_pix, w_out, b_out)
 
         z_q = zq_packed.reshape(N, T, H, W, V, C).permute(0, 4, 5, 1, 2, 3)
-        return VQOutput(zc, y, anomaly, z_q, parts.aux_loss, vq0,
-                        loss_anomaly)
+        return VQOutput(zc.float(), y.float(), anomaly, z_q, parts.aux_loss,
+                        vq0, loss_anomaly)
 
 
 def build_model(config: Config,

@@ -7,7 +7,7 @@ Each head is three Conv3d layers with kernel (2,3,3), stride (2,1,1),
 padding (0,1,1) that collapse the temporal axis delta_t=8 -> 1. The V
 per-variable heads run as one grouped-convolution program on the packed
 [N, T, H, W, V*C] layout; the joint head is a plain conv over all V*C
-channels.
+channels. ``dtype`` is the compute dtype of every conv (nn/layers.py).
 """
 # ------------------------------------------------------------------
 
@@ -31,10 +31,11 @@ class ClassifierHead(nn.Module):
     def __init__(self, in_features: int, dim: int, n_classes: int = 1,
                  drop_rate: float = 0.0,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.drop_rate = drop_rate
-        kw = dict(kernel_init=kernel_init, generator=generator)
+        kw = dict(kernel_init=kernel_init, generator=generator, dtype=dtype)
         self.conv1 = Conv3d(in_features, dim, _KSIZE, _STRIDE, _PAD, **kw)
         self.conv2 = Conv3d(dim, dim, _KSIZE, _STRIDE, _PAD, **kw)
         self.conv3 = Conv3d(dim, n_classes, _KSIZE, _STRIDE, _PAD, **kw)
@@ -53,11 +54,12 @@ class GroupedClassifierHead(nn.Module):
     def __init__(self, n_groups: int, in_features: int, dim: int,
                  n_classes: int = 1, drop_rate: float = 0.0,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V = n_groups
         self.drop_rate = drop_rate
-        kw = dict(kernel_init=kernel_init, generator=generator)
+        kw = dict(kernel_init=kernel_init, generator=generator, dtype=dtype)
         self.conv1 = GroupedConv3d(V, in_features, dim, _KSIZE, _STRIDE,
                                    _PAD, **kw)
         self.conv2 = GroupedConv3d(V, dim, dim, _KSIZE, _STRIDE, _PAD, **kw)
@@ -83,15 +85,16 @@ class CNN_3D_Classifier(nn.Module):
     def __init__(self, in_var: int = 6, embed_dim: int = 16, dim: int = 16,
                  n_classes: int = 1, drop_rate: float = 0.0,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V, C = self.in_var, self.embed_dim = in_var, embed_dim
         self.heads_var = GroupedClassifierHead(
             V, C, dim, n_classes=1, drop_rate=drop_rate,
-            kernel_init=kernel_init, generator=generator)
+            kernel_init=kernel_init, generator=generator, dtype=dtype)
         self.head_joint = ClassifierHead(
             V * C, dim * V, n_classes=n_classes, drop_rate=drop_rate,
-            kernel_init=kernel_init, generator=generator)
+            kernel_init=kernel_init, generator=generator, dtype=dtype)
 
     def forward(self, x, train: bool = False, packed: bool = False,
                 generator: Optional[torch.Generator] = None):

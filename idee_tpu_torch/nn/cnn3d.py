@@ -1,6 +1,7 @@
 # ------------------------------------------------------------------
 """3D-CNN encoder: residual Conv3d towers, one per input variable, run as
-one packed grouped-convolution program on [N, T, H, W, V*C].
+one packed grouped-convolution program on [N, T, H, W, V*C]. ``dtype``
+is the compute dtype of every convolution and norm (nn/layers.py).
 
 Counterpart of idee_tpu/nn/cnn3d.py (reference models/encoder/CNN_3D.py);
 module and parameter names follow the JAX package's so its weights load
@@ -39,7 +40,8 @@ class GroupedConvBlock3d(nn.Module):
     def __init__(self, n_groups: int, in_features: int, features: int,
                  drop_path: float = 0.0,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V = n_groups
         self.drop_path = drop_path
@@ -48,20 +50,21 @@ class GroupedConvBlock3d(nn.Module):
             self.down_proj = GroupedConv3d(
                 V, in_features, features, kernel_size=(1, 1, 1),
                 padding=((0, 0), (0, 0), (0, 0)), use_bias=False,
-                kernel_init=kernel_init, generator=generator)
-            self.down_norm = GroupedLayerNorm3d(V, features, affine=False)
+                kernel_init=kernel_init, generator=generator, dtype=dtype)
+            self.down_norm = GroupedLayerNorm3d(V, features, affine=False,
+                                                dtype=dtype)
         else:
             self.down_proj = None
         self.conv1 = GroupedConv3d(V, features, features, (3, 3, 3),
                                    padding_mode="replicate", use_bias=False,
                                    kernel_init=kernel_init,
-                                   generator=generator)
-        self.norm1 = GroupedLayerNorm3d(V, features, affine=True)
+                                   generator=generator, dtype=dtype)
+        self.norm1 = GroupedLayerNorm3d(V, features, affine=True, dtype=dtype)
         self.conv2 = GroupedConv3d(V, features, features, (3, 3, 3),
                                    padding_mode="replicate", use_bias=False,
                                    kernel_init=kernel_init,
-                                   generator=generator)
-        self.norm2 = GroupedLayerNorm3d(V, features, affine=True)
+                                   generator=generator, dtype=dtype)
+        self.norm2 = GroupedLayerNorm3d(V, features, affine=True, dtype=dtype)
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -79,17 +82,18 @@ class GroupedProjHead(nn.Module):
 
     def __init__(self, n_groups: int, features: int,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V, E = n_groups, features
         self.proj1 = GroupedConv3d(V, E, E, (3, 3, 3),
                                    padding_mode="replicate", use_bias=True,
                                    kernel_init=kernel_init,
-                                   generator=generator)
+                                   generator=generator, dtype=dtype)
         self.proj2 = GroupedConv3d(V, E, E, (3, 3, 3),
                                    padding_mode="replicate", use_bias=True,
                                    kernel_init=kernel_init,
-                                   generator=generator)
+                                   generator=generator, dtype=dtype)
 
     def forward(self, x):
         return self.proj2(F.relu(self.proj1(x)))
@@ -105,7 +109,8 @@ class CNN_3D(nn.Module):
                  out_channels: Optional[List[int]] = None,
                  drop_path_rate: float = 0.0, use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_vars = in_vars
         self.use_checkpoint = use_checkpoint
@@ -115,10 +120,10 @@ class CNN_3D(nn.Module):
         for i, out in enumerate(out_channels):
             self.add_module(f"block{i}", GroupedConvBlock3d(
                 in_vars, chans[i], out, drop_path=drop_path_rate,
-                kernel_init=kernel_init, generator=generator))
+                kernel_init=kernel_init, generator=generator, dtype=dtype))
         self.proj_head = GroupedProjHead(in_vars, out_channels[-1],
                                          kernel_init=kernel_init,
-                                         generator=generator)
+                                         generator=generator, dtype=dtype)
 
     def forward(self, x, train: bool = False, packed_out: bool = False,
                 generator: Optional[torch.Generator] = None):

@@ -16,6 +16,12 @@ and are not ported.
 
 Initializers fill a tensor in place from an explicit ``torch.Generator``
 (``init(tensor, generator)``); modules are built on the CPU and moved.
+
+Compute dtype (the JAX modules' ``dtype`` attribute): parameters stay
+float32 and are cast to the compute dtype where they are used. A module
+computes in its ``dtype``, float32 unless the model passes
+``compute_dtype(cfg)`` (models/vq_model.py), which it always does.
+``GroupedLayerNorm3d`` keeps the JAX package's bf16 roundings.
 """
 # ------------------------------------------------------------------
 
@@ -139,12 +145,14 @@ class Conv3d(nn.Module):
                                                        (1, 1)),
                  padding_mode: str = "zeros", use_bias: bool = True,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         kd, kh, kw = kernel_size
         self.strides = tuple(strides)
         self.padding = tuple(tuple(p) for p in padding)
         self.padding_mode = padding_mode
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                kd, kh, kw))
         init = kernel_init or flax_default_init(kd * kh * kw * in_features)
@@ -153,9 +161,11 @@ class Conv3d(nn.Module):
                      else None)
 
     def forward(self, x):
-        xc = _pad_channels_first(x.permute(0, 4, 1, 2, 3), self.padding,
-                                 self.padding_mode)
-        y = F.conv3d(xc, self.weight, self.bias, stride=self.strides)
+        dt = self.dtype
+        xc = _pad_channels_first(x.to(dt).permute(0, 4, 1, 2, 3),
+                                 self.padding, self.padding_mode)
+        b = self.bias.to(dt) if self.bias is not None else None
+        y = F.conv3d(xc, self.weight.to(dt), b, stride=self.strides)
         return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
@@ -171,10 +181,12 @@ class GroupedConv3d(nn.Module):
                                                        (1, 1)),
                  padding_mode: str = "zeros", use_bias: bool = True,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         kd, kh, kw = kernel_size
         self.n_groups = n_groups
+        self.dtype = dtype
         self.strides = tuple(strides)
         self.padding = tuple(tuple(p) for p in padding)
         self.padding_mode = padding_mode
@@ -187,13 +199,15 @@ class GroupedConv3d(nn.Module):
 
     def forward(self, x):
         V, kd, kh, kw, cin, cout = self.kernel.shape
-        xc = _pad_channels_first(x.permute(0, 4, 1, 2, 3), self.padding,
-                                 self.padding_mode)
+        dt = self.dtype
+        xc = _pad_channels_first(x.to(dt).permute(0, 4, 1, 2, 3),
+                                 self.padding, self.padding_mode)
         # [V, kd, kh, kw, Cin, Cout] -> grouped-conv weight [V*Cout, Cin, ...]
         w = self.kernel.permute(0, 5, 4, 1, 2, 3).reshape(V * cout, cin,
                                                           kd, kh, kw)
-        b = self.bias.reshape(V * cout) if self.bias is not None else None
-        y = F.conv3d(xc, w, b, stride=self.strides, groups=V)
+        b = (self.bias.reshape(V * cout).to(dt) if self.bias is not None
+             else None)
+        y = F.conv3d(xc, w.to(dt), b, stride=self.strides, groups=V)
         return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
@@ -205,8 +219,10 @@ class GroupedDense(nn.Module):
                  use_bias: bool = True,
                  kernel_init: Optional[Init] = reference_init(),
                  bias_init: Optional[Init] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(n_groups, in_features,
                                                features))
         (kernel_init or lecun_normal_init(in_features))(self.kernel,
@@ -220,22 +236,31 @@ class GroupedDense(nn.Module):
 
     def forward(self, x):
         V, fin, fout = self.kernel.shape
+        dt = self.dtype
         lead = x.shape[:-1]
-        y = torch.einsum("...vi,vio->...vo", x.reshape(*lead, V, fin),
-                         self.kernel).reshape(*lead, V * fout)
+        y = torch.einsum("...vi,vio->...vo", x.to(dt).reshape(*lead, V, fin),
+                         self.kernel.to(dt)).reshape(*lead, V * fout)
         if self.bias is not None:
-            y = y + self.bias.reshape(V * fout)
+            y = y + self.bias.reshape(V * fout).to(dt)
         return y
 
 
 class GroupedLayerNorm3d(nn.Module):
     """LayerNorm over each C-sized group of a packed [..., V*C] activation
-    (torch nn.LayerNorm(C) per variable); affine scale/bias [V, C]."""
+    (torch nn.LayerNorm(C) per variable); affine scale/bias [V, C].
+
+    Computes in its input's dtype and returns ``dtype``, with the JAX
+    module's roundings (idee_tpu/nn/layers.py:243-281): the moments
+    accumulate in float32, the mean is rounded to the input dtype
+    before d = x - mu, the rsqrt is taken in float32 and rounded, and the
+    affine runs in the input dtype. For float32 input every cast is the
+    identity."""
 
     def __init__(self, n_groups: int, features: int, affine: bool = True,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_groups, self.features, self.eps = n_groups, features, eps
+        self.dtype = dtype
         if affine:
             self.scale = nn.Parameter(torch.ones(n_groups, features))
             self.bias = nn.Parameter(torch.zeros(n_groups, features))
@@ -246,11 +271,12 @@ class GroupedLayerNorm3d(nn.Module):
         V, C = self.n_groups, self.features
         lead = x.shape[:-1]
         xv = x.reshape(*lead, V, C)
-        mu = xv.mean(-1, keepdim=True)
+        f32 = torch.float32
+        mu = xv.mean(-1, keepdim=True, dtype=f32).to(x.dtype)
         d = xv - mu
         # two-pass moments: no E[x^2]-mu^2 cancellation
-        var = (d * d).mean(-1, keepdim=True)
-        y = d * torch.rsqrt(var + self.eps)
+        var = (d * d).mean(-1, keepdim=True, dtype=f32)
+        y = d * torch.rsqrt(var + self.eps).to(x.dtype)
         if self.scale is not None:
-            y = y * self.scale + self.bias
-        return y.reshape(*lead, V * C)
+            y = y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
+        return y.reshape(*lead, V * C).to(self.dtype)

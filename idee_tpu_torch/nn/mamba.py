@@ -8,7 +8,9 @@ v1-style block: in_proj -> causal depthwise conv1d -> silu -> x_proj
 (dt/B/C) -> softplus(dt_proj) -> selective scan with A = -exp(A_log), skip
 D, silu(z) gating -> out_proj. With d_state=1 the scan is the fused CUDA
 kernel of kernels/selective_scan.py; a larger d_state goes through its
-linear-scan kernel.
+linear-scan kernel. ``dtype`` is the compute dtype of the projections, the
+conv and the norms (nn/layers.py); the scan takes float32 inputs whatever
+it is, as in the JAX package.
 """
 # ------------------------------------------------------------------
 
@@ -86,35 +88,37 @@ class PackedMambaSSM(nn.Module):
     def __init__(self, n_groups: int, d_model: int, d_state: int = 1,
                  d_conv: int = 3, expand: int = 1,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V = n_groups
         self.n_groups, self.d_state, self.d_conv = V, d_state, d_conv
+        self.dtype = dtype
         self.d_inner = d_inner = expand * d_model
         self.dt_rank = dt_rank = math.ceil(d_model / 16)
         n = d_state
         self.in_proj = GroupedDense(V, d_model, 2 * d_inner, use_bias=False,
                                     kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
         self.conv1d_kernel = nn.Parameter(torch.empty(V, d_conv, 1, d_inner))
         (kernel_init or lecun_normal_init(d_conv))(self.conv1d_kernel,
                                                    generator)
         self.conv1d_bias = nn.Parameter(torch.zeros(V, d_inner))
         self.x_proj = GroupedDense(V, d_inner, dt_rank + 2 * n,
                                    use_bias=False, kernel_init=kernel_init,
-                                   generator=generator)
+                                   generator=generator, dtype=dtype)
         # the composite init zeroes dt_proj.bias (reference
         # models/build.py:96-118), so the effective dt at init is softplus(0)
         self.dt_proj = GroupedDense(V, dt_rank, d_inner, use_bias=True,
                                     kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
         self.A_log = nn.Parameter(
             torch.log(torch.arange(1, n + 1, dtype=torch.float32))
             .repeat(V, d_inner, 1))
         self.D = nn.Parameter(torch.ones(V, d_inner))
         self.out_proj = GroupedDense(V, d_inner, d_model, use_bias=False,
                                      kernel_init=kernel_init,
-                                     generator=generator)
+                                     generator=generator, dtype=dtype)
 
     def forward(self, x):
         V, d_inner, n, dt_rank = (self.n_groups, self.d_inner, self.d_state,
@@ -126,12 +130,12 @@ class PackedMambaSSM(nn.Module):
         z = xz[:, :, :, 1].reshape(B_, L, V * d_inner)
 
         # causal depthwise conv over the token axis (pad d_conv-1 in front,
-        # mamba_ssm semantics) as d_conv shifted multiply-adds
+        # mamba_ssm semantics) as d_conv shifted multiply-adds, in u's dtype
         taps = self.conv1d_kernel.permute(1, 2, 0, 3).reshape(
-            self.d_conv, V * d_inner)
+            self.d_conv, V * d_inner).to(u.dtype)
         u_pad = F.pad(u, (0, 0, self.d_conv - 1, 0))
         acc = sum(u_pad[:, i:i + L] * taps[i] for i in range(self.d_conv))
-        u = F.silu(acc + self.conv1d_bias.reshape(V * d_inner))
+        u = F.silu(acc + self.conv1d_bias.reshape(V * d_inner).to(u.dtype))
 
         x_dbl = self.x_proj(u).reshape(B_, L, V, dt_rank + 2 * n)
         dt = x_dbl[..., :dt_rank].reshape(B_, L, V * dt_rank)
@@ -140,8 +144,12 @@ class PackedMambaSSM(nn.Module):
         delta = F.softplus(self.dt_proj(dt))
 
         A = -torch.exp(self.A_log).reshape(V * d_inner, n)
-        y = selective_scan_packed(u, delta, A, Bssm, Cssm,
-                                  self.D.reshape(V * d_inner), z, V)
+        # the scan runs in float32 whatever the compute dtype
+        # (idee_tpu/nn/mamba.py:181-185): the float32 kernels
+        y = selective_scan_packed(u.float(), delta.float(), A, Bssm.float(),
+                                  Cssm.float(), self.D.reshape(V * d_inner),
+                                  z.float(), V)
+        y = y.to(self.dtype)
         return self.out_proj(y)
 
 
@@ -156,22 +164,23 @@ class PackedMambaBlock(nn.Module):
                  mlp_ratio: float = 4.0, d_state: int = 1, d_conv: int = 3,
                  expand: int = 1, drop: float = 0.0, drop_path: float = 0.0,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V = n_groups
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.drop, self.drop_path = drop, drop_path
-        self.norm1 = GroupedLayerNorm3d(V, dim, affine=False)
+        self.norm1 = GroupedLayerNorm3d(V, dim, affine=False, dtype=dtype)
         self.ssm = PackedMambaSSM(V, dim, d_state=d_state, d_conv=d_conv,
                                   expand=expand, kernel_init=kernel_init,
-                                  generator=generator)
-        self.norm2 = GroupedLayerNorm3d(V, dim, affine=False)
+                                  generator=generator, dtype=dtype)
+        self.norm2 = GroupedLayerNorm3d(V, dim, affine=False, dtype=dtype)
         hidden = int(dim * mlp_ratio)
         self.mlp_fc1 = GroupedDense(V, dim, hidden, kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
         self.mlp_fc2 = GroupedDense(V, hidden, dim, kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -215,7 +224,8 @@ class PackedMambaStage(nn.Module):
                  drop_path: Sequence[float] = (0.0,),
                  use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         # patch-embed downsample iff the stage changes dims or patchifies,
         # with its non-affine LN always on (reference: Mamba.py:313-316)
@@ -223,7 +233,7 @@ class PackedMambaStage(nn.Module):
             self.downsample = PackedPatchEmbed3D(
                 n_groups, in_dim, patch_size=tuple(patch_size),
                 embed_dim=dim, patch_norm=True, kernel_init=kernel_init,
-                generator=generator)
+                generator=generator, dtype=dtype)
         else:
             self.downsample = None
         self.depth, self.use_checkpoint = depth, use_checkpoint
@@ -235,7 +245,7 @@ class PackedMambaStage(nn.Module):
                 mlp_ratio=mlp_ratio, d_state=d_state, d_conv=d_conv,
                 expand=expand, drop=drop,
                 drop_path=drop_path[i] if i < len(drop_path) else 0.0,
-                kernel_init=kernel_init, generator=generator))
+                kernel_init=kernel_init, generator=generator, dtype=dtype))
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -268,7 +278,8 @@ class Mamba(nn.Module):
                  expand: Optional[List[int]] = None,
                  use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V = self.in_vars = in_vars
         embed_dim = embed_dim or [16, 16]
@@ -289,10 +300,10 @@ class Mamba(nn.Module):
                 window_size=tuple(window_size[i]), mlp_ratio=mlp_ratio,
                 drop=drop_rate, drop_path=dpr[lo:lo + depths[i]],
                 use_checkpoint=use_checkpoint, kernel_init=kernel_init,
-                generator=generator))
+                generator=generator, dtype=dtype))
         self.proj = GroupedProjHead(V, embed_dim[-1],
                                     kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
 
     def forward(self, x, train: bool = False, packed_out: bool = False,
                 generator: Optional[torch.Generator] = None):

@@ -9,7 +9,9 @@ axis G = V*h of one window-attention call (kernels/window_attention.py:
 the hand-written CUDA kernels on a card). The shifted-window mask and the
 relative-position gather index are numpy constants, built once per
 geometry and moved to each device once (the reference rebuilds the mask on
-every forward, Swin_3D.py:438).
+every forward, Swin_3D.py:438). ``dtype`` is the compute dtype of every
+projection and norm (nn/layers.py); the attention's q, k, v come out of
+the qkv projection in it, its bias stays float32.
 """
 # ------------------------------------------------------------------
 
@@ -149,7 +151,8 @@ class PackedPatchEmbed3D(nn.Module):
                  patch_size: Tuple[int, int, int] = (2, 4, 4),
                  embed_dim: int = 64, patch_norm: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.patch_size = tuple(patch_size)
         self.proj = GroupedConv3d(n_groups, in_features, embed_dim,
@@ -157,8 +160,9 @@ class PackedPatchEmbed3D(nn.Module):
                                   strides=self.patch_size,
                                   padding=((0, 0), (0, 0), (0, 0)),
                                   use_bias=True, kernel_init=kernel_init,
-                                  generator=generator)
-        self.norm = (GroupedLayerNorm3d(n_groups, embed_dim, affine=False)
+                                  generator=generator, dtype=dtype)
+        self.norm = (GroupedLayerNorm3d(n_groups, embed_dim, affine=False,
+                                        dtype=dtype)
                      if patch_norm else None)
 
     def forward(self, x):
@@ -182,7 +186,8 @@ class PackedWindowAttention3D(nn.Module):
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V, C, h = n_groups, dim, num_heads
         self.n_groups, self.num_heads = V, h
@@ -196,9 +201,10 @@ class PackedWindowAttention3D(nn.Module):
             torch.empty(V, table_size, h))
         trunc_normal_init(0.02)(self.relative_position_bias_table, generator)
         self.qkv = GroupedDense(V, C, 3 * C, use_bias=qkv_bias,
-                                kernel_init=kernel_init, generator=generator)
+                                kernel_init=kernel_init, generator=generator,
+                                dtype=dtype)
         self.proj = GroupedDense(V, C, C, kernel_init=kernel_init,
-                                 generator=generator)
+                                 generator=generator, dtype=dtype)
 
     def forward(self, x, mask=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -214,11 +220,13 @@ class PackedWindowAttention3D(nn.Module):
         bias = bias.permute(0, 3, 1, 2).reshape(V * h, n, n)
 
         if self.attn_drop > 0 and train:
-            # attention-probability dropout needs the explicit chain
+            # attention-probability dropout needs the explicit chain, in
+            # q's dtype with the float32 bias and mask cast to it (flax's
+            # promotion, idee_tpu/nn/swin3d.py:182-194)
             attn = torch.einsum("bngd,bmgd->bgnm", q * self.scale, k)
-            attn = attn + bias[None]
+            attn = attn + bias[None].to(attn.dtype)
             if mask is not None:
-                full = mask_bank_to_full(mask)
+                full = mask_bank_to_full(mask).to(attn.dtype)
                 nW = full.shape[0]
                 attn = (attn.reshape(B_ // nW, nW, V * h, n, n)
                         + full[None, :, None]).reshape(B_, V * h, n, n)
@@ -226,6 +234,8 @@ class PackedWindowAttention3D(nn.Module):
                            train, generator)
             out = torch.einsum("bgnm,bmgd->bngd", attn, v)
         else:
+            # q, k, v in the compute dtype, the bias float32 (gathered from
+            # the float32 table): the kernels of that dtype
             out = window_attention(q, k, v, bias, mask, self.scale)
         out = self.proj(out.reshape(B_, n, VC))
         return dropout(out, self.proj_drop, train, generator)
@@ -243,23 +253,24 @@ class PackedSwinBlock3D(nn.Module):
                  qk_scale: Optional[float] = None, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V = n_groups
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.drop, self.drop_path = drop, drop_path
-        self.norm1 = GroupedLayerNorm3d(V, dim, affine=False)
+        self.norm1 = GroupedLayerNorm3d(V, dim, affine=False, dtype=dtype)
         self.attn = PackedWindowAttention3D(
             V, dim, self.window_size, num_heads, qkv_bias=qkv_bias,
             qk_scale=qk_scale, attn_drop=attn_drop, proj_drop=drop,
-            kernel_init=kernel_init, generator=generator)
-        self.norm2 = GroupedLayerNorm3d(V, dim, affine=False)
+            kernel_init=kernel_init, generator=generator, dtype=dtype)
+        self.norm2 = GroupedLayerNorm3d(V, dim, affine=False, dtype=dtype)
         hidden = int(dim * mlp_ratio)
         self.mlp_fc1 = GroupedDense(V, dim, hidden, kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
         self.mlp_fc2 = GroupedDense(V, hidden, dim, kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -314,13 +325,14 @@ class PackedSwinStage(nn.Module):
                  attn_drop: float = 0.0, drop_path: Sequence[float] = (0.0,),
                  use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if in_dim != dim or tuple(patch_size) != (1, 1, 1):
             self.downsample = PackedPatchEmbed3D(
                 n_groups, in_dim, patch_size=tuple(patch_size),
                 embed_dim=dim, patch_norm=True, kernel_init=kernel_init,
-                generator=generator)
+                generator=generator, dtype=dtype)
         else:
             self.downsample = None
         self.depth, self.use_checkpoint = depth, use_checkpoint
@@ -332,7 +344,7 @@ class PackedSwinStage(nn.Module):
                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
                 drop=drop, attn_drop=attn_drop,
                 drop_path=drop_path[i] if i < len(drop_path) else 0.0,
-                kernel_init=kernel_init, generator=generator))
+                kernel_init=kernel_init, generator=generator, dtype=dtype))
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -365,7 +377,8 @@ class Swin_3D(nn.Module):
                  patch_size: Tuple[int, int, int] = (1, 1, 1),
                  use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         V = self.in_vars = in_vars
         embed_dim = embed_dim or [16, 16]
@@ -384,9 +397,9 @@ class Swin_3D(nn.Module):
                 qkv_bias=qkv_bias, qk_scale=qk_scale, drop=drop_rate,
                 attn_drop=attn_drop_rate, drop_path=dpr[lo:lo + depths[i]],
                 use_checkpoint=use_checkpoint, kernel_init=kernel_init,
-                generator=generator))
+                generator=generator, dtype=dtype))
         self.proj = GroupedProjHead(V, embed_dim[-1], kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
 
     def forward(self, x, train: bool = False, packed_out: bool = False,
                 generator: Optional[torch.Generator] = None):

@@ -23,7 +23,7 @@ from idee_tpu_torch import resolve_device
 from idee_tpu_torch.config import Config, save_options
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.synthetic import SyntheticCube, SyntheticDataset
-from idee_tpu_torch.models.vq_model import build_model
+from idee_tpu_torch.models.vq_model import build_model, compute_dtype
 from idee_tpu_torch.train.checkpoint import (CheckpointManager,
                                              load_pretrained_weights)
 from idee_tpu_torch.train.history import flush_history, seed_history
@@ -105,11 +105,13 @@ def train_synthetic(cfg: Config,
     # advances the augmentation RNG; drawing it here too keeps both drivers
     # on the same augmentations
     train_ds[0]
+    # x in the compute dtype from the host on (the JAX driver's cast)
     train_loader = DataLoader(train_ds, cfg.batch_size, device=dev,
                               keys=_KEYS, shuffle=True, drop_last=True,
-                              seed=cfg.seed)
+                              seed=cfg.seed, x_dtype=compute_dtype(cfg))
     val_loader = DataLoader(val_ds, cfg.batch_size, device=dev, keys=_KEYS,
-                            shuffle=True, drop_last=True, seed=cfg.seed)
+                            shuffle=True, drop_last=True, seed=cfg.seed,
+                            x_dtype=compute_dtype(cfg))
 
     log_string(logger, "\nloading the model ...")
     model = build_model(cfg)

@@ -27,7 +27,7 @@ from idee_tpu_torch.config import Config, save_options
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.reanalysis import (ReanalysisDataset, cerra_spec,
                                             era5_land_spec)
-from idee_tpu_torch.models.vq_model import build_model
+from idee_tpu_torch.models.vq_model import build_model, compute_dtype
 from idee_tpu_torch.train.checkpoint import CheckpointManager
 from idee_tpu_torch.train.driver import _check_supported
 from idee_tpu_torch.train.evaluate import load_weights
@@ -106,9 +106,11 @@ def train_real(cfg: Config, family: str,
     # advances the augmentation RNG; drawing it here too keeps both drivers
     # on the same augmentations
     train_ds[0]
+    # x in the compute dtype from the host on
+    # (idee_tpu/train/driver_real.py:115-128)
     loader_kw = dict(device=dev, keys=TRAIN_KEYS, shuffle=True,
                      drop_last=True, seed=cfg.seed,
-                     workers=cfg.loader_workers)
+                     workers=cfg.loader_workers, x_dtype=compute_dtype(cfg))
     train_loader = DataLoader(train_ds, cfg.batch_size, **loader_kw)
     val_loader = DataLoader(val_ds, cfg.batch_size, **loader_kw)
 
@@ -226,7 +228,8 @@ def test_real(cfg: Config, family: str, params: Optional[Mapping] = None,
     model.to(dev)
 
     loader = DataLoader(test_ds, cfg.batch_size, device=dev, keys=TEST_KEYS,
-                        seed=cfg.seed, workers=cfg.loader_workers)
+                        seed=cfg.seed, workers=cfg.loader_workers,
+                        x_dtype=compute_dtype(cfg))
     eval_step = make_eval_step_real(model, cfg, test_mode=True)
     evaluator = Evaluator(logger, "Testing")
 

@@ -16,7 +16,7 @@ from idee_tpu_torch.config import Config
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.synthetic import SyntheticCube, SyntheticDataset
 from idee_tpu_torch.models.interop import load_flax_params
-from idee_tpu_torch.models.vq_model import build_model
+from idee_tpu_torch.models.vq_model import build_model, compute_dtype
 from idee_tpu_torch.train.checkpoint import load_pretrained_weights
 from idee_tpu_torch.train.metrics import (EvaluatorAnomalySynthetic,
                                           EvaluatorSynthetic,
@@ -80,7 +80,7 @@ def test_synthetic(cfg: Config, cube: Optional[SyntheticCube] = None,
 
     loader = DataLoader(ds, cfg.batch_size, device=dev,
                         keys=["x", "mask_extreme", "mask_extreme_loss",
-                              "timestep"])
+                              "timestep"], x_dtype=compute_dtype(cfg))
     eval_step = make_eval_step(model, cfg, t0=float(ds.timestep[0]))
 
     evaluator = EvaluatorSynthetic(logger, "Testing")

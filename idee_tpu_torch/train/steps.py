@@ -81,8 +81,10 @@ def _scatter_votes(vote_sum, vote_cnt, anomaly, t_index, delta_t: int):
 
 def _accumulate(metrics, comps, out, batch, t0: float, delta_t: int,
                 threshold: float = 0.5):
-    """Fold one step's outputs into the epoch metrics, in place."""
-    pred_c = (torch.sigmoid(out.z) > threshold).float()
+    """Fold one step's outputs into the epoch metrics, in place; returns
+    the extreme probability sigmoid(z) and its prediction, [N, 1, H, W]."""
+    pred = torch.sigmoid(out.z)
+    pred_c = (pred > threshold).float()
     counts = extreme_counts(pred_c, batch["mask_extreme"][:, None])
     for k in _COUNT_KEYS:
         metrics["counts"][k] += counts[k]
@@ -92,6 +94,7 @@ def _accumulate(metrics, comps, out, batch, t0: float, delta_t: int,
     t_index = (batch["timestep"][:, 0] - t0).long()
     _scatter_votes(metrics["vote_sum"], metrics["vote_cnt"], out.anomaly,
                    t_index, delta_t)
+    return pred, pred_c
 
 
 def make_train_step(model, cfg: Config, t0: float = 0.0,
@@ -137,11 +140,14 @@ def make_train_step(model, cfg: Config, t0: float = 0.0,
     return step
 
 
-def make_eval_step(model, cfg: Config, t0: float = 0.0):
-    """step(metrics, batch) -> metrics: one forward of ``model``
-    in eval mode under inference_mode, with the loss and the metric
-    updates on the device. t0: absolute timestep of the dataset's first
-    timeline slot."""
+def make_eval_step(model, cfg: Config, t0: float = 0.0,
+                   return_preds: bool = False):
+    """step(metrics, batch) -> metrics, or (metrics, preds) with
+    ``return_preds`` (preds: the extreme probability "pred" and prediction
+    "pred_c" [N, 1, H, W], the anomaly bits [N, V, T, H, W]; JAX's
+    make_eval_step(return_preds=True)): one forward of ``model`` in eval
+    mode under inference_mode, with the loss and the metric updates on the
+    device. t0: absolute timestep of the dataset's first timeline slot."""
     bce = _bce_kwargs(cfg)
 
     @torch.inference_mode()
@@ -152,7 +158,11 @@ def make_eval_step(model, cfg: Config, t0: float = 0.0):
         _, comps = losses.total_loss_synthetic(
             out, batch["mask_extreme"], batch["mask_extreme_loss"],
             cfg.lambda_anomaly, **bce)
-        _accumulate(metrics, comps, out, batch, t0, cfg.delta_t)
+        pred, pred_c = _accumulate(metrics, comps, out, batch, t0,
+                                   cfg.delta_t)
+        if return_preds:
+            return metrics, {"pred": pred, "pred_c": pred_c,
+                             "anomaly": out.anomaly}
         return metrics
 
     return step

@@ -97,6 +97,7 @@ def test_port_imports_nothing_of_jax():
     modules = sorted(".".join(f.relative_to(REPO).with_suffix("").parts)
                      for f in package if f.name != "__init__.py")
     assert "idee_tpu_torch.train.driver_real" in modules
+    assert "idee_tpu_torch.cli.predict_synthetic" in modules
     assert {f"idee_tpu_torch.quant.{m}" for m in (
         "lfq", "vq", "fsq", "latent_quantize", "random_vq")} <= set(modules)
     code = ("import sys, importlib; "

@@ -384,9 +384,10 @@ def test_swin_train_step_on_card_matches_cpu(cuda):
         loss.append(metrics["loss_sums"]["loss"].item())
         grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
     after = {**wa.launches, **ss.launches}
+    # every other kernel, the bf16 attention's included, 0
+    want = {wa.ATTN_FWD: 3, wa.ATTN_BWD: 3, wa.DBIAS_SUM: 3}
     assert {k: after[k] - before[k] for k in after} == {
-        wa.ATTN_FWD: 3, wa.ATTN_BWD: 3, wa.DBIAS_SUM: 3, ss.FUSED_FWD: 0,
-        ss.FUSED_BWD: 0, ss.LINEAR_SCAN: 0}
+        k: want.get(k, 0) for k in after}
     np.testing.assert_allclose(loss[1], loss[0], rtol=1e-4)
     for k, want in grads[0].items():
         got = grads[1][k]
