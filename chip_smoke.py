@@ -97,7 +97,22 @@ Phases, each printing one JSON line:
                  kernel phase also holds the bf16 attention kernels against
                  their plain bf16 versions (one bf16 ulp), reruns them bit
                  for bit and times them beside SDPA on bf16 inputs
- 15. kernels     one line listing every kernel: route, source, launches by
+ 15. train_deepmil, train_arnet, train_rtfm, train_mgfn, train_rtfm_mamba,
+     train_deepmil_swin, train_simplenet, train_steal, train_uniad
+                 the baseline zoo (idee_tpu_torch/baselines/) at the bench
+                 width with its configs' defaults: each trains 1 epoch
+                 through its driver, launch counters zeroed around it
+                 (exact: the MIL four over CNN_3D, STEAL and UniAD none;
+                 RTFM over Mamba the fused scan forward and backward;
+                 DeepMIL over Swin_3D the three attention kernels;
+                 SimpleNet's frozen Swin_3D backbone, train_swin's encoder
+                 loaded by load_backbone_params, the attention forward
+                 only), then its test driver on the latest checkpoint
+                 (test_<name>, launches counted; not for the two encoder
+                 variants); train steps/s, peak memory, a profile of 3
+                 train steps; RTFM over Mamba and DeepMIL over Swin_3D
+                 also one step's gradients against the plain op
+ 16. kernels     one line listing every kernel: route, source, launches by
                  path, error and times
 Each "profile" line gives a path's device ms per step by operator and by
 kind of kernel (disjoint: cuDNN wgrad, dgrad, other GEMMs and implicit
@@ -1108,6 +1123,35 @@ def index_agreement(cfg, params, batch) -> float:
     return (got == want).float().mean().item()
 
 
+def hold_gradients(got, want, limit, what, zero=()):
+    """Each gradient of ``got`` within ``limit`` x the max |grad| of its
+    ``want``, every encoder parameter's nonzero; the names in ``zero``
+    (gradients zero in exact arithmetic) held instead under 1e-9 x the
+    largest max |grad|, on both sides. Returns the largest error over
+    max |grad|."""
+    floor = 1e-9 * max(w.abs().max().item() for w in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        scale = w.abs().max().item()
+        err = (got[k] - w).abs().max().item()
+        if k in zero:
+            if max(scale, got[k].abs().max().item()) >= floor:
+                raise SystemExit(f"{what}: gradient of {k}: "
+                                 f"{got[k].abs().max().item()} with the "
+                                 f"kernels, {scale} with the plain op, "
+                                 f"floor {floor}")
+            continue
+        if err > limit * scale:
+            raise SystemExit(f"{what}: gradient of {k}: kernel vs plain "
+                             f"error {err} > {limit} x max|grad| "
+                             f"{scale}")
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+        if k.startswith("encoder.") and got[k].abs().max().item() == 0.0:
+            raise SystemExit(f"{what}: encoder parameter {k} got no "
+                             "gradient")
+    return worst
+
+
 def compare_step_gradients(cfg, params, batch, what: str, real: bool = False):
     """One train step's gradients with the kernels against the plain op:
     each parameter within STEP_GRAD_REL (BF16_GRAD_REL at bf16) x its max
@@ -1120,18 +1164,7 @@ def compare_step_gradients(cfg, params, batch, what: str, real: bool = False):
     agree = None
     if cfg.codebook != "LFQ" or cfg.codebook_size != 2:
         agree = index_agreement(cfg, params, batch)
-    worst = 0.0
-    for k, w in want.items():
-        scale = w.abs().max().item()
-        err = (got[k] - w).abs().max().item()
-        if err > limit * scale:
-            raise SystemExit(f"{what}: gradient of {k}: kernel vs plain "
-                             f"error {err} > {limit} x max|grad| "
-                             f"{scale}")
-        worst = max(worst, err / scale if scale > 0 else 0.0)
-        if k.startswith("encoder.") and got[k].abs().max().item() == 0.0:
-            raise SystemExit(f"{what}: encoder parameter {k} got no "
-                             "gradient")
+    worst = hold_gradients(got, want, limit, what)
     emit(phase="train_gradients", path=what, encoder=cfg.encoder,
          codebook=cfg.codebook, index_agreement=agree, parameters=len(want),
          encoder_parameters=sum(1 for k in got if k.startswith("encoder.")),
@@ -1499,6 +1532,252 @@ def phase_codebooks(cube):
 # the real-world path: a CERRA tree at the published Europe geometry
 
 
+# ------------------------------------------------------------------
+# the baseline zoo (idee_tpu_torch/baselines/) at the bench width
+
+# (phase, family, variant, encoder, the test driver on the checkpoint, the
+# plain-op gradient check): the baseline configs' defaults
+BASELINE_PHASES = (
+    ("train_deepmil", "mil", "deepmil", "CNN_3D", True, False),
+    ("train_arnet", "mil", "arnet", "CNN_3D", True, False),
+    ("train_rtfm", "mil", "rtfm", "CNN_3D", True, False),
+    ("train_mgfn", "mil", "mgfn", "CNN_3D", True, False),
+    ("train_rtfm_mamba", "mil", "rtfm", "Mamba", False, True),
+    ("train_deepmil_swin", "mil", "deepmil", "Swin_3D", False, True),
+    ("train_simplenet", "oneclass", "simplenet", "Swin_3D", True, False),
+    ("train_steal", "recon", "steal", None, True, False),
+    ("train_uniad", "recon", "uniad", None, True, False),
+)
+
+
+def baseline_config(family: str, phase: str, **kw):
+    """The family's config defaults at the bench width: 200x200, the 6
+    variables, batch 1, 1 epoch over the fake cube's weeks, no
+    augmentation, global normalisation; STEAL at delta_t 8, UniAD at the
+    recon default delta_t 1 (feature_size (100, 100))."""
+    from idee_tpu_torch.baselines.config import (mil_config,
+                                                 oneclass_config,
+                                                 recon_config)
+
+    make = {"mil": mil_config, "oneclass": oneclass_config,
+            "recon": recon_config}[family]
+    base = dict(x_max=200, y_max=200, times_train=TRAIN_WEEKS,
+                times_val=VAL_WEEKS, times_test=(1, N_WEEKS),
+                n_epochs=N_EPOCHS_SHORT, batch_size=1, is_aug=False,
+                is_clima_scale=IS_CLIMA_SCALE, dir_log=LOG_DIR,
+                name=f"chip_smoke_{phase}")
+    base.update(kw)
+    return make(**base)
+
+
+def baseline_drivers(family: str, which: str):
+    """(train(cfg, train_cube, val_cube), test(cfg, cube), keys of a
+    batch) of a baseline, on the card."""
+    from idee_tpu_torch.baselines.mil import driver as mil
+    from idee_tpu_torch.baselines.oneclass import driver as oc
+    from idee_tpu_torch.baselines.recon import driver as recon
+
+    keys = ["x", "mask_extreme_loss", "timestep"]
+    if family == "mil":
+        return (lambda c, a, b: mil.train_mil_synthetic(c, which, a, b,
+                                                        device="cuda"),
+                lambda c, t: mil.test_mil_synthetic(c, which, t,
+                                                    device="cuda"), keys)
+    if family == "oneclass":
+        return (lambda c, a, b: oc.train_simplenet_synthetic(c, a, b,
+                                                             device="cuda"),
+                lambda c, t: oc.test_simplenet_synthetic(c, t, device="cuda"),
+                keys)
+    return (lambda c, a, b: recon.train_recon_synthetic(c, which, a, b,
+                                                        device="cuda"),
+            lambda c, t: recon.test_recon_synthetic(c, which, t,
+                                                    device="cuda"),
+            ["x", "mask_extreme_loss_t", "timestep"])
+
+
+def baseline_train_step(family: str, which: str, cfg, history):
+    """A train step of the trained state in ``history`` (the profile's)."""
+    from idee_tpu_torch.baselines.mil.driver import make_mil_train_step
+    from idee_tpu_torch.baselines.oneclass.driver import (Backbone,
+                                                          make_oc_train_step)
+    from idee_tpu_torch.baselines.recon.driver import build_recon_model
+
+    model = history["state"].model
+    t0 = float(TRAIN_WEEKS[0])
+    if family == "mil":
+        return make_mil_train_step(model, cfg, which, t0)
+    if family == "oneclass":
+        backbone = Backbone(cfg)
+        backbone.load_state_dict(history["bb_variables"])
+        backbone.requires_grad_(False)
+        return make_oc_train_step(backbone.cuda().eval(), model, cfg)
+    return build_recon_model(cfg, which, (200, 200))[1](model, cfg, t0)
+
+
+def baseline_launches_per_step(family: str, encoder):
+    """Kernel launches per (train, eval) step: the encoder's (a MIL
+    encoder trains; SimpleNet's frozen backbone runs its forward only);
+    STEAL and UniAD run no kernel."""
+    if family == "mil":
+        return (kernel_launches_per_step(encoder, train=True),
+                kernel_launches_per_step(encoder, train=False))
+    if family == "oneclass":
+        fwd = kernel_launches_per_step(encoder, train=False)
+        return fwd, fwd
+    return {}, {}
+
+
+def mil_step_gradients(cfg, variant, params, batch, plain: bool):
+    """One MIL training forward and backward from ``params``, with the
+    kernels or (plain) autograd through the plain op; dropout, drop path
+    and instance drop from one seeded generator, the same draws either
+    way. Returns ({name: grad}, loss)."""
+    from idee_tpu_torch.baselines.mil.driver import mil_total_loss
+    from idee_tpu_torch.baselines.mil.models import build_mil_model
+
+    model = build_mil_model(cfg, variant)
+    model.load_state_dict(params)
+    model.to("cuda").train()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with plain_ops(cfg.encoder) if plain else contextlib.nullcontext():
+        out = model(batch["x"], train=True, generator=g)
+        loss = mil_total_loss(cfg, variant, out, batch["mask_extreme_loss"],
+                              True, g)
+        loss.backward()
+    torch.cuda.synchronize()
+    return {k: p.grad for k, p in model.named_parameters()}, loss.item()
+
+
+def compare_mil_gradients(cfg, variant, params, batch, what: str):
+    """The step gradients with the kernels against the plain op's
+    (hold_gradients at STEP_GRAD_REL). The agent's rel-pos table has a
+    zero gradient in exact arithmetic: it adds one constant to all of a
+    query's scores, which softmax ignores."""
+    got, loss_k = mil_step_gradients(cfg, variant, params, batch, False)
+    want, loss_p = mil_step_gradients(cfg, variant, params, batch, True)
+    zero = [k for k in want if k.startswith("agent.")
+            and k.endswith("relative_position_bias_table")]
+    worst = hold_gradients(got, want, STEP_GRAD_REL, what, zero)
+    emit(phase="train_gradients", path=what, encoder=cfg.encoder,
+         variant=variant, parameters=len(want), loss_kernels=loss_k,
+         loss_plain=loss_p, max_err_over_max_abs_grad=worst,
+         limit=STEP_GRAD_REL, zero_in_exact_arithmetic=zero)
+
+
+def phase_baseline(cube, phase, family, which, encoder, test: bool,
+                   compare: bool):
+    """One baseline at the bench width: its train driver for 1 epoch with
+    the launch counters zeroed around it (exact counts: the encoder's
+    kernels per step, none for CNN_3D, STEAL and UniAD); losses and
+    checkpoints; its test driver on the latest checkpoint, launches
+    counted; the driver's train steps/s (CUDA-synchronised), peak memory
+    and a profile of 3 train steps; with ``compare`` one step's gradients
+    against the plain op. Returns {path: launches}."""
+    from idee_tpu_torch.baselines import common
+    from idee_tpu_torch.data.loader import DataLoader
+
+    kw = {}
+    if encoder:
+        kw["encoder"] = encoder
+    if which == "steal":
+        kw["delta_t"] = 8
+    if family == "oneclass":
+        # the frozen backbone: the Swin_3D encoder train_swin trained
+        kw["model_pretrained"] = os.path.join(
+            train_config("Swin_3D").log_dir, "model_checkpoints",
+            "latest.pt")
+    cfg = baseline_config(family, phase, **kw)
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    train, test_fn, keys = baseline_drivers(family, which)
+    train_cube, val_cube = cube.time_slice(*TRAIN_WEEKS), \
+        cube.time_slice(*VAL_WEEKS)
+    n_train = TRAIN_WEEKS[1] - TRAIN_WEEKS[0] + 2 - cfg.delta_t
+    n_val = VAL_WEEKS[1] - VAL_WEEKS[0] + 2 - cfg.delta_t
+    n_test = N_WEEKS + 1 - cfg.delta_t
+    per_train, per_eval = baseline_launches_per_step(family, encoder)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    history = train(cfg, train_cube, val_cube)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    expect_launches(launches, {
+        k: per_train.get(k, 0) * n_train + per_eval.get(k, 0) * n_val
+        for k in set(per_train) | set(per_eval)}, phase)
+    curves = history["train_loss"] + history["val_loss"]
+    if not all(map(math.isfinite, curves)):
+        raise SystemExit(f"{phase}: bad loss history {curves}")
+    ckpt_dir = os.path.join(cfg.log_dir, "model_checkpoints")
+    written = sorted(os.listdir(ckpt_dir))
+    if written != ["best_loss_model.pt", "latest.pt"]:
+        raise SystemExit(f"{phase}: checkpoints {written}")
+    paths = {phase: launches}
+
+    tested = None
+    if test:
+        zero_launches()
+        t0 = time.perf_counter()
+        tested = test_fn(cfg.replace(en_de_pretrained=os.path.join(
+            ckpt_dir, "latest.pt")), cube)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_launches = read_launches()
+        expect_launches(test_launches, {k: v * n_test for k, v in
+                                        per_eval.items()}, f"{phase} test")
+        votes = tested.pop("anomaly")
+        if (votes.shape != (6, N_WEEKS, cfg.y_max, cfg.x_max)
+                or not math.isfinite(tested["mean_loss"])
+                or not np.isfinite(votes[:, cfg.delta_t - 1:]).all()):
+            raise SystemExit(f"{phase} test: {tested}, votes {votes.shape}")
+        tested.update(wall_s_with_setup=test_s, steps=n_test,
+                      launches=test_launches,
+                      anomaly_share=float(np.nanmean(votes)))
+        paths[phase.replace("train_", "test_")] = test_launches
+
+    # profile: 3 steps of the trained state (host batch assembly included)
+    train_ds, _ = common.make_datasets(
+        cfg, train_cube, val_cube,
+        getattr(cfg, "is_replace_anomaly", False) and family != "mil")
+    batches = iter(DataLoader(train_ds, 1, device="cuda", keys=keys,
+                              shuffle=True, seed=cfg.seed))
+    step = baseline_train_step(family, which, cfg, history)
+    metrics = common.init_vote_metrics(train_ds.anomaly.shape, "cuda")
+    state = history["state"]
+    profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3)
+
+    emit(phase=phase, family=family, variant=which, encoder=cfg.encoder
+         if family != "recon" else None, shape=[1, 6, 1, cfg.delta_t, 200,
+                                                200],
+         epochs=cfg.n_epochs, train_steps=n_train, val_steps=n_val,
+         launches=launches,
+         history={k: v for k, v in history.items()
+                  if k not in ("state", "bb_variables")},
+         train_steps_per_s=history["steps_per_sec"][-1],
+         wall_s_with_setup=wall_s, max_memory_allocated=peak_bytes,
+         device_ms_per_step=profile["device_ms_per_step"],
+         device_busy_share=profile["device_busy_share"],
+         checkpoints=written, test=tested)
+    emit(phase="profile", path=phase, **profile)
+    if compare:
+        compare_mil_gradients(cfg, which, state.model.state_dict(),
+                              next(batches), phase)
+    del history, state, step, metrics
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_baselines(cube):
+    paths = {}
+    for args in BASELINE_PHASES:
+        paths.update(phase_baseline(cube, *args))
+    return paths
+
+
 # the reference's CERRA Europe crop (dataset/CERRA_dataset.py:100-101),
 # one year of the fixture: the 1984 skip rule leaves target weeks 44-52
 CERRA_GRID = (512, 832)
@@ -1812,6 +2091,7 @@ def main() -> int:
         "train_vq_ema": phase_train_vq_ema(cube)}
     paths.update(phase_codebooks(cube))
     paths.update(phase_bf16(cube))
+    paths.update(phase_baselines(cube))
     del cube
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     cerra_root = tempfile.mkdtemp(prefix="chip_smoke_cerra_",
@@ -1823,6 +2103,7 @@ def main() -> int:
         paths.update(cerra_paths)
     finally:
         shutil.rmtree(cerra_root, ignore_errors=True)
+    shutil.rmtree(LOG_DIR, ignore_errors=True)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}

@@ -1,0 +1,30 @@
+# ------------------------------------------------------------------
+"""CLI: test the UNIAD reconstruction baseline on the Synthetic dataset
+(counterpart of scripts/test_uniad_synthetic.py; reference
+Baselines_Reconstruction/test_uniad_synthetic.py).
+
+    python -m idee_tpu_torch.cli.test_uniad_synthetic --name exp \
+        --root_synthetic /data/synthetic_CERRA \
+        --en_de_pretrained <log>/<name>/model_checkpoints/latest.pt \
+        [--device cpu]
+
+Takes the JAX script's flags (every field of the baseline config), plus
+``--device`` (default cuda).
+"""
+# ------------------------------------------------------------------
+
+from idee_tpu_torch import config as config_file
+from idee_tpu_torch.baselines.config import recon_config
+from idee_tpu_torch.baselines.recon.driver import test_recon_synthetic
+from idee_tpu_torch.cli import split_device
+
+
+def main(argv=None):
+    device, rest = split_device(argv)
+    cfg = config_file.read_arguments(train=False, defaults=recon_config(),
+                                     argv=rest)
+    return test_recon_synthetic(cfg, "uniad", device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,32 @@
+# ------------------------------------------------------------------
+"""CLI: train the SimpleNet one-class baseline on the Synthetic dataset
+(counterpart of scripts/train_simplenet_synthetic.py; reference
+Baselines_OneClass/train_simplenet_synthetic.py).
+
+    python -m idee_tpu_torch.cli.train_simplenet_synthetic --name exp \
+        --root_synthetic /data/synthetic_CERRA \
+        --model_pretrained <core run>/model_checkpoints/latest.pt \
+        [--device cpu]
+
+Takes the JAX script's flags (every field of the baseline config), plus
+``--device`` (default cuda).
+The frozen backbone comes from --model_pretrained (the encoder of a core
+run's checkpoint).
+"""
+# ------------------------------------------------------------------
+
+from idee_tpu_torch import config as config_file
+from idee_tpu_torch.baselines.config import oneclass_config
+from idee_tpu_torch.baselines.oneclass.driver import train_simplenet_synthetic
+from idee_tpu_torch.cli import split_device
+
+
+def main(argv=None):
+    device, rest = split_device(argv)
+    cfg = config_file.read_arguments(train=True, defaults=oneclass_config(),
+                                     argv=rest)
+    return train_simplenet_synthetic(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -146,6 +146,7 @@ class SyntheticDataset:
                  variables_static: Optional[List[str]] = None,
                  delta_t: int = 8, is_aug: bool = False,
                  is_clima_scale: bool = False, is_norm: bool = True,
+                 is_replace_anomaly: bool = False,
                  window_size: int = 1,
                  x_min: int = 0, x_max: int = 200,
                  y_min: int = 0, y_max: int = 200,
@@ -185,6 +186,24 @@ class SyntheticDataset:
         V, T = self._dynamic.shape[:2]
         self._timestep = np.arange(times[0], times[0] + T, dtype=np.float32)
         self._week = _week_of(self._timestep)
+
+        if is_replace_anomaly:
+            # the one-class and reconstruction baselines train on
+            # "anomaly-free" data: pixels under extremes are overwritten
+            # with draws from the pixel-wise weekly climatology
+            # Normal(median, |std|) of the dataset's random stream, before
+            # normalisation (reference: Baselines_Reconstruction/dataset/
+            # Synthetic_dataset.py:205-219)
+            if cube.clima_median is None:
+                raise ValueError("cube lacks climatology for "
+                                 "is_replace_anomaly")
+            wk = self._week.astype(np.int32)
+            sel = np.broadcast_to(self._extreme[None] > 0,
+                                  self._dynamic.shape)
+            med = cube.clima_median[:, wk]
+            std = cube.clima_std[:, wk]
+            self._dynamic[sel] = self._rng.normal(
+                med[sel], np.abs(std[sel])).astype(np.float32)
 
         if is_norm:
             if is_clima_scale:

@@ -18,6 +18,15 @@ flax params), or as the JAX variables dict {"params": ..., "codebook":
 The "codebook" collection (VQ's embed / cluster_size / embed_avg /
 initted, Random_VQ's rand_projs and its inner VQ's state) maps onto the
 port's buffers by the same path rule as the parameters.
+
+The baselines (``idee_tpu_torch/baselines/``) keep flax's module names
+too. Their Dense layers keep flax's kernel [in, out]; their plain
+convolutions (and STEAL's transposed ones) keep torch's layout, so a flax
+``.../<conv>/kernel [*k, in, out]`` maps to ``<conv>.weight [out, in,
+*k]`` wherever the target module has a ``weight`` there. The
+"batch_stats" collection (flax BatchNorm's mean / var) maps onto the
+port BatchNorm's buffers of the same names; a tree without it (the JAX
+package's params alone) leaves those buffers at their initial values.
 """
 # ------------------------------------------------------------------
 
@@ -59,7 +68,7 @@ def _convert_leaf(path: Tuple[str, ...], value: np.ndarray):
     return ".".join(path), value
 
 
-_COLLECTIONS = ("params", "codebook")
+_COLLECTIONS = ("params", "codebook", "batch_stats")
 
 
 def _leaves(tree: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -76,27 +85,52 @@ def _leaves(tree: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
     return leaves
 
 
-def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(tree: Mapping, target: Mapping = None
+                       ) -> Dict[str, torch.Tensor]:
     """Flax params (any sub-tree), or a variables dict with its "codebook"
-    collection -> the matching port module's state_dict (float32
-    tensors)."""
+    or "batch_stats" collection -> the matching port module's state_dict
+    (float32 tensors). With ``target`` (the port module's state_dict, or
+    its keys) a flax ``kernel`` whose key the target lacks goes to the
+    target's ``weight`` there, [*k, in, out] -> [out, in, *k]."""
     sd = {}
     for path, value in _leaves(tree).items():
         key, v = _convert_leaf(path, value)
+        if (target is not None and key not in target
+                and path[-1] == "kernel"
+                and key[:-len("kernel")] + "weight" in target):
+            key = key[:-len("kernel")] + "weight"
+            v = np.moveaxis(v, (-1, -2), (0, 1))
         sd[key] = torch.from_numpy(np.array(v, dtype=np.float32))  # a copy
     return sd
 
 
-def load_flax_params(cfg, flax_params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX VQModel's params, or its variables dict {"params": ...,
-    "codebook": ...} -> the port VQModel's state_dict, checked strictly
-    against the port model built from ``cfg`` (every key present, buffers
-    included, no extra key, every shape equal)."""
-    from idee_tpu_torch.models.vq_model import build_model
+def _batch_stat_keys(model) -> set:
+    from idee_tpu_torch.nn.layers import BatchNorm
 
-    sd = flax_to_state_dict(flax_params)
-    want = {k: tuple(v.shape) for k, v in build_model(cfg).state_dict()
-            .items()}
+    return {f"{name}.{stat}" if name else stat
+            for name, mod in model.named_modules()
+            if isinstance(mod, BatchNorm) for stat in ("mean", "var")}
+
+
+def load_flax_params(cfg, flax_params: Mapping,
+                     model=None) -> Dict[str, torch.Tensor]:
+    """The JAX model's params, or its variables dict {"params": ...,
+    "codebook": ..., "batch_stats": ...} -> the port model's state_dict,
+    checked strictly against ``model`` (default: the port VQModel built
+    from ``cfg``): every key present, buffers included, no extra key,
+    every shape equal. Only a tree without "batch_stats" may lack the
+    BatchNorm statistics, which then keep ``model``'s own."""
+    if model is None:
+        from idee_tpu_torch.models.vq_model import build_model
+
+        model = build_model(cfg)
+    own = model.state_dict()
+    sd = flax_to_state_dict(flax_params, own)
+    want = {k: tuple(v.shape) for k, v in own.items()}
+    if not (isinstance(flax_params.get("batch_stats"), Mapping)
+            or any(k in sd for k in _batch_stat_keys(model))):
+        for k in _batch_stat_keys(model):
+            sd[k] = own[k].detach().clone()
     missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
     if missing or extra:
         raise ValueError(f"flax params do not match the port model: "

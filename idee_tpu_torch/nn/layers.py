@@ -280,3 +280,201 @@ class GroupedLayerNorm3d(nn.Module):
         if self.scale is not None:
             y = y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
         return y.reshape(*lead, V * C).to(self.dtype)
+
+
+# ------------------------------------------------------------------
+# flax's plain layers, for the baselines (idee_tpu/baselines/): Dense,
+# Conv, ConvTranspose, LayerNorm and BatchNorm on channels-last
+# activations with flax's semantics and parameter names
+
+
+def xavier_init(fan_in: int, fan_out: int, uniform: bool = False) -> Init:
+    """flax xavier_normal (truncated) or xavier_uniform: variance
+    2 / (fan_in + fan_out)."""
+    var = 2.0 / (fan_in + fan_out)
+    if not uniform:
+        return trunc_normal_init(math.sqrt(var) / _TRUNC_STD)
+    return uniform_init(-math.sqrt(3.0 * var), math.sqrt(3.0 * var))
+
+
+def uniform_init(low: float, high: float) -> Init:
+    def init(t, generator=None):
+        with torch.no_grad():
+            t.uniform_(low, high, generator=generator)
+
+    return init
+
+
+class Dense(nn.Module):
+    """flax nn.Dense: y = x @ kernel + bias, kernel [in, out] (the JAX
+    layout, no transpose across)."""
+
+    def __init__(self, in_features: int, features: int,
+                 use_bias: bool = True, kernel_init: Optional[Init] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        (kernel_init or flax_default_init(in_features))(self.kernel,
+                                                        generator)
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def forward(self, x):
+        y = x @ self.kernel
+        return y + self.bias if self.bias is not None else y
+
+
+def same_padding(size: int, k: int, stride: int, dilation: int = 1):
+    """flax/lax "SAME" padding of one spatial dim: (lo, hi)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+class Conv(nn.Module):
+    """flax nn.Conv on channels-last [N, *spatial, Cin] with 1-3 spatial
+    dims: strides, kernel_dilation, feature_group_count and padding
+    "SAME" or explicit (lo, hi) pairs. Weight in torch's layout
+    [Cout, Cin/groups, *k] (flax's kernel [*k, Cin/groups, Cout]
+    transposed, ``models/interop.py``)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size,
+                 strides=None, padding="SAME", kernel_dilation=None,
+                 groups: int = 1, use_bias: bool = True,
+                 kernel_init: Optional[Init] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        k = tuple(kernel_size)
+        nd = len(k)
+        self.kernel_size = k
+        self.strides = tuple(strides or (1,) * nd)
+        self.dilation = tuple(kernel_dilation or (1,) * nd)
+        self.padding = padding
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(features,
+                                               in_features // groups, *k))
+        (kernel_init or flax_default_init(
+            math.prod(k) * in_features // groups))(self.weight, generator)
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def _pads(self, spatial):
+        if self.padding == "SAME":
+            return [same_padding(n, k, s, d) for n, k, s, d in zip(
+                spatial, self.kernel_size, self.strides, self.dilation)]
+        return [tuple(p) for p in self.padding]
+
+    def forward(self, x):
+        nd = len(self.kernel_size)
+        xc = x.movedim(-1, 1)
+        pad = [p for lo_hi in reversed(self._pads(x.shape[1:-1]))
+               for p in lo_hi]
+        if any(pad):
+            xc = F.pad(xc, pad)
+        y = _CONV[nd](xc, self.weight, self.bias, stride=self.strides,
+                      dilation=self.dilation, groups=self.groups)
+        return y.movedim(1, -1)
+
+
+class ConvTranspose(nn.Module):
+    """flax nn.ConvTranspose (transpose_kernel=False, padding "SAME") on
+    channels-last [N, *spatial, Cin]: the input dilated by the strides,
+    padded as lax.conv_transpose pads it, then correlated with the kernel
+    (no flip); out = in * stride. Weight [Cout, Cin, *k] (flax's kernel
+    [*k, Cin, Cout] transposed); torch's conv_transpose runs it with the
+    kernel flipped and the extra trailing rows cropped."""
+
+    def __init__(self, in_features: int, features: int, kernel_size,
+                 strides=None, use_bias: bool = True,
+                 kernel_init: Optional[Init] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        k = tuple(kernel_size)
+        self.kernel_size = k
+        self.strides = tuple(strides or (1,) * len(k))
+        self.weight = nn.Parameter(torch.empty(features, in_features, *k))
+        (kernel_init or flax_default_init(math.prod(k) * in_features))(
+            self.weight, generator)
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def forward(self, x):
+        nd = len(self.kernel_size)
+        pad_lo = []
+        for k, s in zip(self.kernel_size, self.strides):
+            # lax _conv_transpose_padding, "SAME"
+            pad_lo.append(k - 1 if s > k - 1 else -(-(k + s - 2) // 2))
+        w = self.weight.transpose(0, 1).flip(list(range(2, 2 + nd)))
+        y = _CONV_T[nd](x.movedim(-1, 1), w, self.bias, stride=self.strides,
+                        padding=[k - 1 - p for k, p in
+                                 zip(self.kernel_size, pad_lo)])
+        out = [n * s for n, s in zip(x.shape[1:-1], self.strides)]
+        y = y[(slice(None), slice(None)) + tuple(slice(0, n) for n in out)]
+        return y.movedim(1, -1)
+
+
+def _fast_moments(x, dims):
+    """flax's float32 moments: mean and E[x^2] - mean^2 clamped at 0."""
+    xf = x.float()
+    mean = xf.mean(dims)
+    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    return mean, var
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm over the last axis (epsilon 1e-6, the moments as
+    flax takes them); parameters ``scale`` and ``bias``."""
+
+    EPS = 1e-6
+
+    def __init__(self, features: int, scale_init: float = 1.0):
+        super().__init__()
+        self.scale = nn.Parameter(torch.full((features,), scale_init))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        mean, var = _fast_moments(x, -1)
+        return ((x - mean[..., None])
+                * (torch.rsqrt(var + self.EPS)[..., None] * self.scale)
+                + self.bias)
+
+
+class BatchNorm(nn.Module):
+    """flax nn.BatchNorm over every axis but the last (the features).
+
+    In training it normalises with the batch's float32 moments, the
+    variance E[x^2] - E[x]^2 (biased, clamped at 0), and moves the running
+    statistics as flax does: mean <- m * mean + (1 - m) * batch mean,
+    var <- m * var + (1 - m) * batch var, with flax's momentum m (0.9 is
+    torch's 0.1) and the biased variance, where torch's BatchNorm keeps
+    the unbiased one. In evaluation it normalises with the running
+    statistics. y = (x - mean) * (rsqrt(var + eps) * scale) + bias, eps
+    1e-5.
+    Parameters ``scale`` and ``bias``, buffers ``mean`` and ``var`` (the
+    "batch_stats" collection)."""
+
+    MOMENTUM, EPS = 0.9, 1e-5  # every baseline's nn.BatchNorm
+
+    def __init__(self, features: int, scale_init: float = 1.0):
+        super().__init__()
+        self.scale = nn.Parameter(torch.full((features,), scale_init))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x, train: bool = False):
+        if train:
+            mean, var = _fast_moments(x, tuple(range(x.dim() - 1)))
+            m = self.MOMENTUM
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + self.EPS) * self.scale) \
+            + self.bias

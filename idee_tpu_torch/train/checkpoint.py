@@ -75,9 +75,11 @@ class CheckpointManager:
         return {"state": state, "meta": payload["meta"]}
 
 
-def load_pretrained_weights(cfg, path: str) -> Dict[str, torch.Tensor]:
+def load_pretrained_weights(cfg, path: str,
+                            model=None) -> Dict[str, torch.Tensor]:
     """The model state_dict for cfg.en_de_pretrained: the JAX package's
-    params as a flax-path ``.npz``, or a checkpoint this module wrote."""
+    params as a flax-path ``.npz`` (checked against ``model``, default the
+    VQModel of ``cfg``), or a checkpoint this module wrote."""
     if path.endswith(".npz"):
-        return load_flax_params(cfg, load_flax_npz(path))
+        return load_flax_params(cfg, load_flax_npz(path), model)
     return torch.load(path, map_location="cpu", weights_only=True)["model"]

@@ -26,25 +26,26 @@ from idee_tpu_torch.train.steps import (init_epoch_metrics, make_eval_step,
 from idee_tpu_torch.utils.logging import fix_seed, get_logger, log_string
 
 
-def _state_dict(cfg: Config, params: Mapping) -> Dict[str, torch.Tensor]:
-    """``params`` as a port state_dict: either one already (flat keys with
-    '.') or the JAX package's flax params tree."""
+def _state_dict(cfg: Config, params: Mapping,
+                model) -> Dict[str, torch.Tensor]:
+    """``params`` as ``model``'s state_dict: either one already (flat keys
+    with '.') or the JAX package's flax params (or variables) tree."""
     if all(isinstance(v, torch.Tensor) for v in params.values()):
         return dict(params)
-    return load_flax_params(cfg, params)
+    return load_flax_params(cfg, params, model)
 
 
 def load_weights(model, cfg: Config, params: Optional[Mapping],
                  logger) -> None:
     """Load ``params`` (a port state_dict or the JAX package's flax
-    params), else cfg.en_de_pretrained (the JAX package's params as a
-    flax-path .npz, or a checkpoint of the port's trainer), else keep the
-    random initialization from cfg.seed."""
+    params) into ``model``, else cfg.en_de_pretrained (the JAX package's
+    params as a flax-path .npz, or a checkpoint of the port's trainer),
+    else keep the random initialization from cfg.seed."""
     if params is not None:
-        model.load_state_dict(_state_dict(cfg, params))
+        model.load_state_dict(_state_dict(cfg, params, model))
     elif cfg.en_de_pretrained:
-        model.load_state_dict(load_pretrained_weights(cfg,
-                                                      cfg.en_de_pretrained))
+        model.load_state_dict(load_pretrained_weights(
+            cfg, cfg.en_de_pretrained, model))
     else:
         log_string(logger, "WARNING: no pretrained model (en_de_pretrained "
                            "unset); evaluating a random initialization")
