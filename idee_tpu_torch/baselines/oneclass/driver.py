@@ -156,7 +156,7 @@ def train_simplenet_synthetic(cfg: OneClassConfig,
                               val_cube: Optional[SyntheticCube] = None,
                               device=None) -> Dict:
     """Train the SimpleNet head over the frozen backbone
-    (cfg.model_pretrained), from cfg.en_de_pretrained when set; returns
+    (cfg.model_pretrained) from a random initialization; returns
     the history, the final TrainState under "state" and the backbone's
     state_dict under "bb_variables". ``device``: cuda unless given."""
     dev = resolve_device(device)
@@ -174,10 +174,6 @@ def train_simplenet_synthetic(cfg: OneClassConfig,
 
     backbone = _frozen_backbone(cfg, logger, dev)
     model = SimpleNet(cfg, in_planes=cfg.en_embed_dim[-1])
-    if cfg.en_de_pretrained:
-        # the head's starting weights, as the other baseline trainers take
-        # theirs (the JAX SimpleNet trainer has no such option)
-        load_weights(model, cfg, None, logger)
     state = create_train_state(cfg, model, dev,
                                steps_per_epoch=len(train_loader))
     log_string(logger, "all parameters: %d\n" % count_parameters(model))

@@ -4,28 +4,22 @@
 The port keeps the JAX package's module names and parameter shapes
 (per-variable weights stacked on axis 0), so a flax parameter tree maps
 onto a port ``state_dict`` leaf by leaf: the path joins with '.', and the
-only transposes are for the two layers the port keeps in torch's own
-layout:
-
-  flax nn.Conv  .../Conv3d_{i}/Conv_0/kernel [kd, kh, kw, in, out]
-      -> .../conv{i+1}.weight [out, in, kd, kh, kw]
-  flax nn.Dense .../project_{in,out}/kernel [in, out]
-      -> .../project_{in,out}.weight [out, in]
+classifier head's flax level pair ``Conv3d_{i}/Conv_0`` is named
+``conv{i+1}``. One layout rule covers every layer the port keeps in
+torch's own layout (the classifier's and the baselines' convolutions,
+STEAL's transposed ones, the quantizers' ``project_in`` / ``project_out``
+linears): a flax ``kernel [*k, in, out]`` whose key the target module
+lacks goes to its ``weight [out, in, *k]``. Every other leaf, the JAX
+layout (Dense kernel [in, out] included), carries across unchanged.
 
 Trees arrive as nested dicts of numpy arrays (``jax.device_get`` of the
 flax params), or as the JAX variables dict {"params": ..., "codebook":
-...}, or as a ``.npz`` keyed by '/'-joined flax paths (``load_flax_npz``).
-The "codebook" collection (VQ's embed / cluster_size / embed_avg /
-initted, Random_VQ's rand_projs and its inner VQ's state) maps onto the
-port's buffers by the same path rule as the parameters.
-
-The baselines (``idee_tpu_torch/baselines/``) keep flax's module names
-too. Their Dense layers keep flax's kernel [in, out]; their plain
-convolutions (and STEAL's transposed ones) keep torch's layout, so a flax
-``.../<conv>/kernel [*k, in, out]`` maps to ``<conv>.weight [out, in,
-*k]`` wherever the target module has a ``weight`` there. The
-"batch_stats" collection (flax BatchNorm's mean / var) maps onto the
-port BatchNorm's buffers of the same names; a tree without it (the JAX
+..., "batch_stats": ...}, or as a ``.npz`` keyed by '/'-joined flax paths
+(``load_flax_npz``). The "codebook" collection (VQ's embed / cluster_size
+/ embed_avg / initted, Random_VQ's rand_projs and its inner VQ's state)
+maps onto the port's buffers by the same path rule as the parameters;
+"batch_stats" (flax BatchNorm's mean / var) onto the port BatchNorm's
+buffers of the same names. A tree without "batch_stats" (the JAX
 package's params alone) leaves those buffers at their initial values.
 """
 # ------------------------------------------------------------------
@@ -37,7 +31,6 @@ import numpy as np
 import torch
 
 _FLAX_CONV = re.compile(r"^Conv3d_(\d+)$")
-_DENSE_TORCH_LAYOUT = ("project_in", "project_out")
 
 
 def flatten_flax(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -52,20 +45,13 @@ def flatten_flax(tree: Mapping, prefix: Tuple[str, ...] = ()
     return out
 
 
-def _convert_leaf(path: Tuple[str, ...], value: np.ndarray):
-    """One flax leaf -> (port state_dict key, value)."""
+def _port_key(path: Tuple[str, ...]) -> str:
+    """One flax leaf's path -> the port's state_dict key."""
     if (len(path) >= 3 and path[-2] == "Conv_0"
             and _FLAX_CONV.match(path[-3])):
         i = int(_FLAX_CONV.match(path[-3]).group(1))
-        key = path[:-3] + (f"conv{i + 1}",)
-        if path[-1] == "kernel":
-            return ".".join(key + ("weight",)), value.transpose(4, 3, 0, 1, 2)
-        return ".".join(key + (path[-1],)), value
-    if len(path) >= 2 and path[-2] in _DENSE_TORCH_LAYOUT:
-        if path[-1] == "kernel":
-            return ".".join(path[:-1] + ("weight",)), value.T
-        return ".".join(path), value
-    return ".".join(path), value
+        path = path[:-3] + (f"conv{i + 1}", path[-1])
+    return ".".join(path)
 
 
 _COLLECTIONS = ("params", "codebook", "batch_stats")
@@ -85,19 +71,17 @@ def _leaves(tree: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
     return leaves
 
 
-def flax_to_state_dict(tree: Mapping, target: Mapping = None
+def flax_to_state_dict(tree: Mapping, target: Mapping
                        ) -> Dict[str, torch.Tensor]:
     """Flax params (any sub-tree), or a variables dict with its "codebook"
-    or "batch_stats" collection -> the matching port module's state_dict
-    (float32 tensors). With ``target`` (the port module's state_dict, or
-    its keys) a flax ``kernel`` whose key the target lacks goes to the
-    target's ``weight`` there, [*k, in, out] -> [out, in, *k]."""
+    or "batch_stats" collection -> the state_dict of the port module whose
+    state_dict (or its keys) is ``target``, as float32 tensors. A flax
+    ``kernel`` whose key ``target`` lacks goes to the ``weight`` there,
+    [*k, in, out] -> [out, in, *k]."""
     sd = {}
     for path, value in _leaves(tree).items():
-        key, v = _convert_leaf(path, value)
-        if (target is not None and key not in target
-                and path[-1] == "kernel"
-                and key[:-len("kernel")] + "weight" in target):
+        key, v = _port_key(path), value
+        if path[-1] == "kernel" and key not in target:
             key = key[:-len("kernel")] + "weight"
             v = np.moveaxis(v, (-1, -2), (0, 1))
         sd[key] = torch.from_numpy(np.array(v, dtype=np.float32))  # a copy

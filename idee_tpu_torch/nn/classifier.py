@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from idee_tpu_torch.nn.layers import (Conv3d, GroupedConv3d, Init, dropout,
+from idee_tpu_torch.nn.layers import (Conv, GroupedConv3d, Init, dropout,
                                       reference_init)
 
 _KSIZE = (2, 3, 3)
@@ -36,9 +36,9 @@ class ClassifierHead(nn.Module):
         super().__init__()
         self.drop_rate = drop_rate
         kw = dict(kernel_init=kernel_init, generator=generator, dtype=dtype)
-        self.conv1 = Conv3d(in_features, dim, _KSIZE, _STRIDE, _PAD, **kw)
-        self.conv2 = Conv3d(dim, dim, _KSIZE, _STRIDE, _PAD, **kw)
-        self.conv3 = Conv3d(dim, n_classes, _KSIZE, _STRIDE, _PAD, **kw)
+        self.conv1 = Conv(in_features, dim, _KSIZE, _STRIDE, _PAD, **kw)
+        self.conv2 = Conv(dim, dim, _KSIZE, _STRIDE, _PAD, **kw)
+        self.conv3 = Conv(dim, n_classes, _KSIZE, _STRIDE, _PAD, **kw)
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):

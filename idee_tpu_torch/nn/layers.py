@@ -1,6 +1,7 @@
 # ------------------------------------------------------------------
 """Shared layers: per-variable (grouped) 3D convolution, dense and
-LayerNorm on packed activations, a plain channels-last Conv3d, DropPath,
+LayerNorm on packed activations, flax's plain Dense / Conv /
+ConvTranspose / LayerNorm / BatchNorm on channels-last tensors, DropPath,
 dropout, the encoders' block recompute (``checkpointed``), and the
 weight-init schemes.
 
@@ -131,42 +132,6 @@ def _pad_channels_first(x, padding, mode: str):
         return x
     return F.pad(x, pad, mode="replicate" if mode == "replicate"
                  else "constant")
-
-
-class Conv3d(nn.Module):
-    """Plain 3D convolution on channels-last [N, D, H, W, C] with optional
-    replicate padding (torch Conv3d(padding_mode='replicate') semantics).
-    Weight in torch's own layout [out, in, kd, kh, kw]."""
-
-    def __init__(self, in_features: int, features: int,
-                 kernel_size: Tuple[int, int, int] = (3, 3, 3),
-                 strides: Tuple[int, int, int] = (1, 1, 1),
-                 padding: Sequence[Tuple[int, int]] = ((1, 1), (1, 1),
-                                                       (1, 1)),
-                 padding_mode: str = "zeros", use_bias: bool = True,
-                 kernel_init: Optional[Init] = reference_init(),
-                 generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__()
-        kd, kh, kw = kernel_size
-        self.strides = tuple(strides)
-        self.padding = tuple(tuple(p) for p in padding)
-        self.padding_mode = padding_mode
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(features, in_features,
-                                               kd, kh, kw))
-        init = kernel_init or flax_default_init(kd * kh * kw * in_features)
-        init(self.weight, generator)
-        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
-                     else None)
-
-    def forward(self, x):
-        dt = self.dtype
-        xc = _pad_channels_first(x.to(dt).permute(0, 4, 1, 2, 3),
-                                 self.padding, self.padding_mode)
-        b = self.bias.to(dt) if self.bias is not None else None
-        y = F.conv3d(xc, self.weight.to(dt), b, stride=self.strides)
-        return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 class GroupedConv3d(nn.Module):
@@ -339,15 +304,16 @@ _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
 class Conv(nn.Module):
     """flax nn.Conv on channels-last [N, *spatial, Cin] with 1-3 spatial
     dims: strides, kernel_dilation, feature_group_count and padding
-    "SAME" or explicit (lo, hi) pairs. Weight in torch's layout
-    [Cout, Cin/groups, *k] (flax's kernel [*k, Cin/groups, Cout]
-    transposed, ``models/interop.py``)."""
+    "SAME" or explicit (lo, hi) pairs, computed in ``dtype``. Weight in
+    torch's layout [Cout, Cin/groups, *k] (flax's kernel [*k, Cin/groups,
+    Cout] transposed, ``models/interop.py``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size,
                  strides=None, padding="SAME", kernel_dilation=None,
                  groups: int = 1, use_bias: bool = True,
                  kernel_init: Optional[Init] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         k = tuple(kernel_size)
         nd = len(k)
@@ -356,6 +322,7 @@ class Conv(nn.Module):
         self.dilation = tuple(kernel_dilation or (1,) * nd)
         self.padding = padding
         self.groups = groups
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features,
                                                in_features // groups, *k))
         (kernel_init or flax_default_init(
@@ -370,15 +337,16 @@ class Conv(nn.Module):
         return [tuple(p) for p in self.padding]
 
     def forward(self, x):
-        nd = len(self.kernel_size)
-        xc = x.movedim(-1, 1)
+        nd, dt = len(self.kernel_size), self.dtype
+        xc = x.to(dt).movedim(-1, 1)
         pad = [p for lo_hi in reversed(self._pads(x.shape[1:-1]))
                for p in lo_hi]
         if any(pad):
             xc = F.pad(xc, pad)
-        y = _CONV[nd](xc, self.weight, self.bias, stride=self.strides,
+        b = self.bias.to(dt) if self.bias is not None else None
+        y = _CONV[nd](xc, self.weight.to(dt), b, stride=self.strides,
                       dilation=self.dilation, groups=self.groups)
-        return y.movedim(1, -1)
+        return y.movedim(1, -1).contiguous()
 
 
 class ConvTranspose(nn.Module):

@@ -422,11 +422,13 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("which", ["steal", "uniad"])
 def test_train_step_on_card_matches_cpu(cuda, which):
-    """One train step on the card against the CPU: loss, parameters (as
-    FAR_SHARE says, but KEY_BIAS) and STEAL's BatchNorm statistics."""
+    """One train step on the card against the CPU: loss, the step's
+    gradients (each leaf within 1e-4 x its largest entry, but KEY_BIAS,
+    checked tiny), parameters (as FAR_SHARE says, but KEY_BIAS) and
+    STEAL's BatchNorm statistics."""
     cfg = recon_config(**_tiny(which))
     b = _batch(which, 6)
-    runs = []
+    runs, grads = [], []
     for dev in ("cpu", cuda):
         model, make_train, _ = build_recon_model(cfg, which, (16, 16))
         state = create_train_state(cfg, model, dev, steps_per_epoch=3)
@@ -435,7 +437,15 @@ def test_train_step_on_card_matches_cpu(cuda, which):
             k: torch.from_numpy(v).to(dev) for k, v in b.items()})
         runs.append((metrics["loss_sum"].item(),
                      {k: v.cpu() for k, v in model.state_dict().items()}))
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
     np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4)
+    gmax = max(g.abs().max().item() for g in grads[0].values())
+    for k, want in grads[0].items():
+        if k.endswith(KEY_BIAS):  # zero in exact arithmetic (above)
+            assert grads[1][k].abs().max().item() <= 1e-4 * gmax, k
+            continue
+        tol = 1e-4 * want.abs().max().item() + 1e-7
+        assert (grads[1][k] - want).abs().max().item() <= tol, k
     far = 0
     for k, want in runs[0][1].items():
         if k.endswith((".mean", ".var")):

@@ -94,7 +94,9 @@ def _apply(jx, module, params, x):
 
 
 def _port(module, params):
-    module.load_state_dict(flax_to_state_dict(params), strict=True)
+    module.load_state_dict(flax_to_state_dict(params,
+                                               module.state_dict()),
+                          strict=True)
     return module.eval()
 
 

@@ -110,7 +110,8 @@ def _jax_step(jx, cfg, params, b):
         loss, grads = jx.jax.jit(jx.jax.value_and_grad(loss_fn))(params)
     finally:
         runtime.set_force_pallas(False)
-    return float(loss), flax_to_state_dict(grads)
+    return float(loss), flax_to_state_dict(grads,
+                                           build_model(cfg).state_dict())
 
 
 def _rel(a, b):

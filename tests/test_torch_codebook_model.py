@@ -197,7 +197,8 @@ def test_generic_forward_matches_jax(jx, name):
     want, upd = trained
     got = model(tx, train=True, mask_extreme_loss=tm)
     compare(got, want, "train")
-    for k, w in flax_to_state_dict({"params": {}, **upd}).items():
+    for k, w in flax_to_state_dict({"params": {}, **upd},
+                                   model.state_dict()).items():
         _close(model.state_dict()[k], w, f"updated {k}", atol=1e-5)
 
 

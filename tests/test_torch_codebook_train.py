@@ -61,14 +61,15 @@ def _jax_steps(jx, cfg, model_j, variables, batches, real=False):
                                         steps_per_epoch=3)
         fresh = lambda: jx.steps.init_epoch_metrics(  # noqa: E731
             (3, T_LINE, 16, 16))
+    target = build_model(cfg).state_dict()
     out = []
     for b in batches:
         state, metrics = step(state, fresh(),
                               {k: jx.jnp.asarray(v) for k, v in b.items()})
         out.append((float(metrics["loss_sums"]["loss"]),
-                    flax_to_state_dict(state.params),
+                    flax_to_state_dict(state.params, target),
                     flax_to_state_dict({"params": {}, **(
-                        state.extra_vars or {})})))
+                        state.extra_vars or {})}, target)))
     return out
 
 

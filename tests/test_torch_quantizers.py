@@ -80,7 +80,7 @@ def _pair(jx, name, kw, x):
                            "codebook": jx.jax.random.PRNGKey(1)},
                           jx.jnp.asarray(x), train=False)
     mod = PORT[name](**kw)
-    mod.load_state_dict(flax_to_state_dict(variables))
+    mod.load_state_dict(flax_to_state_dict(variables, mod.state_dict()))
     return jmod, variables, mod
 
 
@@ -142,7 +142,7 @@ def _check(jx, name, kw, x, train, draws_from=None):
     if train:
         _close(gx if gx is not None else np.zeros_like(x), want_gx,
                f"{name} input gradient")
-        for k, w in flax_to_state_dict(want_gp).items():
+        for k, w in flax_to_state_dict(want_gp, mod.state_dict()).items():
             p = dict(mod.named_parameters())[k]
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             _close(g, w, f"{name} gradient of {k}")
@@ -425,7 +425,8 @@ def test_random_vq_matches_jax(jx, extra, train):
     out = mod(xt, train=True)
     assert not out.quantized.requires_grad and out.aux_loss.item() == 0.0
     if train:  # frozen: the collection does not move
-        for k, v in flax_to_state_dict({"params": {}, **upd}).items():
+        for k, v in flax_to_state_dict({"params": {}, **upd},
+                                       mod.state_dict()).items():
             _close(mod.state_dict()[k], v, k)
     idx = np.arange(4)
     jmod, variables, _ = _pair(jx, "Random_VQ", kw, x)

@@ -206,7 +206,7 @@ def test_anomaly_l1_gradients_with_exclusion_match_jax(jx, tree, tmp_path):
     x, mel, mex = map(torch.from_numpy, args)
     model(x, train=True, mask_extreme_loss=mel,
           mask_exclude=mex).loss_anomaly.backward()
-    want = flax_to_state_dict(want)
+    want = flax_to_state_dict(want, model.state_dict())
     for k, p in model.named_parameters():
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         np.testing.assert_allclose(g.numpy(), want[k].numpy(), rtol=1e-4,
@@ -258,7 +258,7 @@ def test_train_and_eval_steps_match_jax(jx, tree, tmp_path):
     # test-time validity leaves out sea and no-vegetation too
     assert int(e["counts"]["seen_all"]) < int(m["counts"]["seen_all"])
     got_p, want_p = dict(model.named_parameters()), flax_to_state_dict(
-        state_j.params)
+        state_j.params, model.state_dict())
     for k, w in want_p.items():
         np.testing.assert_allclose(got_p[k].detach().numpy(), w.numpy(),
                                    rtol=0.0, atol=1e-5, err_msg=k)

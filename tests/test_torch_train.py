@@ -176,7 +176,7 @@ def test_lfq_training_branch_gradients_match_jax(jx, freeze):
     lfq = LFQ(dim=d, codebook_size=2, entropy_loss_weight=0.1,
               diversity_gamma=0.1, commitment_loss_weight=3.0,
               freeze_project_out=freeze)
-    lfq.load_state_dict(flax_to_state_dict(params))
+    lfq.load_state_dict(flax_to_state_dict(params, lfq.state_dict()))
     z = torch.from_numpy(zp).requires_grad_()
     parts = lfq.quantize_packed(z, V, train=True)
     w, b = lfq.out_proj_params()
@@ -187,7 +187,7 @@ def test_lfq_training_branch_gradients_match_jax(jx, freeze):
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
     np.testing.assert_allclose(z.grad.numpy(), np.asarray(want_z),
                                rtol=1e-5, atol=1e-6)
-    want_sd = flax_to_state_dict(want_p)
+    want_sd = flax_to_state_dict(want_p, lfq.state_dict())
     for k, p in lfq.named_parameters():
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         np.testing.assert_allclose(g.numpy(), want_sd[k].numpy(), rtol=1e-5,
@@ -241,14 +241,15 @@ def test_optimizer_steps_match_optax(jx, mamba_params, opt, groups):
     state = create_train_state(cfg, model, "cpu", steps_per_epoch=3)
     named = dict(model.named_parameters())
     for g in grads:
-        for k, t in flax_to_state_dict(g).items():
+        for k, t in flax_to_state_dict(g, named).items():
             named[k].grad = t
         state.apply_gradients()
     assert state.step == 2
     # atol 1e-4 x lr: optax takes Adam's bias corrections 1 - beta^t in
     # float32, where 1 - 0.999^2 cancels to a relative 3e-5
-    _close_trees(dict(model.named_parameters()), flax_to_state_dict(p),
-                 rtol=1e-6, atol=1e-4 * cfg.lr, what=f"{opt} groups={groups}")
+    _close_trees(dict(model.named_parameters()),
+                 flax_to_state_dict(p, model.state_dict()), rtol=1e-6,
+                 atol=1e-4 * cfg.lr, what=f"{opt} groups={groups}")
     n_groups = len(param_groups(model, cfg))
     assert n_groups == (2 if groups else 1)
 
@@ -329,11 +330,11 @@ def test_train_step_trajectory_matches_jax(jx, encoder, seed):
         got_losses.append(metrics["loss_sums"]["loss"].item())
         if i == 0:
             _close_trees({k: p.grad for k, p in model.named_parameters()},
-                         flax_to_state_dict(want_grads), rtol=1e-4,
-                         atol=1e-6, what="step-1 gradients")
+                         flax_to_state_dict(want_grads, model.state_dict()),
+                         rtol=1e-4, atol=1e-6, what="step-1 gradients")
     np.testing.assert_allclose(got_losses, want_losses, rtol=1e-4)
     got_params = dict(model.named_parameters())
-    want_params = flax_to_state_dict(want_params)
+    want_params = flax_to_state_dict(want_params, model.state_dict())
     if encoder == "Swin_3D":
         # the attention's key bias has a zero gradient in exact arithmetic
         # (it adds one constant to a whole row of scores, which softmax
@@ -341,7 +342,8 @@ def test_train_step_trajectory_matches_jax(jx, encoder, seed):
         # to lr-sized steps of random sign. Checked tiny, then left out.
         for k in [k for k in want_params if k.endswith("attn.qkv.bias")]:
             C = want_params[k].shape[1] // 3
-            key_grad = flax_to_state_dict(want_grads)[k][:, C:2 * C]
+            key_grad = flax_to_state_dict(
+                want_grads, model.state_dict())[k][:, C:2 * C]
             assert key_grad.abs().max() < 1e-6, k
             keep = torch.ones(3 * C, dtype=torch.bool)
             keep[C:2 * C] = False
