@@ -112,7 +112,26 @@ Phases, each printing one JSON line:
                  variants); train steps/s, peak memory, a profile of 3
                  train steps; RTFM over Mamba and DeepMIL over Swin_3D
                  also one step's gradients against the plain op
- 16. kernels     one line listing every kernel: route, source, launches by
+ 16. synthetic_netcdf
+                 the reference's synthetic directory schema: a
+                 make_fake_cube at the bench width over 104 weeks (two
+                 years: the weekly climatology has two samples per week),
+                 written as NetCDF3 by data/fake.py::write_synthetic_netcdf
+                 into a directory with no .npz; cli/convert_synthetic.py on
+                 a copy, the cube read from the tree against the one read
+                 from the .npz bit for bit; then train_synthetic with Mamba
+                 for 1 epoch from root_synthetic (SyntheticDataset's NetCDF
+                 branch, the config's weekly-climatology scaling), launches
+                 counted; the host seconds to read the tree
+ 17. accuracy, accuracy_zoo
+                 cli/train_benchmark_accuracy.py in-process: Mamba at
+                 BASELINE.md's 48x48 geometry (batch 8, bf16, the stable
+                 recipe) on a 4-year make_benchmark_cube for 3 epochs,
+                 writing a --cube_npz cache that must equal the generated
+                 cube; exact launches, both best F1 (finite or null, no
+                 threshold), epochs/s; then cli/train_baselines_zoo.py with
+                 STEAL and DeepMIL for 1 epoch (no kernel)
+ 18. kernels     one line listing every kernel: route, source, launches by
                  path, error and times
 Each "profile" line gives a path's device ms per step by operator and by
 kind of kernel (disjoint: cuDNN wgrad, dgrad, other GEMMs and implicit
@@ -1627,11 +1646,46 @@ def baseline_launches_per_step(family: str, encoder):
     return {}, {}
 
 
-def mil_step_gradients(cfg, variant, params, batch, plain: bool):
+@contextlib.contextmanager
+def pinned_topk(selections, pin: bool):
+    """The MIL losses' masked_topk recording each call's selection into
+    ``selections`` or, with ``pin``, taking the recorded ones in call order
+    (the same entries gathered, so the same gradient paths) and counting
+    the calls whose own selection differs. Yields that count's list."""
+    import idee_tpu_torch.baselines.mil.losses as mil_losses
+
+    topk, calls, flips = mil_losses.masked_topk, [0], []
+
+    def select(values, mask, k):
+        top, idx, valid = topk(values, mask, k)
+        if not pin:
+            selections.append(idx)
+            return top, idx, valid
+        pinned = selections[calls[0]]
+        calls[0] += 1
+        if not torch.equal(idx, pinned):
+            flips.append(calls[0])
+        m = mask.reshape(mask.shape + (1,) * (values.dim() - 1))
+        filled = torch.where(m, values, torch.full(
+            (), mil_losses._FILL, dtype=values.dtype, device=values.device))
+        top = torch.gather(filled, 0, pinned)
+        return top, pinned, top > mil_losses._FILL + 0.5
+
+    mil_losses.masked_topk = select
+    try:
+        yield flips
+    finally:
+        mil_losses.masked_topk = topk
+
+
+def mil_step_gradients(cfg, variant, params, batch, plain: bool,
+                       selections):
     """One MIL training forward and backward from ``params``, with the
-    kernels or (plain) autograd through the plain op; dropout, drop path
-    and instance drop from one seeded generator, the same draws either
-    way. Returns ({name: grad}, loss)."""
+    kernels (recording each top-k selection into ``selections``) or
+    (plain) autograd through the plain op on those selections; dropout,
+    drop path and instance drop from one seeded generator, the same draws
+    either way. Returns ({name: grad}, loss, the plain run's calls whose
+    own top-k differs)."""
     from idee_tpu_torch.baselines.mil.driver import mil_total_loss
     from idee_tpu_torch.baselines.mil.models import build_mil_model
 
@@ -1639,29 +1693,38 @@ def mil_step_gradients(cfg, variant, params, batch, plain: bool):
     model.load_state_dict(params)
     model.to("cuda").train()
     g = torch.Generator(device="cuda").manual_seed(0)
-    with plain_ops(cfg.encoder) if plain else contextlib.nullcontext():
+    with plain_ops(cfg.encoder) if plain else contextlib.nullcontext(), \
+            pinned_topk(selections, pin=plain) as flips:
         out = model(batch["x"], train=True, generator=g)
         loss = mil_total_loss(cfg, variant, out, batch["mask_extreme_loss"],
                               True, g)
         loss.backward()
     torch.cuda.synchronize()
-    return {k: p.grad for k, p in model.named_parameters()}, loss.item()
+    return ({k: p.grad for k, p in model.named_parameters()}, loss.item(),
+            flips)
 
 
 def compare_mil_gradients(cfg, variant, params, batch, what: str):
     """The step gradients with the kernels against the plain op's
-    (hold_gradients at STEP_GRAD_REL). The agent's rel-pos table has a
-    zero gradient in exact arithmetic: it adds one constant to all of a
-    query's scores, which softmax ignores."""
-    got, loss_k = mil_step_gradients(cfg, variant, params, batch, False)
-    want, loss_p = mil_step_gradients(cfg, variant, params, batch, True)
+    (hold_gradients at STEP_GRAD_REL), the plain run on the kernel run's
+    top-k selections: a score within float noise of the k-th can change
+    places between the two, which moves a whole instance's gradient and
+    says nothing of the kernels (the line counts such calls). The agent's
+    rel-pos table has a zero gradient in exact arithmetic: it adds one
+    constant to all of a query's scores, which softmax ignores."""
+    selections = []
+    got, loss_k, _ = mil_step_gradients(cfg, variant, params, batch, False,
+                                        selections)
+    want, loss_p, flips = mil_step_gradients(cfg, variant, params, batch,
+                                             True, selections)
     zero = [k for k in want if k.startswith("agent.")
             and k.endswith("relative_position_bias_table")]
     worst = hold_gradients(got, want, STEP_GRAD_REL, what, zero)
     emit(phase="train_gradients", path=what, encoder=cfg.encoder,
          variant=variant, parameters=len(want), loss_kernels=loss_k,
          loss_plain=loss_p, max_err_over_max_abs_grad=worst,
-         limit=STEP_GRAD_REL, zero_in_exact_arithmetic=zero)
+         limit=STEP_GRAD_REL, zero_in_exact_arithmetic=zero,
+         topk_calls=len(selections), topk_calls_reordered=len(flips))
 
 
 def phase_baseline(cube, phase, family, which, encoder, test: bool,
@@ -1776,6 +1839,298 @@ def phase_baselines(cube):
     for args in BASELINE_PHASES:
         paths.update(phase_baseline(cube, *args))
     return paths
+
+
+# ------------------------------------------------------------------
+# the synthetic benchmark path: the reference's NetCDF schema, the
+# benchmark cube and the accuracy drivers
+
+# two years, so that each week of the climatology holds two samples (with
+# one the climatology-scaled inputs are all 0), at the bench width
+NC_WEEKS, NC_HW = 104, 200
+
+
+def _scratch(prefix: str) -> str:
+    """A new directory under the checkout's git-ignored build/."""
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=os.path.join(REPO, "build"))
+
+
+def _same_synthetic_cube(got, want, what, masks_by_value=False):
+    """Every field bit for bit (the masks by value only with
+    ``masks_by_value``: a NetCDF3 tree stores them as signed bytes, the
+    .npz as unsigned)."""
+    for k in ("dynamic", "anomaly", "extreme", "static", "clima_median",
+              "clima_std"):
+        a, b = getattr(got, k), getattr(want, k)
+        by_value = masks_by_value and k in ("anomaly", "extreme")
+        if not (np.array_equal(a, b) and (by_value or a.dtype == b.dtype)):
+            err = (np.abs(a.astype(np.float64) - b).max()
+                   if a.shape == b.shape else None)
+            raise SystemExit(f"{what}: {k} differs: {a.dtype} {a.shape} "
+                             f"against {b.dtype} {b.shape}, max abs {err}")
+    if got.stats != want.stats:
+        raise SystemExit(f"{what}: stats differ")
+
+
+def phase_synthetic_netcdf():
+    """A make_fake_cube at the bench width (6 variables, 200x200) over
+    NC_WEEKS weeks, written in the reference's directory schema as NetCDF3
+    (data/fake.py::write_synthetic_netcdf) into a directory with no .npz;
+    cli/convert_synthetic.py on a copy; the cube read from the NetCDF tree
+    (load_cube_netcdf) against the one read from the .npz, bit for bit;
+    then train_synthetic with Mamba for 1 epoch from root_synthetic (the
+    NetCDF branch) with the config's own weekly-climatology scaling,
+    launches counted. Returns its launches."""
+    from idee_tpu_torch.cli.convert_synthetic import main as convert
+    from idee_tpu_torch.config import synthetic_config
+    from idee_tpu_torch.data.fake import (make_fake_cube,
+                                          write_synthetic_netcdf)
+    from idee_tpu_torch.data.synthetic import (SyntheticDataset,
+                                               cube_npz_path,
+                                               load_cube_netcdf,
+                                               load_cube_npz)
+    from idee_tpu_torch.train.driver import train_synthetic
+
+    base = _scratch("chip_smoke_synthetic_")
+    try:
+        root = os.path.join(base, "nc", "synthetic_bench")
+        copy = os.path.join(base, "npz", "synthetic_bench")
+        t0 = time.perf_counter()
+        write_synthetic_netcdf(root, make_fake_cube(
+            n_vars=6, n_time=NC_WEEKS, height=NC_HW, width=NC_HW, seed=0))
+        write_s = time.perf_counter() - t0
+        tree_bytes = sum(os.path.getsize(os.path.join(root, f))
+                         for f in os.listdir(root))
+        shutil.copytree(root, copy)
+        t0 = time.perf_counter()
+        convert(["--root", copy])
+        convert_s = time.perf_counter() - t0
+
+        cfg = synthetic_config(
+            encoder="Mamba", x_max=NC_HW, y_max=NC_HW, times_train=TRAIN_WEEKS,
+            times_val=VAL_WEEKS, n_epochs=1, is_aug=False, batch_size=1,
+            root_synthetic=root, dir_log=LOG_DIR,
+            name="chip_smoke_synthetic_netcdf")
+        if not cfg.is_clima_scale:
+            raise SystemExit("the config default is not climatology scaling")
+        window = (list(cfg.variables), list(cfg.variables_static),
+                  (1, NC_WEEKS), 0, NC_HW, 0, NC_HW)
+        t0 = time.perf_counter()
+        from_nc = load_cube_netcdf(root, *window, need_stats=True,
+                                   need_clima=True)
+        read_s = time.perf_counter() - t0
+        _same_synthetic_cube(from_nc, load_cube_npz(cube_npz_path(copy),
+                                                    *window),
+                             "synthetic_netcdf: NetCDF tree vs .npz",
+                             masks_by_value=True)
+        if os.path.exists(cube_npz_path(root)):
+            raise SystemExit("synthetic_netcdf: the tree holds a .npz")
+        # the host's read of the tree as the training set reads it
+        t0 = time.perf_counter()
+        ds = SyntheticDataset(
+            root_datacube=root, times=cfg.times_train,
+            variables=list(cfg.variables),
+            variables_static=list(cfg.variables_static),
+            delta_t=cfg.delta_t, is_clima_scale=True, x_max=NC_HW,
+            y_max=NC_HW)
+        dataset_read_s = time.perf_counter() - t0
+        x_std = float(ds.datacube_dynamic.std())
+        if not (np.isfinite(ds.datacube_dynamic).all() and x_std > 0.1):
+            raise SystemExit(f"synthetic_netcdf: climatology-scaled inputs "
+                             f"std {x_std}")
+        del ds, from_nc
+
+        n_train = TRAIN_WEEKS[1] - TRAIN_WEEKS[0] + 1 - cfg.delta_t + 1
+        n_val = VAL_WEEKS[1] - VAL_WEEKS[0] + 1 - cfg.delta_t + 1
+        shutil.rmtree(cfg.log_dir, ignore_errors=True)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        history = train_synthetic(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    trn = kernel_launches_per_step("Mamba", train=True)
+    val = kernel_launches_per_step("Mamba", train=False)
+    expect_launches(launches, {
+        k: trn.get(k, 0) * n_train + val.get(k, 0) * n_val
+        for k in set(trn) | set(val)}, "synthetic_netcdf")
+    curves = history["train_loss"] + history["val_loss"]
+    if len(curves) != 2 or not all(map(math.isfinite, curves)):
+        raise SystemExit(f"synthetic_netcdf: bad history {history}")
+    emit(phase="synthetic_netcdf", encoder=cfg.encoder,
+         shape=[1, 6, 1, 8, NC_HW, NC_HW], weeks=NC_WEEKS,
+         is_clima_scale=cfg.is_clima_scale, tree_bytes=tree_bytes,
+         write_s=write_s, convert_s=convert_s,
+         host_s_read_tree=read_s, host_s_read_train_set=dataset_read_s,
+         clima_scaled_x_std=x_std, train_steps=n_train, val_steps=n_val,
+         launches=launches, wall_s_with_setup=wall_s,
+         train_steps_per_s=history["steps_per_sec"][0],
+         history={k: v for k, v in history.items() if k != "state"})
+    return launches
+
+
+def latent_health(cfg, weights: str, train_cube, n_batches: int = 4):
+    """The weights at ``weights`` on the first ``n_batches`` batches of
+    ``train_cube`` (no augmentation), forward with train=True under
+    no_grad, as a train step sees them: the packed LFQ's latent s before
+    the sign (max |s|, share of +1 codes), the encoder output's max |x|,
+    |w_out| of the frozen project_out, and each term of
+    total_loss_synthetic averaged over the batches (None where not
+    finite), with the commitment term mean((s - q)^2) that the stable
+    recipe weights by 0."""
+    from idee_tpu_torch import losses
+    from idee_tpu_torch.data.loader import DataLoader
+    from idee_tpu_torch.models.vq_model import build_model, compute_dtype
+    from idee_tpu_torch.train.checkpoint import load_pretrained_weights
+    from idee_tpu_torch.train.driver import _make_datasets
+
+    cfg = cfg.replace(is_aug=False)
+    model = build_model(cfg)
+    model.load_state_dict(load_pretrained_weights(cfg, weights))
+    model.to("cuda").train()
+    seen = {}
+    core = model.vq._scalar_core
+
+    def record_s(s_lat, train):
+        seen.setdefault("s", []).append(s_lat.detach().float())
+        return core(s_lat, train)
+
+    model.vq._scalar_core = record_s
+    hook = model.encoder.register_forward_hook(
+        lambda mod, inp, out: seen.setdefault("enc", []).append(
+            out.detach().float().abs().amax()))
+    train_ds, _ = _make_datasets(cfg, train_cube, train_cube)
+    loader = DataLoader(train_ds, cfg.batch_size, device="cuda",
+                        keys=["x", "mask_extreme", "mask_extreme_loss"],
+                        x_dtype=compute_dtype(cfg))
+    terms = {}
+    with torch.no_grad():
+        for i, batch in enumerate(loader):
+            if i == n_batches:
+                break
+            out = model(batch["x"], train=True,
+                        mask_extreme_loss=batch["mask_extreme_loss"])
+            _, comps = losses.total_loss_synthetic(
+                out, batch["mask_extreme"], batch["mask_extreme_loss"],
+                cfg.lambda_anomaly)
+            for k, v in comps.items():
+                terms.setdefault(k, []).append(float(v))
+    hook.remove()
+    s_all = torch.cat([t.reshape(-1) for t in seen.get("s", [])]) \
+        if "s" in seen else None
+    mean = {k: float(np.mean(v)) for k, v in terms.items()}
+    health = {
+        "weights": os.path.basename(weights), "batches": n_batches,
+        "loss_terms": {k: (v if math.isfinite(v) else None)
+                       for k, v in mean.items()},
+        "encoder_max_abs": max(float(e) for e in seen["enc"]),
+        "w_out_norm": float(model.vq.out_proj_params()[0].norm())
+        if hasattr(model.vq, "out_proj_params") else None,
+    }
+    if s_all is not None:
+        q = torch.where(s_all > 0, 1.0, -1.0)
+        health.update(
+            s_max_abs=float(s_all.abs().max()),
+            s_median_abs=float(s_all.abs().median()),
+            plus_code_share=float((s_all > 0).float().mean()),
+            commitment_term=float(((s_all - q) ** 2).mean()))
+    return health
+
+
+# BASELINE.md's 48x48 accuracy geometry, cut to 4 years and 3 epochs
+ACC_FLAGS = ["--encoder", "Mamba", "--hw", "48", "--batch", "8", "--years",
+             "4", "--epochs", "3", "--seed", "0"]
+
+
+def phase_accuracy():
+    """cli/train_benchmark_accuracy.py in-process with ACC_FLAGS at bf16,
+    writing a --cube_npz cache, launches counted; the cache against a cube
+    generated here; then cli/train_baselines_zoo.py with STEAL and DeepMIL
+    for 1 epoch (accuracy_zoo; no kernel: DeepMIL over CNN_3D). Returns
+    the launches of both."""
+    from idee_tpu_torch.cli import train_baselines_zoo as zoo
+    from idee_tpu_torch.cli import train_benchmark_accuracy as acc
+    from idee_tpu_torch.data.fake import load_cube_npz
+
+    base = _scratch("chip_smoke_accuracy_")
+    cache = os.path.join(base, "cube.npz")
+    flags = ACC_FLAGS + ["--cube_npz", cache, "--dir_log", base,
+                         "--out", os.path.join(base, "acc.json")]
+    args = acc.parse_args(flags)
+    n_time, t_train = acc.split_weeks(args.years)
+    try:
+        t0 = time.perf_counter()
+        # the CLI's own generator and density, without the cache
+        cube = acc.benchmark_cube(acc.parse_args(ACC_FLAGS))
+        generate_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        payload = acc.main(flags + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {"accuracy": read_launches()}
+        _same_synthetic_cube(load_cube_npz(cache), cube,
+                             "accuracy: the cube cache")
+        cfg = acc.build_config(args)
+        health = latent_health(cfg, os.path.join(
+            cfg.log_dir, "model_checkpoints", "latest.pt"),
+            cube.time_slice(1, t_train))
+
+        zoo_out = os.path.join(base, "zoo.json")
+        zero_launches()
+        t0 = time.perf_counter()
+        zoo_rows = zoo.main(["--which", "steal,deepmil", "--hw",
+                             str(args.hw), "--years", str(args.years),
+                             "--epochs", "1", "--dir_log", base, "--out",
+                             zoo_out, "--device", "cuda"])
+        torch.cuda.synchronize()
+        zoo_wall_s = time.perf_counter() - t0
+        launches["accuracy_zoo"] = read_launches()
+        with open(zoo_out) as fh:
+            written = json.load(fh)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    # windows of delta_t weeks, partial batches dropped
+    batch, dt = args.batch, cfg.delta_t
+    n_train = (t_train - dt + 1) // batch
+    n_val = (n_time - t_train - dt + 1) // batch
+    trn = kernel_launches_per_step("Mamba", train=True)
+    val = kernel_launches_per_step("Mamba", train=False)
+    expect_launches(launches["accuracy"], {
+        k: args.epochs * (trn.get(k, 0) * n_train + val.get(k, 0) * n_val)
+        for k in set(trn) | set(val)}, "accuracy")
+    history = payload["history"]
+    if not all(map(math.isfinite, history["train_loss"]
+                   + history["val_loss"])):
+        raise SystemExit(f"accuracy: bad history {history}")
+    for key in ("best_val_f1", "best_val_anom_f1"):
+        v = payload[key]
+        if v is not None and not (math.isfinite(v) and 0 <= v <= 1):
+            raise SystemExit(f"accuracy: {key} {v}")
+    emit(phase="accuracy", flags=ACC_FLAGS, dtype="bfloat16",
+         shape=[batch, 6, 1, 8, args.hw, args.hw], train_steps=n_train,
+         val_steps=n_val, launches=launches["accuracy"],
+         cube_generate_s=generate_s, wall_s_with_setup=wall_s,
+         epochs_per_s=args.epochs / wall_s,
+         best_val_f1=payload["best_val_f1"],
+         best_val_anom_f1=payload["best_val_anom_f1"], history=history,
+         latent_health=health)
+
+    expect_launches(launches["accuracy_zoo"], {}, "accuracy_zoo")
+    if [r["baseline"] for r in written] != ["steal", "deepmil"] or not all(
+            math.isfinite(r["final_val_loss"]) for r in zoo_rows):
+        raise SystemExit(f"accuracy_zoo: {written}")
+    emit(phase="accuracy_zoo", baselines=[
+        {k: r[k] for k in ("baseline", "best_val_anom_f1", "final_val_loss",
+                           "steps_per_sec", "secs")} for r in zoo_rows],
+         launches=launches["accuracy_zoo"], wall_s_with_setup=zoo_wall_s)
+    return launches
 
 
 # the reference's CERRA Europe crop (dataset/CERRA_dataset.py:100-101),
@@ -2093,6 +2448,8 @@ def main() -> int:
     paths.update(phase_bf16(cube))
     paths.update(phase_baselines(cube))
     del cube
+    paths["synthetic_netcdf"] = phase_synthetic_netcdf()
+    paths.update(phase_accuracy())
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     cerra_root = tempfile.mkdtemp(prefix="chip_smoke_cerra_",
                                   dir=os.path.join(REPO, "build"))

@@ -24,7 +24,12 @@ metrics as evaluation). It runs in cfg.dtype, like training.
 
     python -m idee_tpu_torch.cli.predict_synthetic --run_dir log/exp1 \
         [--checkpoint best_F1_model] [--times "(2081,2132)"] \
-        [--root_synthetic <dir>] [--out predictions.npz] [--device cpu]
+        [--root_synthetic <dir> | --cube_npz <cache>] \
+        [--out predictions.npz] [--device cpu]
+
+``--cube_npz`` reads a run trained on an in-memory cube from the cube
+cache of cli/train_benchmark_accuracy.py (data/fake.py::save_cube_npz)
+and slices it to times_test.
 """
 # ------------------------------------------------------------------
 
@@ -38,6 +43,7 @@ import torch
 
 from idee_tpu_torch import resolve_device
 from idee_tpu_torch.config import Config, load_config
+from idee_tpu_torch.data.fake import load_cube_npz
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.synthetic import SyntheticCube, SyntheticDataset
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
@@ -130,6 +136,10 @@ def main(argv=None):
     ap.add_argument("--times", default=None,
                     help='override times_test, e.g. "(2081,2132)"')
     ap.add_argument("--root_synthetic", default=None)
+    ap.add_argument("--cube_npz", default=None,
+                    help="generated-cube cache (train_benchmark_accuracy's "
+                    "--cube_npz) for runs trained on in-memory cubes; "
+                    "sliced to times_test here")
     ap.add_argument("--batch_size", type=int, default=None)
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default=None)
@@ -146,11 +156,14 @@ def main(argv=None):
     if args.batch_size:
         over["batch_size"] = args.batch_size
     cfg = load_config(snap).replace(**over)
+    cube = None
+    if args.cube_npz:
+        cube = load_cube_npz(args.cube_npz).time_slice(*cfg.times_test)
 
     ckpt = os.path.join(args.run_dir, "model_checkpoints",
                         f"{args.checkpoint}.pt")
     out = args.out or os.path.join(args.run_dir, "predictions.npz")
-    return predict_synthetic(cfg, ckpt, out, device=args.device)
+    return predict_synthetic(cfg, ckpt, out, cube=cube, device=args.device)
 
 
 if __name__ == "__main__":

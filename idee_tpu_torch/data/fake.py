@@ -6,6 +6,12 @@ same arrays from the same seed).
 * make_fake_cube: a synthetic datacube with the statistic/climatology
   schema of the real synthetic dataset, per-variable seasonal background
   plus planted anomaly blobs that precede extreme events;
+* make_benchmark_cube: the accuracy benchmark's cube, causal
+  anomaly-to-extreme structure with distractors; save_cube_npz /
+  load_cube_npz cache a whole cube (the JAX package's format, so either
+  package reads the other's file);
+* write_synthetic_netcdf: a cube in the reference's directory schema
+  (datacube / statistic / climatology), as NetCDF3;
 * write_fake_reanalysis, write_structured_reanalysis: CERRA / ERA5-Land
   directory trees. The JAX package writes them as NetCDF4 through h5py;
   these write NetCDF3 (64-bit offset) through scipy, so they need no h5py,
@@ -20,6 +26,39 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from idee_tpu_torch.data.synthetic import SyntheticCube, cube_npz_path
+
+
+def _with_statistics(dynamic, anomaly, extreme, variables, static,
+                     variables_static) -> SyntheticCube:
+    """The cube with the statistic / climatology schema of the reference's
+    dataset: per-variable global stats, and the weekly pixel-wise median
+    and std (+ 0.01) grouped by week of year (global ones for a week the
+    cube does not reach)."""
+    stats = {
+        v: {
+            "min": float(dynamic[i].min()),
+            "max": float(dynamic[i].max()),
+            "mean": float(dynamic[i].mean()),
+            "median": float(np.median(dynamic[i])),
+            "std": float(dynamic[i].std()),
+        }
+        for i, v in enumerate(variables)
+    }
+    n_vars, n_time, height, width = dynamic.shape
+    wk = np.arange(n_time) % 52
+    clima_median = np.zeros((n_vars, 52, height, width), np.float32)
+    clima_std = np.ones((n_vars, 52, height, width), np.float32)
+    for w in range(52):
+        sel = dynamic[:, wk == w]
+        if sel.shape[1] == 0:
+            sel = dynamic
+        clima_median[:, w] = np.median(sel, axis=1)
+        clima_std[:, w] = sel.std(axis=1) + 1e-2
+    return SyntheticCube(
+        dynamic=dynamic, anomaly=anomaly, extreme=extreme,
+        variables=variables, static=static,
+        variables_static=variables_static, stats=stats,
+        clima_median=clima_median, clima_std=clima_std)
 
 
 def make_fake_cube(
@@ -77,34 +116,8 @@ def make_fake_cube(
         f"static_{i}" for i in range(max(0, n_static - 2))
     ]
 
-    stats = {
-        v: {
-            "min": float(dynamic[i].min()),
-            "max": float(dynamic[i].max()),
-            "mean": float(dynamic[i].mean()),
-            "median": float(np.median(dynamic[i])),
-            "std": float(dynamic[i].std()),
-        }
-        for i, v in enumerate(variables)
-    }
-
-    # weekly pixel-wise climatology (grouped by week-of-year; robust to
-    # n_time < 52)
-    wk = (np.arange(n_time) % 52)
-    clima_median = np.zeros((n_vars, 52, height, width), np.float32)
-    clima_std = np.ones((n_vars, 52, height, width), np.float32)
-    for w in range(52):
-        sel = dynamic[:, wk == w]
-        if sel.shape[1] == 0:
-            sel = dynamic  # fallback: global stats for unseen weeks
-        clima_median[:, w] = np.median(sel, axis=1)
-        clima_std[:, w] = sel.std(axis=1) + 1e-2
-
-    return SyntheticCube(
-        dynamic=dynamic, anomaly=anomaly, extreme=extreme,
-        variables=variables, static=static, variables_static=svars,
-        stats=stats, clima_median=clima_median, clima_std=clima_std,
-    )
+    return _with_statistics(dynamic, anomaly, extreme, variables, static,
+                            svars)
 
 
 def write_cube_npz(root: str, cube: SyntheticCube,
@@ -127,6 +140,188 @@ def write_cube_npz(root: str, cube: SyntheticCube,
              timestep=np.arange(t0, t0 + T, dtype=np.float32),
              stats=np.array(json.dumps(cube.stats)), **extras)
     return path
+
+
+def make_benchmark_cube(
+    n_vars: int = 6,
+    n_time: int = 2080,
+    height: int = 200,
+    width: int = 200,
+    n_static: int = 2,
+    seed: int = 0,
+    events_per_year: float = 8.0,
+    distractors_per_year: float = 10.0,
+    mag_lo: float = 2.0,
+    mag_hi: float = 3.5,
+    variables: Optional[List[str]] = None,
+) -> SyntheticCube:
+    """The accuracy benchmark's cube: the structure the reference model
+    class is built to exploit (dataset/Synthetic_dataset.py and the
+    training objective, models/losses.py:127-168), in place of the
+    reference's 46 GB synthetic dataset:
+
+    * per-variable weekly seasonal cycle with smooth spatial amplitude and
+      phase fields, plus AR(1)-in-time spatially correlated noise;
+    * "events": spatio-temporal ellipsoids where a random majority of the
+      variables turn anomalous (signed 2-3.5 sigma shifts), each
+      variable's anomaly leading the extreme by 0-3 weeks, within the
+      delta_t=8 window;
+    * the extreme mask is the event's spatial core for its duration;
+    * single-variable distractor anomalies with no extreme, so the
+      anomaly-extreme coupling (not mere deviation) must be learned.
+
+    The anomaly masks mark exactly the planted anomalous regions, the
+    extreme masks the cores.
+    """
+    rng = np.random.default_rng(seed)
+    variables = variables or [f"var_{i + 1:02d}" for i in range(n_vars)]
+
+    week = (np.arange(n_time) % 52).astype(np.float32)
+
+    dynamic = np.empty((n_vars, n_time, height, width), np.float32)
+    for v in range(n_vars):
+        amp = 0.5 + 0.5 * np.abs(_smooth_field(rng, height, width, 30))
+        phase = 0.8 * _smooth_field(rng, height, width, 30)
+        dynamic[v] = amp[None] * np.sin(
+            2 * np.pi * week[:, None, None] / 52.0 + phase[None])
+    # AR(1) noise with spatially correlated innovations
+    rho, sigma = 0.65, 0.55
+    state = np.zeros((n_vars, height, width), np.float32)
+    scale = sigma * np.sqrt(1.0 - rho * rho)
+    for t in range(n_time):
+        innov = np.stack([_smooth_field(rng, height, width, 6)
+                          for _ in range(n_vars)])
+        state = rho * state + scale * innov
+        dynamic[:, t] += state
+
+    anomaly = np.zeros((n_vars, n_time, height, width), np.uint8)
+    extreme = np.zeros((n_time, height, width), np.uint8)
+    need = max(2, n_vars // 2)
+
+    yy = np.arange(height, dtype=np.float32)
+    xx = np.arange(width, dtype=np.float32)
+
+    def ellipse(cy, cx, ry, rx, theta):
+        dy = yy[:, None] - cy
+        dx = xx[None, :] - cx
+        c, s = np.cos(theta), np.sin(theta)
+        u = (c * dx + s * dy) / rx
+        v_ = (-s * dx + c * dy) / ry
+        return u * u + v_ * v_  # r^2 field
+
+    def plant(vars_hit, t0, dur, cy, cx, ry, rx, theta, is_event):
+        r2 = ellipse(cy, cx, ry, rx, theta)
+        core = r2 <= 1.0
+        halo = r2 <= 1.69  # anomalies spread ~30% beyond the extreme core
+        if not halo.any():
+            return
+        shape = np.clip(1.0 - 0.3 * r2, 0.0, None) * halo
+        for v in vars_hit:
+            mag = float(rng.uniform(mag_lo, mag_hi)) * (
+                1 if rng.random() < 0.5 else -1)
+            lead = int(rng.integers(0, 4)) if is_event else 0
+            lo = max(0, t0 - lead)
+            hi = min(n_time, t0 + dur)
+            if hi <= lo:
+                continue
+            dynamic[v, lo:hi] += mag * shape[None]
+            anomaly[v, lo:hi] |= halo[None]
+        if is_event:
+            hi = min(n_time, t0 + dur)
+            if hi > t0:
+                extreme[t0:hi] |= core[None]
+
+    def place():
+        return dict(dur=int(rng.integers(2, 7)),
+                    cy=float(rng.uniform(10, height - 10)),
+                    cx=float(rng.uniform(10, width - 10)),
+                    ry=float(rng.uniform(6, 20)), rx=float(rng.uniform(6, 20)),
+                    theta=float(rng.uniform(0, np.pi)))
+
+    for _ in range(int(events_per_year * n_time / 52.0)):
+        m = int(rng.integers(need, n_vars + 1))
+        hit = rng.choice(n_vars, size=m, replace=False)
+        plant(hit, t0=int(rng.integers(4, n_time - 2)), **place(),
+              is_event=True)
+    for _ in range(int(distractors_per_year * n_time / 52.0)):
+        hit = [int(rng.integers(n_vars))]
+        plant(hit, t0=int(rng.integers(0, n_time - 2)), **place(),
+              is_event=False)
+
+    static = np.stack([_smooth_field(rng, height, width, 25)
+                       for _ in range(n_static)])
+    svars = ["latitude", "longitude"][:n_static] + [
+        f"static_{i}" for i in range(max(0, n_static - 2))]
+
+    return _with_statistics(dynamic, anomaly, extreme, variables, static,
+                            svars)
+
+
+def save_cube_npz(path: str, cube: SyntheticCube) -> None:
+    """Cache a whole generated cube at ``path`` (the cube is deterministic
+    in its seed; at 200x200 over 40 years it takes minutes to generate
+    and seconds to load). Stats go in as a JSON string, so the file loads
+    with ``allow_pickle=False``."""
+    extras = {}
+    if cube.static is not None:
+        extras["static"] = cube.static
+        extras["variables_static"] = np.array(cube.variables_static)
+    np.savez(path, dynamic=cube.dynamic, anomaly=cube.anomaly,
+             extreme=cube.extreme, variables=np.array(cube.variables),
+             stats=np.array(json.dumps(cube.stats)),
+             clima_median=cube.clima_median, clima_std=cube.clima_std,
+             **extras)
+
+
+def load_cube_npz(path: str) -> SyntheticCube:
+    """The cube that save_cube_npz wrote."""
+    z = np.load(path, allow_pickle=False)
+    return SyntheticCube(
+        dynamic=z["dynamic"], anomaly=z["anomaly"], extreme=z["extreme"],
+        variables=[str(v) for v in z["variables"]],
+        static=z["static"] if "static" in z else None,
+        variables_static=([str(v) for v in z["variables_static"]]
+                          if "variables_static" in z else []),
+        stats=json.loads(str(z["stats"])),
+        clima_median=z["clima_median"], clima_std=z["clima_std"])
+
+
+def write_synthetic_netcdf(root: str, cube: SyntheticCube) -> None:
+    """Write ``cube`` in the reference's directory schema under ``root``
+    (exp = basename(root)): datacube_<exp>.nc with the coordinates time
+    (1..T) and var, one [time, y, x] variable per dynamic variable,
+    anomaly_extreme [var, time, y, x] (xarray's order), extreme and the
+    [y, x] static layers; statistic_<exp>.json as {stat: {var: value}};
+    climatology_<exp>.nc with the coordinate climatology (median, std)
+    and one [climatology, week, y, x] variable per dynamic variable.
+    NetCDF3, so the masks are stored as signed bytes (NetCDF3 has no
+    unsigned byte)."""
+    os.makedirs(root, exist_ok=True)
+    exp = os.path.basename(os.path.normpath(root))
+    T = cube.dynamic.shape[1]
+    TYX = ("time",) + YX
+
+    datacube = {"time": (("time",), np.arange(1, T + 1, dtype=np.float64)),
+                "var": (("var",), np.array(cube.variables))}
+    for i, v in enumerate(cube.variables):
+        datacube[v] = (TYX, cube.dynamic[i])
+    datacube["anomaly_extreme"] = (("var",) + TYX,
+                                   cube.anomaly.astype(np.int8))
+    datacube["extreme"] = (TYX, cube.extreme.astype(np.int8))
+    if cube.static is not None:
+        for i, v in enumerate(cube.variables_static):
+            datacube[v] = (YX, cube.static[i])
+    _write_nc3(os.path.join(root, f"datacube_{exp}.nc"), datacube)
+
+    _write_json(os.path.join(root, f"statistic_{exp}.json"), {
+        k: {v: cube.stats[v][k] for v in cube.variables}
+        for k in ("min", "max", "mean", "median", "std")})
+
+    clima = {"climatology": (("climatology",), np.array(["median", "std"]))}
+    for i, v in enumerate(cube.variables):
+        clima[v] = (("climatology", "week") + YX,
+                    np.stack([cube.clima_median[i], cube.clima_std[i]]))
+    _write_nc3(os.path.join(root, f"climatology_{exp}.nc"), clima)
 
 
 # ------------------------------------------------------------------

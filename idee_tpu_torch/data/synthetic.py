@@ -6,9 +6,11 @@ The whole cube sits in host RAM; each item is a delta_t-week window,
 time-reversed so index 0 is the target week Delta-t_0, plus the extreme
 and anomaly masks and the consistent rot90/flip augmentation.
 
-Sources: an in-memory ``SyntheticCube`` or the ``datacube_<exp>.npz`` that
-idee_tpu/data/convert.py writes. NetCDF reading and the native batch
-engine are not ported yet.
+Sources: an in-memory ``SyntheticCube``, the ``datacube_<exp>.npz`` that
+data/convert.py writes, or the reference's directory schema
+(``datacube_<exp>.nc``, ``statistic_<exp>.json``, ``climatology_<exp>.nc``)
+through data/netcdf.py: NetCDF3 natively, NetCDF4 where h5py is
+installed. The native batch engine is not ported yet.
 """
 # ------------------------------------------------------------------
 
@@ -19,6 +21,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from idee_tpu_torch.data.netcdf import NetCDFFile
 
 
 @dataclass
@@ -74,6 +78,85 @@ def draw_aug(rng: np.random.Generator):
     return rotate, flip
 
 
+def _static_layer(raw: np.ndarray) -> np.ndarray:
+    """A cropped [H, W] static layer as the model reads it, [1, H, W]:
+    flipped along y, normalised by its nanmean / nanstd, clipped to +-10
+    (reference: dataset/Synthetic_dataset.py:180-191)."""
+    data = np.flip(raw, -2)[None]
+    data = (data - np.nanmean(data)) / np.nanstd(data)
+    return np.clip(data, -10.0, 10.0)
+
+
+def load_cube_netcdf(root: str, variables: List[str],
+                     variables_static: List[str], times: Tuple[int, int],
+                     x_min: int, x_max: int, y_min: int, y_max: int,
+                     need_stats: bool, need_clima: bool) -> SyntheticCube:
+    """Load datacube_<exp>.nc, and statistic_<exp>.json with
+    ``need_stats`` and climatology_<exp>.nc with ``need_clima``, cropped
+    to the (x, y) window and the weeks ``times`` (reference:
+    dataset/Synthetic_dataset.py:163-283)."""
+    exp = os.path.basename(os.path.normpath(root))
+    path = os.path.join(root, f"datacube_{exp}.nc")
+    xs, ys = slice(x_min, x_max), slice(y_min, y_max)
+
+    with NetCDFFile(path) as f:
+        n_time_total = np.asarray(f.coord("time")).shape[0]
+        n_var_total = np.asarray(f.coord("var")).shape[0]
+        tsl = f.range_slice("time", times[0], times[1])
+        dyn = np.stack(
+            [f.read(v, {0: tsl, 1: ys, 2: xs}) for v in variables], axis=0
+        ).astype(np.float32)
+        var_idx = f.label_indices("var", variables)
+        # the (var, time) axis order of anomaly_extreme, by size: xarray
+        # writes (var, time, y, x), the JAX package's h5py fixture
+        # (time, var, y, x)
+        anom = f.read("anomaly_extreme")
+        v_ax = 0 if (anom.shape[0] == n_var_total
+                     and anom.shape[1] == n_time_total) else 1
+        anom = np.take(anom, var_idx, axis=v_ax)
+        anom = np.take(anom, np.arange(tsl.start, tsl.stop), axis=1 - v_ax)
+        if v_ax != 0:
+            anom = anom.swapaxes(0, 1)
+        anom = anom[..., ys, xs]
+        extreme = f.read("extreme", {0: tsl, 1: ys, 2: xs})
+
+        static = None
+        if variables_static:
+            # cropped as xarray's isel at open crops; in native byte order
+            # (NetCDF3 stores big-endian), whose sums round as the .npz
+            # path's do
+            static = np.concatenate([
+                _static_layer(raw.astype(raw.dtype.newbyteorder("=")))
+                for raw in (f.read(v_s)[..., ys, xs]
+                            for v_s in variables_static)])
+
+    stats = None
+    if need_stats:
+        with open(os.path.join(root, f"statistic_{exp}.json")) as fh:
+            raw = json.load(fh)
+        stats = {v: {k: float(raw[k][v])
+                     for k in ("min", "max", "mean", "median", "std")}
+                 for v in variables}
+
+    cm = cs = None
+    if need_clima:
+        with NetCDFFile(os.path.join(root, f"climatology_{exp}.nc")) as f:
+            rows = {}
+            for name in ("median", "std"):
+                i = f.label_indices("climatology", [name])[0]
+                rows[name] = np.stack([
+                    f.read(v, {0: slice(i, i + 1), 2: ys, 3: xs})[0]
+                    for v in variables]).astype(np.float32)
+            cm, cs = rows["median"], rows["std"]
+
+    return SyntheticCube(
+        dynamic=dyn, anomaly=anom, extreme=extreme,
+        variables=list(variables), static=static,
+        variables_static=list(variables_static),
+        stats=stats, clima_median=cm, clima_std=cs,
+    )
+
+
 def load_cube_npz(path: str, variables: List[str],
                   variables_static: List[str], times: Tuple[int, int],
                   x_min: int, x_max: int, y_min: int, y_max: int
@@ -93,12 +176,7 @@ def load_cube_npz(path: str, variables: List[str],
         svars = [str(v) for v in z["variables_static"]]
         si = np.array([svars.index(v) for v in variables_static])
         raw = z["static"][si][:, y_min:y_max, x_min:x_max]
-        layers = []
-        for s in raw:
-            s = np.flip(s, -2)[None]
-            s = (s - np.nanmean(s)) / np.nanstd(s)
-            layers.append(np.clip(s, -10.0, 10.0))
-        static = np.concatenate(layers, 0)
+        static = np.concatenate([_static_layer(s) for s in raw])
     stats = None
     if "stats" in z:
         stats = z["stats"].item()
@@ -164,14 +242,16 @@ class SyntheticDataset:
             if root_datacube is None:
                 raise ValueError("provide either cube= or root_datacube=")
             npz = cube_npz_path(root_datacube)
-            if not os.path.exists(npz):
-                raise FileNotFoundError(
-                    f"{npz} not found: the port reads the synthetic cube "
-                    "only as the .npz that idee_tpu/data/convert.py "
-                    "(convert_synthetic) writes; NetCDF reading is not "
-                    "ported yet")
-            cube = load_cube_npz(npz, variables, variables_static, times,
-                                 x_min, x_max, y_min, y_max)
+            if os.path.exists(npz):
+                cube = load_cube_npz(npz, variables, variables_static, times,
+                                     x_min, x_max, y_min, y_max)
+            else:
+                cube = load_cube_netcdf(
+                    root_datacube, variables, variables_static, times,
+                    x_min, x_max, y_min, y_max,
+                    need_stats=is_norm and not is_clima_scale,
+                    need_clima=(is_norm and is_clima_scale)
+                    or is_replace_anomaly)
         self.cube = cube
 
         if cube.dynamic.shape[1] < delta_t:

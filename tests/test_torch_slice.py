@@ -98,6 +98,9 @@ def test_port_imports_nothing_of_jax():
                      for f in package if f.name != "__init__.py")
     assert "idee_tpu_torch.train.driver_real" in modules
     assert "idee_tpu_torch.cli.predict_synthetic" in modules
+    assert {f"idee_tpu_torch.cli.{m}" for m in (
+        "convert_synthetic", "convert_reanalysis", "train_benchmark_accuracy",
+        "train_baselines_zoo")} <= set(modules)
     assert {f"idee_tpu_torch.quant.{m}" for m in (
         "lfq", "vq", "fsq", "latent_quantize", "random_vq")} <= set(modules)
     code = ("import sys, importlib; "
