@@ -131,7 +131,26 @@ Phases, each printing one JSON line:
                  cube; exact launches, both best F1 (finite or null, no
                  threshold), epochs/s; then cli/train_baselines_zoo.py with
                  STEAL and DeepMIL for 1 epoch (no kernel)
- 18. kernels     one line listing every kernel: route, source, launches by
+ 18. train_device, train_device_swin_bf16, train_cerra_device,
+     accuracy_device
+                 the device-resident epoch (device_data, fused_epoch): the
+                 data on the card (data/device.py), each step one replay of
+                 a CUDA graph (train/steps.py::FusedEpoch). Mamba float32
+                 at the bench width for 2 epochs and a resumed third (a new
+                 capture after the restore); Swin_3D bf16 for 1 epoch
+                 (the bf16 attention kernels and the dbias sum inside the
+                 graph); train_real on the CERRA fixture at the 200x200
+                 crop for 2 epochs (RealDeviceLoader); the accuracy
+                 geometry (48x48, batch 8, bf16) with CNN_3D for 3 epochs.
+                 Each: launches exact (credited per replay), the first
+                 epoch's mean train and val loss against the per-step loop
+                 over the same device batches (fused_epoch=False), the
+                 sample order against the host loader's, set-up seconds
+                 (upload, host precompute, capture), steady fused train and
+                 val steps/s, busy share and peak memory beside the host
+                 loader's numbers of this run; Mamba also shows that
+                 dropout draws new bits at every replay
+ 19. kernels     one line listing every kernel: route, source, launches by
                  path, error and times
 Each "profile" line gives a path's device ms per step by operator and by
 kind of kernel (disjoint: cuDNN wgrad, dgrad, other GEMMs and implicit
@@ -875,18 +894,20 @@ def _kernel_sources(prof):
     return out
 
 
-def profile_steps(run_step, n: int, attribute: bool = False):
+def profile_steps(run_step, n: int, attribute: bool = False,
+                  warm: bool = True):
     """Where a steady step's time goes: torch.profiler over ``n`` calls of
     run_step(); device time by operator and by kind of kernel, and the
     device's busy share of the wall time (the profiler's own host cost
     included). With ``attribute``, one more call is profiled with its
     operators' input shapes (kept out of the timed calls): device ms of
     that step by pass and kind, and for each top kernel the operators that
-    launched it."""
+    launched it. ``warm``: one unprofiled call first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run_step()
+    if warm:
+        run_step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2076,6 +2097,7 @@ def phase_accuracy():
         launches = {"accuracy": read_launches()}
         _same_synthetic_cube(load_cube_npz(cache), cube,
                              "accuracy: the cube cache")
+        launches["accuracy_device"] = phase_accuracy_device(cube, args, acc)
         cfg = acc.build_config(args)
         health = latent_health(cfg, os.path.join(
             cfg.log_dir, "model_checkpoints", "latest.pt"),
@@ -2130,6 +2152,399 @@ def phase_accuracy():
         {k: r[k] for k in ("baseline", "best_val_anom_f1", "final_val_loss",
                            "steps_per_sec", "secs")} for r in zoo_rows],
          launches=launches["accuracy_zoo"], wall_s_with_setup=zoo_wall_s)
+    return launches
+
+
+# ------------------------------------------------------------------
+# the device-resident epoch: device_data with the fused epochs (one CUDA
+# graph replay per step), beside the per-step loop over the same device
+# batches and the host loader's numbers of this run
+
+# the first epoch's mean train and val loss, fused (graph replays) against
+# the per-step eager loop over the same device batches: the same kernels in
+# the same order, but cuDNN's backward convolutions are not
+# bit-deterministic, so the parameters part in their last bits from step
+# 1 on
+DEVICE_LOSS_RTOL = 1e-3
+# the fused paths' steady rates are timed on a cut of the cube: 7 train and
+# 5 val samples (train_device_rates)
+RATE_TRAIN_WEEKS, RATE_VAL_WEEKS = (1, 14), (25, 36)
+
+
+def same_order_as_host(dev, seed: int, epochs: int = 3) -> int:
+    """The sample order of ``dev``, a new device loader (batch 1) of
+    ``seed``, against the host DataLoader's of its dataset over ``epochs``
+    epochs; returns the samples compared."""
+    from idee_tpu_torch.data.loader import DataLoader
+
+    ds = dev.ds
+    host = DataLoader(ds, 1, device="cpu", shuffle=True, seed=seed)
+    for epoch in range(epochs):
+        want = np.concatenate(list(host._index_batches()))
+        got = dev.epoch_order()[0].reshape(-1)
+        if not np.array_equal(got, want):
+            raise SystemExit(f"device order of epoch {epoch + 1} differs "
+                             f"from the host loader's: {got} {want}")
+    return epochs * len(ds)
+
+
+def dropout_replays_differ(loader) -> dict:
+    """nn/layers.py's dropout at rate 0.5 on 4096 ones inside a FusedEpoch
+    over ``loader``, drawing from the generator of a train state (which
+    the graph registers): every step's mask (the eager warm-up steps' and
+    each replay's) must differ from every other's."""
+    from types import SimpleNamespace
+
+    from idee_tpu_torch.nn.layers import dropout
+    from idee_tpu_torch.train.steps import FusedEpoch
+
+    state = SimpleNamespace(
+        generator=torch.Generator(device="cuda").manual_seed(0), step=0,
+        schedule=lambda step: 0.0, set_lr=lambda lr: None)
+    nb = len(loader)
+    masks = torch.zeros((nb, 4096), device="cuda")
+    ones = torch.ones(4096, device="cuda")
+
+    def body():
+        masks.index_copy_(0, fused.pos, dropout(ones, 0.5, True,
+                                                state.generator)[None])
+
+    fused = FusedEpoch(loader, body, {"masks": masks})
+    fused(state)
+    rows = masks.cpu().numpy()
+    distinct = len({r.tobytes() for r in rows})
+    replays = nb - fused.warm_steps
+    if fused.graph is None or replays < 2 or distinct != nb:
+        raise SystemExit(f"dropout under replay: {distinct} distinct masks "
+                         f"of {nb} steps, {replays} replays")
+    return {"steps": nb, "replays": replays, "distinct_masks": distinct,
+            "kept_share": float(rows.mean() / 2.0)}
+
+
+def measure_fused(train_epoch, eval_epoch, state, n_train: int,
+                  n_val: int) -> dict:
+    """Steady rates of the fused epochs: one train and one val epoch warm
+    up and capture, then one of each timed to a synchronise, then one of
+    each under the profiler (busy share of the device over both)."""
+    train_epoch(state)
+    eval_epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_epoch(state)
+    torch.cuda.synchronize()
+    train_sps = n_train / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    eval_epoch()
+    torch.cuda.synchronize()
+    eval_sps = n_val / (time.perf_counter() - t0)
+    prof = profile_steps(lambda: (train_epoch(state), eval_epoch()), n=1,
+                         warm=False)
+    return {"train_steps_per_s": train_sps, "eval_steps_per_s": eval_sps,
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms_per_train_and_val_epoch": prof["device_ms_per_step"],
+            "capture_s": train_epoch.capture_s + eval_epoch.capture_s,
+            # what one replay of each graph launches of the port's kernels
+            "launches_per_replay": {
+                name: {k: v for d in epoch.per_replay for k, v in d.items()}
+                for name, epoch in (("train", train_epoch),
+                                    ("val", eval_epoch))},
+            "profile_top_device_ops": prof["top_device_ops"][:6]}
+
+
+def eager_first_epoch(run, cfg, what: str, n_train: int, n_val: int,
+                      trn: dict, val: dict):
+    """The first epoch of ``cfg`` through the per-step device loop
+    (fused_epoch=False), its launches exact; returns its history."""
+    eager_cfg = cfg.replace(name=cfg.name + "_eager", fused_epoch=False,
+                            n_epochs=1)
+    shutil.rmtree(eager_cfg.log_dir, ignore_errors=True)
+    zero_launches()
+    eager = run(eager_cfg)
+    torch.cuda.synchronize()
+    expect_launches(read_launches(), {
+        k: val.get(k, 0) * n_val + trn.get(k, 0) * n_train
+        for k in set(val) | set(trn)}, f"{what} per-step")
+    return eager
+
+
+def hold_first_epoch(fused_hist, eager_hist, what: str) -> dict:
+    """The fused run's first-epoch mean losses against the per-step loop's
+    within DEVICE_LOSS_RTOL; returns their relative differences."""
+    diff = {}
+    for key in ("train_loss", "val_loss"):
+        a, b = fused_hist[key][0], eager_hist[key][0]
+        diff[key] = abs(a - b) / abs(b)
+        if not diff[key] <= DEVICE_LOSS_RTOL:
+            raise SystemExit(f"{what}: first-epoch {key} fused {a} against "
+                             f"per-step {b}, rtol {DEVICE_LOSS_RTOL}")
+    return diff
+
+
+def phase_train_device(cube, phase: str, encoder: str, dtype: str,
+                       n_epochs: int, resume: bool, host: tuple):
+    """train_synthetic with device_data and the fused epochs at the bench
+    width (``dtype`` compute), ``n_epochs`` epochs, launches exact;
+    with ``resume`` one more epoch from latest (a new capture after the
+    restore); the sample order against the host loader's; the first epoch
+    against the per-step device loop; set-up seconds (upload, capture),
+    steady fused train and val steps/s, busy share and peak memory beside
+    the host loader's of this run (SUMMARY[host[0]] train, [host[1]]
+    eval); the dropout replays (Mamba only). Returns the launches."""
+    from idee_tpu_torch.data.device import DeviceLoader
+    from idee_tpu_torch.models.vq_model import build_model, compute_dtype
+    from idee_tpu_torch.train.driver import _make_datasets, train_synthetic
+    from idee_tpu_torch.train.state import create_train_state
+    from idee_tpu_torch.train.steps import (WARMUP_STEPS, make_eval_epoch,
+                                            make_train_epoch)
+
+    cfg = train_config(encoder, n_epochs=n_epochs, dtype=dtype,
+                       device_data=True).replace(name=f"chip_smoke_{phase}")
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    train_cube, val_cube = cube.time_slice(*TRAIN_WEEKS), \
+        cube.time_slice(*VAL_WEEKS)
+    n_train = (TRAIN_WEEKS[1] - TRAIN_WEEKS[0] + 1) - cfg.delta_t + 1
+    n_val = (VAL_WEEKS[1] - VAL_WEEKS[0] + 1) - cfg.delta_t + 1
+    trn = kernel_launches_per_step(encoder, train=True, dtype=dtype)
+    val = kernel_launches_per_step(encoder, train=False, dtype=dtype)
+
+    def run(c):
+        return train_synthetic(c, train_cube=train_cube, val_cube=val_cube,
+                               device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    history = run(cfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    expect_launches(launches, {
+        k: n_epochs * (val.get(k, 0) * n_val + trn.get(k, 0) * n_train)
+        for k in set(val) | set(trn)}, phase)
+    curves = history["train_loss"] + history["val_loss"]
+    if len(curves) != 2 * n_epochs or not all(map(math.isfinite, curves)):
+        raise SystemExit(f"{phase}: bad loss history: {history}")
+    resumed = None
+    if resume:  # one more epoch from latest: a new capture after the restore
+        zero_launches()
+        resumed = run(cfg.replace(n_epochs=n_epochs + 1))
+        torch.cuda.synchronize()
+        expect_launches(read_launches(), {
+            k: val.get(k, 0) * n_val + trn.get(k, 0) * n_train
+            for k in set(val) | set(trn)}, f"{phase} resumed")
+        if (resumed["train_loss"][:n_epochs] != history["train_loss"]
+                or resumed["state"].step != (n_epochs + 1) * n_train):
+            raise SystemExit(f"{phase}: resume did not continue: "
+                             f"{resumed['train_loss']}")
+
+    eager = eager_first_epoch(run, cfg, phase, n_train, n_val, trn, val)
+    diff = hold_first_epoch(history, eager, phase)
+
+    train_ds, _ = _make_datasets(cfg, train_cube, val_cube)
+    compared = same_order_as_host(
+        DeviceLoader(train_ds, 1, seed=cfg.seed, device="cuda"), cfg.seed)
+
+    # --- set-up and steady rates on a cut of the cube
+    rtrain, rval = _make_datasets(cfg, cube.time_slice(*RATE_TRAIN_WEEKS),
+                                  cube.time_slice(*RATE_VAL_WEEKS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tl = DeviceLoader(rtrain, 1, seed=cfg.seed, dtype=compute_dtype(cfg),
+                      device="cuda")
+    vl = DeviceLoader(rval, 1, seed=cfg.seed, dtype=compute_dtype(cfg),
+                      device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    model = build_model(cfg)
+    state = create_train_state(cfg, model, "cuda", steps_per_epoch=len(tl))
+    rates = measure_fused(
+        make_train_epoch(model, cfg, tl, rtrain.anomaly.shape,
+                         t0=float(rtrain.timestep[0]),
+                         steps_per_epoch=len(tl)),
+        make_eval_epoch(model, cfg, vl, rval.anomaly.shape,
+                        t0=float(rval.timestep[0])),
+        state, len(tl), len(vl))
+    dropout = dropout_replays_differ(tl)
+    host_train, host_eval = SUMMARY[host[0]], SUMMARY[host[1]]
+    emit(phase=phase, encoder=encoder, dtype=dtype,
+         shape=[1, 6, 1, 8, 200, 200], epochs=n_epochs, train_steps=n_train,
+         val_steps=n_val, launches=launches,
+         eager_steps_per_graph=WARMUP_STEPS,
+         history={k: v for k, v in history.items() if k != "state"},
+         resumed_train_loss=resumed and resumed["train_loss"],
+         per_step_device_loop={k: eager[k] for k in
+                               ("train_loss", "val_loss", "steps_per_sec")},
+         first_epoch_rel_diff=diff, loss_rtol=DEVICE_LOSS_RTOL,
+         order_samples_compared=compared, wall_s_with_setup=wall_s,
+         max_memory_allocated=peak_bytes, upload_s=upload_s,
+         rate_cut={"train_samples": len(tl), "val_samples": len(vl)},
+         fused=rates, dropout_replays=dropout,
+         host_loader={"phases": list(host),
+                      "train_steps_per_s":
+                          host_train["steady_train_steps_per_s"],
+                      "train_device_busy_share":
+                          host_train["device_busy_share"],
+                      "eval_steps_per_s": host_eval["steady_steps_per_s"],
+                      "eval_device_busy_share":
+                          host_eval["device_busy_share"],
+                      "train_max_memory_allocated":
+                          host_train["max_memory_allocated"]})
+    return launches
+
+
+def phase_train_cerra_device(root: str):
+    """train_real with device_data on the CERRA fixture at the 200x200
+    crop, 2 epochs, fused, launches exact; the first epoch against the
+    per-step device loop; the sample order against the host loader's;
+    host precompute and upload seconds of the RealDeviceLoader, steady
+    fused rates, busy share and peak memory beside train_cerra's host
+    loader. Returns the launches."""
+    from idee_tpu_torch.data.device import RealDeviceLoader
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.train.driver_real import (make_reanalysis_dataset,
+                                                  train_real)
+    from idee_tpu_torch.train.state import create_train_state
+    from idee_tpu_torch.train.steps_real import (make_eval_epoch_real,
+                                                 make_train_epoch_real)
+
+    phase = "train_cerra_device"
+    cfg = cerra_config(root, f"chip_smoke_{phase}", device_data=True)
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    trn = kernel_launches_per_step("Mamba", train=True)
+    val = kernel_launches_per_step("Mamba", train=False)
+    n = CERRA_SAMPLES
+
+    def run(c):
+        return train_real(c, "CERRA", device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    history = run(cfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    expect_launches(launches, {k: N_EPOCHS * n * (val.get(k, 0) + trn[k])
+                               for k in trn}, phase)
+    if not all(map(math.isfinite, history["train_loss"]
+                   + history["val_loss"])):
+        raise SystemExit(f"{phase}: bad loss history: {history}")
+    eager = eager_first_epoch(run, cfg, phase, n, n, trn, val)
+    diff = hold_first_epoch(history, eager, phase)
+
+    ds = make_reanalysis_dataset(cfg, "CERRA", cfg.years_train, False)
+    t0 = time.perf_counter()
+    loader = RealDeviceLoader(ds, 1, seed=cfg.seed, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    compared = same_order_as_host(loader, cfg.seed)
+    model = build_model(cfg)
+    state = create_train_state(cfg, model, "cuda", steps_per_epoch=n)
+    rates = measure_fused(make_train_epoch_real(model, cfg, loader),
+                          make_eval_epoch_real(model, cfg, loader), state,
+                          n, n)
+    dropout = dropout_replays_differ(loader)
+    host = SUMMARY["train_cerra"]
+    emit(phase=phase, encoder=cfg.encoder,
+         shape=[1, 6, 2, cfg.delta_t, cfg.y_max, cfg.x_max],
+         grid=CERRA_GRID, epochs=N_EPOCHS, train_steps=n, val_steps=n,
+         launches=launches,
+         history={k: v for k, v in history.items() if k != "state"},
+         per_step_device_loop={k: eager[k] for k in
+                               ("train_loss", "val_loss", "steps_per_sec")},
+         first_epoch_rel_diff=diff, loss_rtol=DEVICE_LOSS_RTOL,
+         order_samples_compared=compared, wall_s_with_setup=wall_s,
+         max_memory_allocated=peak_bytes,
+         precompute_and_upload_s=setup_s,
+         unique_weeks=int(loader.xw.shape[0]),
+         unique_noaa_lists=int(loader.d35.shape[0]), fused=rates,
+         dropout_replays=dropout,
+         host_loader={"phase": "train_cerra", **host})
+    return launches
+
+
+def phase_accuracy_device(cube, args, acc):
+    """The accuracy geometry (48x48, batch 8, the stable recipe, bf16) with
+    CNN_3D and device_data: 3 fused epochs, launches (none: CNN_3D runs no
+    kernel); the first epoch against the per-step device loop; the sample
+    order against the host loader's; upload and capture seconds, steady
+    fused train and val steps/s, busy share and peak memory; the host
+    loader's train steps/s of the same config (1 epoch); the dropout
+    replays."""
+    from idee_tpu_torch.data.device import DeviceLoader
+    from idee_tpu_torch.models.vq_model import build_model, compute_dtype
+    from idee_tpu_torch.train.driver import _make_datasets, train_synthetic
+    from idee_tpu_torch.train.state import create_train_state
+    from idee_tpu_torch.train.steps import make_eval_epoch, make_train_epoch
+
+    phase = "accuracy_device"
+    n_time, t_train = acc.split_weeks(args.years)
+    cfg = acc.build_config(args).replace(
+        encoder="CNN_3D", name=f"chip_smoke_{phase}", device_data=True,
+        dir_log=LOG_DIR)
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    cubes = dict(train_cube=cube.time_slice(1, t_train),
+                 val_cube=cube.time_slice(t_train + 1, n_time))
+    n_train = (t_train - cfg.delta_t + 1) // args.batch
+    n_val = (n_time - t_train - cfg.delta_t + 1) // args.batch
+
+    def run(c):
+        return train_synthetic(c, device="cuda", **cubes)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    history = run(cfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    expect_launches(launches, {}, phase)
+    eager = eager_first_epoch(run, cfg, phase, n_train, n_val, {}, {})
+    diff = hold_first_epoch(history, eager, phase)
+    host_cfg = cfg.replace(name=cfg.name + "_host", device_data=False,
+                           n_epochs=1)
+    shutil.rmtree(host_cfg.log_dir, ignore_errors=True)
+    host = run(host_cfg)
+
+    train_ds, val_ds = _make_datasets(cfg, cubes["train_cube"],
+                                      cubes["val_cube"])
+    compared = same_order_as_host(
+        DeviceLoader(train_ds, 1, seed=cfg.seed, device="cuda"), cfg.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tl = DeviceLoader(train_ds, args.batch, seed=cfg.seed,
+                      dtype=compute_dtype(cfg), device="cuda")
+    vl = DeviceLoader(val_ds, args.batch, seed=cfg.seed,
+                      dtype=compute_dtype(cfg), device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    model = build_model(cfg)
+    state = create_train_state(cfg, model, "cuda", steps_per_epoch=n_train)
+    rates = measure_fused(
+        make_train_epoch(model, cfg, tl, train_ds.anomaly.shape,
+                         t0=float(train_ds.timestep[0]),
+                         steps_per_epoch=n_train),
+        make_eval_epoch(model, cfg, vl, val_ds.anomaly.shape,
+                        t0=float(val_ds.timestep[0])),
+        state, n_train, n_val)
+    emit(phase=phase, encoder=cfg.encoder, dtype=cfg.dtype,
+         shape=[args.batch, 6, 1, 8, args.hw, args.hw], epochs=cfg.n_epochs,
+         train_steps=n_train, val_steps=n_val, launches=launches,
+         history={k: v for k, v in history.items() if k != "state"},
+         per_step_device_loop={k: eager[k] for k in
+                               ("train_loss", "val_loss", "steps_per_sec")},
+         first_epoch_rel_diff=diff, loss_rtol=DEVICE_LOSS_RTOL,
+         order_samples_compared=compared, wall_s_with_setup=wall_s,
+         max_memory_allocated=peak_bytes, upload_s=upload_s, fused=rates,
+         dropout_replays=dropout_replays_differ(tl),
+         host_loader={"train_steps_per_s": host["steps_per_sec"][0],
+                      "train_loss": host["train_loss"][0]})
     return launches
 
 
@@ -2247,6 +2662,10 @@ def phase_train_cerra(root: str):
         lambda b: step(state, metrics, b), iter(loader))
     batches = iter(loader)
     profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3)
+    SUMMARY["train_cerra"] = dict(
+        train_steps_per_s=steps_per_s,
+        train_device_busy_share=profile["device_busy_share"],
+        max_memory_allocated=peak_bytes)
     emit(phase="train_cerra", encoder=cfg.encoder,
          shape=[1, 6, 2, cfg.delta_t, cfg.y_max, cfg.x_max],
          grid=CERRA_GRID, epochs=N_EPOCHS, train_steps=steps,
@@ -2446,6 +2865,13 @@ def main() -> int:
         "train_vq_ema": phase_train_vq_ema(cube)}
     paths.update(phase_codebooks(cube))
     paths.update(phase_bf16(cube))
+    paths["train_device"] = phase_train_device(
+        cube, "train_device", "Mamba", "float32", N_EPOCHS, resume=True,
+        host=("train", "main"))
+    paths["train_device_swin_bf16"] = phase_train_device(
+        cube, "train_device_swin_bf16", "Swin_3D", "bfloat16",
+        N_EPOCHS_SHORT, resume=False,
+        host=("train_swin_bf16", "main_swin_bf16"))
     paths.update(phase_baselines(cube))
     del cube
     paths["synthetic_netcdf"] = phase_synthetic_netcdf()
@@ -2456,6 +2882,7 @@ def main() -> int:
     try:
         phase_cerra_fixture(cerra_root)
         paths["train_cerra"], weights = phase_train_cerra(cerra_root)
+        paths["train_cerra_device"] = phase_train_cerra_device(cerra_root)
         cerra_paths, fused_cerra = phase_test_cerra(cerra_root, weights)
         paths.update(cerra_paths)
     finally:

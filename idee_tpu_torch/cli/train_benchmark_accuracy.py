@@ -21,8 +21,10 @@ statistics (is_clima_scale=False), augmentation on, bf16 compute.
 Takes the JAX script's flags, with ``--device`` (default cuda) in place of
 ``--platform`` and ``--dtype`` (default bfloat16, which the JAX script
 fixes), so one arm can run in float32; a run that is not bf16 gets
-``_<dtype>`` at the end of its name. ``device_data`` stays off: the port
-has no device-resident epoch yet, so batches come from the host loader.
+``_<dtype>`` at the end of its name. ``device_data`` stays off (the
+JAX script turns it on): batches come from the host loader, as in the
+arms PERF.md records; chip_smoke.py's accuracy_device phase runs this
+geometry with device_data.
 Writes the JAX script's JSON payload to --out (default
 <tmp>/<name>.json) and returns it; checkpoints go to <dir_log>/<name>/.
 """

@@ -44,7 +44,8 @@ SOURCES = {FUSED_FWD: "selective_scan", FUSED_BWD: "selective_scan",
            LINEAR_SCAN: "linear_scan"}
 
 # launches of each CUDA kernel in this process; the plain CPU versions do
-# not count
+# not count. A step captured in a CUDA graph counts once per replay, not at
+# its capture (train/steps.py::FusedEpoch)
 launches: Dict[str, int] = {FUSED_FWD: 0, FUSED_BWD: 0, LINEAR_SCAN: 0}
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64

@@ -58,7 +58,8 @@ SOURCES = {name: "window_attention" for name in (
     ATTN_FWD, ATTN_BWD, ATTN_FWD_BF16, ATTN_BWD_BF16, DBIAS_SUM)}
 
 # launches of each CUDA kernel in this process; the plain CPU versions do
-# not count
+# not count. A step captured in a CUDA graph counts once per replay, not at
+# its capture (train/steps.py::FusedEpoch)
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
 
 # the forward and backward kernels by the dtype of q, k and v

@@ -64,13 +64,15 @@ class CheckpointManager:
         if not self.has(alias):
             return None
         # on the host: load_state_dict moves the weights and the moments to
-        # the parameters' device, and keeps Adam's step counts on the host
-        # (non-capturable Adam reads them there without a device sync)
+        # the parameters' device; settle_optimizer puts Adam's step counts
+        # where this optimizer reads them (on the host without capturable,
+        # so that it reads them without a device sync)
         payload = torch.load(self.path(alias), map_location="cpu",
                              weights_only=True)
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
+        state.settle_optimizer()
         state.generator.set_state(payload["generator"])
         return {"state": state, "meta": payload["meta"]}
 

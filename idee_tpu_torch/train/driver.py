@@ -1,6 +1,6 @@
 # ------------------------------------------------------------------
-"""Training driver for the synthetic benchmark (counterpart of the per-step
-path of idee_tpu/train/driver.py; reference train_synthetic.py:30-334).
+"""Training driver for the synthetic benchmark (counterpart of
+idee_tpu/train/driver.py; reference train_synthetic.py:30-334).
 
 The same data flow, loss composition, evaluators, per-epoch majority-vote
 driver scoring, best-loss / best-F1 / latest checkpoint policy, auto-resume
@@ -8,12 +8,21 @@ from ``latest`` and per-epoch ``history.json``. A train or eval step leaves
 everything on the device (loss sums, evaluator counters, the anomaly vote
 timeline); the host reads one metrics tree per epoch.
 
-Not ported yet (ROADMAP.md): the device-resident epoch (``device_data``,
-``fused_epoch``), meshes (``mesh_shape``), the profiler hook
-(``profile_dir``) and the TensorBoard image panels (scalars are written).
+Three loops, as in JAX: the host DataLoader (the default); with
+``device_data`` the cube on the device (data/device.py::DeviceLoader) and
+either the fused epochs (``fused_epoch``, the default: on a card one CUDA
+graph replay per step, train/steps.py::FusedEpoch) or, with
+``fused_epoch=False``, the per-step loop over the device batches. A fused
+epoch is timed from its start to one synchronise at its end (JAX's
+``nb / wall``).
+
+Not ported yet (ROADMAP.md): meshes (``mesh_shape``), the profiler hook
+(``profile_dir``) and the TensorBoard image panels (scalars are written;
+so the val device loader carries no anomaly bits).
 """
 # ------------------------------------------------------------------
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -21,6 +30,7 @@ import torch
 
 from idee_tpu_torch import resolve_device
 from idee_tpu_torch.config import Config, save_options
+from idee_tpu_torch.data.device import DeviceLoader
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.synthetic import SyntheticCube, SyntheticDataset
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
@@ -31,7 +41,8 @@ from idee_tpu_torch.train.metrics import (EvaluatorAnomalySynthetic,
                                           EvaluatorSynthetic,
                                           majority_vote_from_device)
 from idee_tpu_torch.train.state import count_parameters, create_train_state
-from idee_tpu_torch.train.steps import (init_epoch_metrics, make_eval_step,
+from idee_tpu_torch.train.steps import (init_epoch_metrics, make_eval_epoch,
+                                        make_eval_step, make_train_epoch,
                                         make_train_step, metrics_to_host)
 from idee_tpu_torch.utils.logging import (StepTimer, SummaryWriter, fix_seed,
                                           get_logger, log_string)
@@ -66,13 +77,22 @@ def _make_datasets(cfg: Config, train_cube=None, val_cube=None):
 
 
 def _check_supported(cfg: Config):
-    for flag, item in (("device_data", "the device-resident epoch"),
-                       ("mesh_shape", "multi-GPU"),
+    for flag, item in (("mesh_shape", "multi-GPU"),
                        ("profile_dir", "the profiler hook")):
         if getattr(cfg, flag):
             raise NotImplementedError(
                 f"{flag}: {item} is not ported yet (ROADMAP.md, open "
                 "items)")
+    if cfg.debug_nans and cfg.device_data and cfg.fused_epoch:
+        # anomaly detection reads every gradient on the host, which a CUDA
+        # graph cannot capture
+        raise ValueError("debug_nans needs the per-step loop: set "
+                         "fused_epoch=False (or device_data=False)")
+
+
+def use_fused(cfg: Config) -> bool:
+    """The fused epochs run with ``device_data`` and ``fused_epoch``."""
+    return bool(cfg.device_data and cfg.fused_epoch)
 
 
 def _epoch_results(m, evaluator, eval_anom, gt_anomaly) -> float:
@@ -105,13 +125,22 @@ def train_synthetic(cfg: Config,
     # advances the augmentation RNG; drawing it here too keeps both drivers
     # on the same augmentations
     train_ds[0]
-    # x in the compute dtype from the host on (the JAX driver's cast)
-    train_loader = DataLoader(train_ds, cfg.batch_size, device=dev,
-                              keys=_KEYS, shuffle=True, drop_last=True,
-                              seed=cfg.seed, x_dtype=compute_dtype(cfg))
-    val_loader = DataLoader(val_ds, cfg.batch_size, device=dev, keys=_KEYS,
-                            shuffle=True, drop_last=True, seed=cfg.seed,
-                            x_dtype=compute_dtype(cfg))
+    # x in the compute dtype (the JAX driver's cast)
+    if cfg.device_data:
+        # the cube lives on the card; a step sends the host nothing
+        train_loader = DeviceLoader(train_ds, cfg.batch_size, seed=cfg.seed,
+                                    dtype=compute_dtype(cfg), device=dev)
+        val_loader = DeviceLoader(val_ds, cfg.batch_size, seed=cfg.seed,
+                                  dtype=compute_dtype(cfg), device=dev)
+    else:
+        train_loader = DataLoader(train_ds, cfg.batch_size, device=dev,
+                                  keys=_KEYS, shuffle=True,
+                                  drop_last=True, seed=cfg.seed,
+                                  x_dtype=compute_dtype(cfg))
+        val_loader = DataLoader(val_ds, cfg.batch_size, device=dev,
+                                keys=_KEYS, shuffle=True,
+                                drop_last=True, seed=cfg.seed,
+                                x_dtype=compute_dtype(cfg))
 
     log_string(logger, "\nloading the model ...")
     model = build_model(cfg)
@@ -131,9 +160,18 @@ def train_synthetic(cfg: Config,
         start_epoch = int(restored["meta"]["epoch"]) + 1
         log_string(logger, f"auto-resumed from epoch {start_epoch}")
 
-    train_step = make_train_step(model, cfg, t0=float(train_ds.timestep[0]),
+    t0_train, t0_val = float(train_ds.timestep[0]), float(val_ds.timestep[0])
+    if use_fused(cfg):
+        # made after the restore: a capture reads the restored optimizer
+        # state
+        train_epoch = make_train_epoch(model, cfg, train_loader,
+                                       train_ds.anomaly.shape, t0=t0_train,
+                                       steps_per_epoch=len(train_loader))
+        eval_epoch = make_eval_epoch(model, cfg, val_loader,
+                                     val_ds.anomaly.shape, t0=t0_val)
+    train_step = make_train_step(model, cfg, t0=t0_train,
                                  steps_per_epoch=len(train_loader))
-    eval_step = make_eval_step(model, cfg, t0=float(val_ds.timestep[0]))
+    eval_step = make_eval_step(model, cfg, t0=t0_val)
     writer = SummaryWriter(cfg.log_dir)
 
     eval_train = EvaluatorSynthetic(logger, "Training")
@@ -157,12 +195,18 @@ def train_synthetic(cfg: Config,
             timer = StepTimer()
 
             # -- train epoch: device-resident accumulation --
-            metrics = init_epoch_metrics(train_ds.anomaly.shape, dev)
-            for batch in train_loader:
-                state, metrics = train_step(state, metrics, batch)
-                timer.tick()
-            sps = timer.steps_per_sec
-            m = metrics_to_host(metrics)
+            if use_fused(cfg):
+                t_ep = time.perf_counter()
+                # the epoch's one device sync ends its time
+                m = metrics_to_host(train_epoch(state))
+                sps = len(train_loader) / (time.perf_counter() - t_ep)
+            else:
+                metrics = init_epoch_metrics(train_ds.anomaly.shape, dev)
+                for batch in train_loader:
+                    state, metrics = train_step(state, metrics, batch)
+                    timer.tick()
+                sps = timer.steps_per_sec
+                m = metrics_to_host(metrics)
             mean_loss_train = _epoch_results(m, eval_train, eval_train_anom,
                                              train_ds.anomaly)
             eval_train_anom.get_results()
@@ -170,10 +214,13 @@ def train_synthetic(cfg: Config,
             best_loss_train = min(best_loss_train, mean_loss_train)
 
             # -- validation --
-            metrics = init_epoch_metrics(val_ds.anomaly.shape, dev)
-            for batch in val_loader:
-                metrics = eval_step(metrics, batch)
-            m = metrics_to_host(metrics)
+            if use_fused(cfg):
+                m = metrics_to_host(eval_epoch())
+            else:
+                metrics = init_epoch_metrics(val_ds.anomaly.shape, dev)
+                for batch in val_loader:
+                    metrics = eval_step(metrics, batch)
+                m = metrics_to_host(metrics)
             mean_loss_val = _epoch_results(m, eval_val, eval_val_anom,
                                            val_ds.anomaly)
             eval_val_anom.get_results()

@@ -9,14 +9,19 @@ over valid pixels, threshold 0.35, no driver ground truth (the real world
 has no labelled drivers), and the best-F1 checkpoint on the drought
 class's F1 (train_CERRA.py:303-305). Best-loss, best-F1 and latest
 checkpoints, auto-resume from latest, per-epoch history.json and
-TensorBoard scalars as in the synthetic driver.
+TensorBoard scalars as in the synthetic driver. With ``device_data`` the
+weeks live on the card (data/device.py::RealDeviceLoader) and the epochs
+run fused (on a card as CUDA graph replays) or, with
+``fused_epoch=False``, step by step over the device batches.
 
-Not ported yet (ROADMAP.md): the device-resident epochs (``device_data``),
-meshes, the profiler hook, and the TensorBoard image panels.
+Not ported yet (ROADMAP.md): meshes, the profiler hook, and the
+TensorBoard image panels (so the val device loader carries no sea or
+no-vegetation masks).
 """
 # ------------------------------------------------------------------
 
 import os
+import time
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -24,19 +29,22 @@ import torch
 
 from idee_tpu_torch import resolve_device
 from idee_tpu_torch.config import Config, save_options
+from idee_tpu_torch.data.device import RealDeviceLoader
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.reanalysis import (ReanalysisDataset, cerra_spec,
                                             era5_land_spec)
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
 from idee_tpu_torch.train.checkpoint import CheckpointManager
-from idee_tpu_torch.train.driver import _check_supported
+from idee_tpu_torch.train.driver import _check_supported, use_fused
 from idee_tpu_torch.train.evaluate import load_weights
 from idee_tpu_torch.train.history import flush_history, seed_history
 from idee_tpu_torch.train.metrics import Evaluator
 from idee_tpu_torch.train.state import count_parameters, create_train_state
 from idee_tpu_torch.train.steps import metrics_to_host
 from idee_tpu_torch.train.steps_real import (init_epoch_metrics_real,
+                                             make_eval_epoch_real,
                                              make_eval_step_real,
+                                             make_train_epoch_real,
                                              make_train_step_real)
 from idee_tpu_torch.utils.logging import (StepTimer, SummaryWriter, fix_seed,
                                           get_logger, log_string)
@@ -106,13 +114,19 @@ def train_real(cfg: Config, family: str,
     # advances the augmentation RNG; drawing it here too keeps both drivers
     # on the same augmentations
     train_ds[0]
-    # x in the compute dtype from the host on
-    # (idee_tpu/train/driver_real.py:115-128)
-    loader_kw = dict(device=dev, keys=TRAIN_KEYS, shuffle=True,
-                     drop_last=True, seed=cfg.seed,
-                     workers=cfg.loader_workers, x_dtype=compute_dtype(cfg))
-    train_loader = DataLoader(train_ds, cfg.batch_size, **loader_kw)
-    val_loader = DataLoader(val_ds, cfg.batch_size, **loader_kw)
+    # x in the compute dtype (idee_tpu/train/driver_real.py:115-130)
+    if cfg.device_data:
+        # one normalised slab and mask triple per unique week on the card
+        loader_kw = dict(seed=cfg.seed, dtype=compute_dtype(cfg), device=dev)
+        train_loader = RealDeviceLoader(train_ds, cfg.batch_size, **loader_kw)
+        val_loader = RealDeviceLoader(val_ds, cfg.batch_size, **loader_kw)
+    else:
+        loader_kw = dict(device=dev, keys=TRAIN_KEYS, shuffle=True,
+                         drop_last=True, seed=cfg.seed,
+                         workers=cfg.loader_workers,
+                         x_dtype=compute_dtype(cfg))
+        train_loader = DataLoader(train_ds, cfg.batch_size, **loader_kw)
+        val_loader = DataLoader(val_ds, cfg.batch_size, **loader_kw)
 
     log_string(logger, "\nloading the model ...")
     model = build_model(cfg)
@@ -131,6 +145,9 @@ def train_real(cfg: Config, family: str,
         start_epoch = int(restored["meta"]["epoch"]) + 1
         log_string(logger, f"auto-resumed from epoch {start_epoch}")
 
+    if use_fused(cfg):  # after the restore, as in train/driver.py
+        train_epoch = make_train_epoch_real(model, cfg, train_loader)
+        eval_epoch = make_eval_epoch_real(model, cfg, val_loader)
     train_step = make_train_step_real(model, cfg)
     eval_step = make_eval_step_real(model, cfg)
     writer = SummaryWriter(cfg.log_dir)
@@ -148,21 +165,30 @@ def train_real(cfg: Config, family: str,
                        "#################" % (epoch + 1, cfg.n_epochs))
             timer = StepTimer()
 
-            metrics = init_epoch_metrics_real(dev)
-            for batch in train_loader:
-                state, metrics = train_step(state, metrics, batch)
-                timer.tick()
-            sps = timer.steps_per_sec
-            m = metrics_to_host(metrics)
+            if use_fused(cfg):
+                t_ep = time.perf_counter()
+                # the epoch's one device sync ends its time
+                m = metrics_to_host(train_epoch(state))
+                sps = len(train_loader) / (time.perf_counter() - t_ep)
+            else:
+                metrics = init_epoch_metrics_real(dev)
+                for batch in train_loader:
+                    state, metrics = train_step(state, metrics, batch)
+                    timer.tick()
+                sps = timer.steps_per_sec
+                m = metrics_to_host(metrics)
             eval_train.update_counts(m["counts"])
             mean_loss_train = _mean_loss(m)
             eval_train.get_results(mean_loss_train, best_loss_train)
             best_loss_train = min(best_loss_train, mean_loss_train)
 
-            metrics = init_epoch_metrics_real(dev)
-            for batch in val_loader:
-                metrics = eval_step(metrics, batch)
-            m = metrics_to_host(metrics)
+            if use_fused(cfg):
+                m = metrics_to_host(eval_epoch())
+            else:
+                metrics = init_epoch_metrics_real(dev)
+                for batch in val_loader:
+                    metrics = eval_step(metrics, batch)
+                m = metrics_to_host(metrics)
             eval_val.update_counts(m["counts"])
             mean_loss_val = _mean_loss(m)
             eval_val.get_results(mean_loss_val, best_loss_val)

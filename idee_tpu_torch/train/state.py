@@ -11,6 +11,13 @@ optax reads its schedule at the count of updates already applied, so
 ``TrainState.apply_gradients`` sets every group's lr from the schedule at
 ``step`` (the steps taken so far) before ``optimizer.step()``.
 
+On a card the optimizer is ``capturable``, so that a train step can run
+inside a CUDA graph (train/steps.py::make_train_epoch): its step counts
+live on the device, its lr is a device tensor that ``set_lr`` writes, and
+Adam's bias corrections 1 - beta^t are taken on the device in float32 (as
+optax takes them), not on the host in float64. On the CPU it is not
+(PyTorch's capturable Adam takes only device tensors).
+
 The optimizer holds exactly the JAX package's ``params`` tree: the model's
 parameters. Codebook state (VQ's EMA statistics, Random_VQ's projections)
 lives in buffers, which it never sees.
@@ -53,13 +60,24 @@ def param_groups(model: nn.Module, cfg: Config) -> List[Dict]:
 
 
 def make_optimizer(cfg: Config, model: nn.Module) -> torch.optim.Optimizer:
+    """Adam or AdamW over ``model``'s parameters, capturable (with a device
+    lr tensor) when they lie on a card."""
     kw = dict(lr=cfg.lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8)
+    device = next(model.parameters()).device
+    if device.type == "cuda":
+        kw.update(capturable=True,
+                  lr=torch.tensor(float(cfg.lr), device=device))
     if cfg.optimizer == "Adam":
-        return torch.optim.Adam(param_groups(model, cfg), **kw)
-    if cfg.optimizer == "AdamW":
-        return torch.optim.AdamW(param_groups(model, cfg), **kw)
-    raise ValueError(f"Unexpected optimizer {cfg.optimizer}; supported: "
-                     "Adam, AdamW")
+        opt = torch.optim.Adam(param_groups(model, cfg), **kw)
+    elif cfg.optimizer == "AdamW":
+        opt = torch.optim.AdamW(param_groups(model, cfg), **kw)
+    else:
+        raise ValueError(f"Unexpected optimizer {cfg.optimizer}; supported: "
+                         "Adam, AdamW")
+    # the per-step loops run this optimizer uncaptured on purpose (one
+    # optimizer for both loops); PyTorch would warn about it once
+    opt._warned_capturable_if_run_uncaptured = True
+    return opt
 
 
 @dataclass
@@ -73,19 +91,56 @@ class TrainState:
     generator: torch.Generator
     step: int = 0
 
-    def apply_gradients(self) -> None:
-        """One optimizer step at the lr the schedule gives for the steps
-        taken so far. A parameter the loss does not reach (a frozen LFQ
-        project_out, Random_VQ's encoder) steps with a zero gradient, as in
-        the JAX package, whose gradient tree holds zeros there: torch's Adam
-        would skip it, and so skip its weight decay."""
-        lr = self.schedule(self.step)
+    def set_lr(self, lr: float) -> None:
+        """Every group's lr: a Python float, or on a card the device lr
+        tensor, written in place (a step captured in a CUDA graph reads that
+        tensor at each replay). A restored optimizer brings its saved lr
+        back as a host tensor; it is replaced by one on the device."""
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if not group["capturable"]:
+                group["lr"] = lr
+                continue
+            device = group["params"][0].device
+            cur = group["lr"]
+            if isinstance(cur, torch.Tensor) and cur.device == device:
+                cur.fill_(lr)
+            else:
+                group["lr"] = torch.tensor(float(lr), device=device)
+
+    def settle_optimizer(self) -> None:
+        """After ``optimizer.load_state_dict``: a loaded checkpoint brings
+        its groups' capturable flag and lr, and Adam's step counts where
+        its optimizer kept them (a checkpoint may move between the CPU and
+        a card). The groups get this optimizer's mode back, the step counts
+        the place that mode reads them from, and the lr the schedule's."""
+        capturable = self.optimizer.defaults["capturable"]
+        for group in self.optimizer.param_groups:
+            group["capturable"] = capturable
+            for p in group["params"]:
+                st = self.optimizer.state.get(p, {})
+                if isinstance(st.get("step"), torch.Tensor):
+                    st["step"] = st["step"].to(
+                        p.device if capturable else "cpu", torch.float32)
+        self.set_lr(self.schedule(self.step))
+
+    def update(self) -> None:
+        """The optimizer step at the lr already set; host state (``step``)
+        is left alone, so a CUDA graph can capture it. A parameter the loss
+        does not reach (a frozen LFQ project_out, Random_VQ's encoder) steps
+        with a zero gradient, as in the JAX package, whose gradient tree
+        holds zeros there: torch's Adam would skip it, and so skip its
+        weight decay."""
+        for group in self.optimizer.param_groups:
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         self.optimizer.step()
+
+    def apply_gradients(self) -> None:
+        """One optimizer step at the lr the schedule gives for the steps
+        taken so far."""
+        self.set_lr(self.schedule(self.step))
+        self.update()
         self.step += 1
 
 

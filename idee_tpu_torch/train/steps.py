@@ -12,6 +12,8 @@ card works; ``metrics_to_host`` is the one sync per epoch.
 """
 # ------------------------------------------------------------------
 
+import contextlib
+import time
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from idee_tpu_torch import losses
 from idee_tpu_torch.config import Config
+from idee_tpu_torch.kernels import selective_scan, window_attention
 
 _LOSS_KEYS = ("loss", "loss_bce", "loss_anomaly", "loss_var", "loss_z_q")
 _COUNT_KEYS = ("correct", "seen", "iou_de", "predicted", "seen_all")
@@ -97,6 +100,47 @@ def _accumulate(metrics, comps, out, batch, t0: float, delta_t: int,
     return pred, pred_c
 
 
+def _lambda_schedule(cfg: Config, steps_per_epoch: int):
+    """lambda_anomaly at a step count: constant, or with the anomaly-L1
+    curriculum (cfg.anomaly_warmup_epochs / anomaly_ramp_epochs) ramped
+    linearly from 0 over the ramp epochs after the warmup ones. None when
+    constant."""
+    warm = cfg.anomaly_warmup_epochs * steps_per_epoch
+    ramp = max(cfg.anomaly_ramp_epochs * steps_per_epoch, 1)
+    if not (warm > 0 or cfg.anomaly_ramp_epochs > 0):
+        return None
+    return lambda step: cfg.lambda_anomaly * min(max((step - warm) / ramp,
+                                                     0.0), 1.0)
+
+
+def _train_body(model, cfg: Config, t0: float):
+    """body(state, metrics, batch, lam): forward with train=True and the
+    mask, total_loss_synthetic at lambda_anomaly ``lam`` (a float or a
+    device scalar), backward, ``state.update()`` (the optimizer step at the
+    lr already set), then the metric updates on detached outputs. No host
+    state moves and nothing waits for the device, so a CUDA graph can
+    capture it."""
+    bce = _bce_kwargs(cfg)
+
+    def body(state, metrics, batch, lam):
+        # no module reads .training (train= is explicit); set for clarity
+        model.train()
+        out = model(batch["x"], train=True,
+                    mask_extreme_loss=batch["mask_extreme_loss"],
+                    generator=state.generator)
+        loss, comps = losses.total_loss_synthetic(
+            out, batch["mask_extreme"], batch["mask_extreme_loss"], lam,
+            **bce)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.update()
+        with torch.no_grad():
+            _accumulate(metrics, {k: v.detach() for k, v in comps.items()},
+                        out, batch, t0, cfg.delta_t)
+
+    return body
+
+
 def make_train_step(model, cfg: Config, t0: float = 0.0,
                     steps_per_epoch: int = 0):
     """step(state, metrics, batch) -> (state, metrics): forward with
@@ -112,32 +156,37 @@ def make_train_step(model, cfg: Config, t0: float = 0.0,
     steps_per_epoch enables the anomaly-L1 curriculum
     (cfg.anomaly_warmup_epochs / anomaly_ramp_epochs): lambda_anomaly ramps
     linearly from 0 over the ramp epochs after the warmup ones."""
-    warm = cfg.anomaly_warmup_epochs * steps_per_epoch
-    ramp = max(cfg.anomaly_ramp_epochs * steps_per_epoch, 1)
-    use_ramp = warm > 0 or cfg.anomaly_ramp_epochs > 0
-    bce = _bce_kwargs(cfg)
+    lam_at = _lambda_schedule(cfg, steps_per_epoch)
+    body = _train_body(model, cfg, t0)
 
     def step(state, metrics, batch):
-        # no module reads .training (train= is explicit); set for clarity
-        model.train()
-        lam = cfg.lambda_anomaly
-        if use_ramp:
-            lam = lam * min(max((state.step - warm) / ramp, 0.0), 1.0)
-        out = model(batch["x"], train=True,
-                    mask_extreme_loss=batch["mask_extreme_loss"],
-                    generator=state.generator)
-        loss, comps = losses.total_loss_synthetic(
-            out, batch["mask_extreme"], batch["mask_extreme_loss"], lam,
-            **bce)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.apply_gradients()
-        with torch.no_grad():
-            _accumulate(metrics, {k: v.detach() for k, v in comps.items()},
-                        out, batch, t0, cfg.delta_t)
+        lam = cfg.lambda_anomaly if lam_at is None else lam_at(state.step)
+        state.set_lr(state.schedule(state.step))
+        body(state, metrics, batch, lam)
+        state.step += 1
         return state, metrics
 
     return step
+
+
+def _eval_body(model, cfg: Config, t0: float):
+    """body(metrics, batch) -> (pred, pred_c, out): one forward of
+    ``model`` in eval mode, the loss and the metric updates on the device
+    (call it under inference_mode)."""
+    bce = _bce_kwargs(cfg)
+
+    def body(metrics, batch):
+        model.eval()
+        out = model(batch["x"], train=False,
+                    mask_extreme_loss=batch["mask_extreme_loss"])
+        _, comps = losses.total_loss_synthetic(
+            out, batch["mask_extreme"], batch["mask_extreme_loss"],
+            cfg.lambda_anomaly, **bce)
+        pred, pred_c = _accumulate(metrics, comps, out, batch, t0,
+                                   cfg.delta_t)
+        return pred, pred_c, out
+
+    return body
 
 
 def make_eval_step(model, cfg: Config, t0: float = 0.0,
@@ -148,24 +197,213 @@ def make_eval_step(model, cfg: Config, t0: float = 0.0,
     make_eval_step(return_preds=True)): one forward of ``model`` in eval
     mode under inference_mode, with the loss and the metric updates on the
     device. t0: absolute timestep of the dataset's first timeline slot."""
-    bce = _bce_kwargs(cfg)
+    body = _eval_body(model, cfg, t0)
 
     @torch.inference_mode()
     def step(metrics, batch):
-        model.eval()
-        out = model(batch["x"], train=False,
-                    mask_extreme_loss=batch["mask_extreme_loss"])
-        _, comps = losses.total_loss_synthetic(
-            out, batch["mask_extreme"], batch["mask_extreme_loss"],
-            cfg.lambda_anomaly, **bce)
-        pred, pred_c = _accumulate(metrics, comps, out, batch, t0,
-                                   cfg.delta_t)
+        pred, pred_c, out = body(metrics, batch)
         if return_preds:
             return metrics, {"pred": pred, "pred_c": pred_c,
                              "anomaly": out.anomaly}
         return metrics
 
     return step
+
+
+# ---------------------------------------------------------------- fused epochs
+
+# eager steps of the first epoch before its capture: the kernels are built
+# and loaded, cuDNN and cuBLAS pick their algorithms and workspaces, Swin's
+# mask and index cache is filled and a VQ codebook's lazy k-means runs (in
+# the first training step) while nothing is captured. They are steps of the
+# epoch, so none is repeated.
+WARMUP_STEPS = 3
+
+# the kernel modules' launch counters; a captured step counts its launches
+# once per replay (FusedEpoch.run)
+_COUNTERS = (selective_scan.launches, window_attention.launches)
+
+
+def _snapshot() -> Tuple[Dict[str, int], ...]:
+    return tuple(dict(c) for c in _COUNTERS)
+
+
+def zero_metrics(metrics) -> None:
+    """Every buffer of an epoch metrics tree set to 0, in place."""
+    for v in metrics.values():
+        if isinstance(v, dict):
+            zero_metrics(v)
+        else:
+            v.zero_()
+
+
+class FusedEpoch:
+    """One step ``body()`` run over every batch of an epoch of a device
+    loader (data/device.py), the batch read from the epoch's order and flip
+    bits in static device buffers at a device position that the step
+    advances (JAX's one jitted lax.scan per epoch). ``metrics``: the
+    device buffers the body accumulates into, zeroed at each epoch.
+    ``per_step``: a scalar schedule of the train step count (the anomaly-L1
+    curriculum's lambda), whose values for the epoch's steps go up to the
+    device with the order (``step_value()`` reads the current one).
+
+    On a card the step is captured once as a ``torch.cuda.CUDAGraph``,
+    after the first WARMUP_STEPS steps of the first epoch ran eagerly on the
+    capture's side stream, and replayed once per remaining batch; later
+    epochs only replay. A capture that fails raises: there is no fallback
+    to eager steps. The train state's generator (dropout, drop-path,
+    codebook draws) is registered with the graph, so each replay draws new
+    bits. A kernel wrapper counts its launch when its Python runs, which
+    under a graph is once, at the capture: the capture's counts are taken
+    back and the step's launches are credited at every replay. Capture
+    after any checkpoint restore: a restore replaces the optimizer's state
+    tensors that the graph reads.
+
+    On the CPU the same body runs eagerly, step after step.
+    """
+
+    def __init__(self, loader, body, metrics, inference: bool = False,
+                 per_step=None):
+        self.loader = loader
+        self.body = body
+        self.metrics = metrics
+        self.inference = inference
+        self.per_step = per_step
+        self.state = None
+        dev = loader.device
+        nb, B = len(loader), loader.batch_size
+        self.device = dev
+        self.order = torch.zeros((nb, B), dtype=torch.int64, device=dev)
+        self.flips = (torch.zeros((nb, B, 3), dtype=torch.bool, device=dev)
+                      if loader.is_aug else None)
+        self.values = (torch.zeros(nb, dtype=torch.float32, device=dev)
+                       if per_step is not None else None)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.graph = None
+        self.per_replay: Tuple[Dict[str, int], ...] = ()
+        self.warm_steps = 0
+        self.capture_s = 0.0
+
+    def batch(self) -> Dict[str, torch.Tensor]:
+        """The batch at the device position (no host read)."""
+        idx = self.order.index_select(0, self.pos)[0]
+        flips = (None if self.flips is None
+                 else self.flips.index_select(0, self.pos)[0])
+        return self.loader.batch(idx, flips)
+
+    def step_value(self) -> torch.Tensor:
+        """``per_step`` at the device position, a device scalar."""
+        return self.values.index_select(0, self.pos)[0]
+
+    def _step(self):
+        with (torch.inference_mode() if self.inference
+              else contextlib.nullcontext()):
+            self.body()
+            self.pos += 1
+
+    def _capture(self, stream):
+        before = _snapshot()
+        graph = torch.cuda.CUDAGraph()
+        if self.state is not None and \
+                self.state.generator.device.type == "cuda":
+            graph.register_generator_state(self.state.generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=stream):
+            self._step()
+        self.capture_s = time.perf_counter() - t0
+        after = _snapshot()
+        self.per_replay = tuple(
+            {k: a[k] - b[k] for k in a if a[k] != b[k]}
+            for a, b in zip(after, before))
+        for c, b in zip(_COUNTERS, before):
+            c.update(b)
+        self.graph = graph
+
+    def __call__(self, state=None):
+        """One epoch: uploads the loader's next order and flips, zeros the
+        metrics, runs every batch and returns the metrics. With a train
+        ``state``: the lr is set once for the epoch (the schedule is
+        constant within one) and ``state.step`` advances by the epoch's
+        steps."""
+        order, epoch = self.loader.epoch_order()
+        nb = order.shape[0]
+        if state is not None:
+            self.state = state
+            lr = state.schedule(state.step)
+            if state.schedule(state.step + nb - 1) != lr:
+                raise ValueError("the lr schedule changes inside an epoch: "
+                                 "the fused epoch sets it once per epoch")
+            state.set_lr(lr)
+            if self.values is not None:
+                self.values.copy_(torch.tensor(
+                    [self.per_step(state.step + b) for b in range(nb)]))
+        self.order.copy_(torch.from_numpy(order))
+        if self.flips is not None:
+            self.flips.copy_(torch.from_numpy(self.loader.epoch_flips(epoch)))
+        self.pos.zero_()
+        zero_metrics(self.metrics)
+        self._run(nb)
+        if state is not None:
+            state.step += nb
+        return self.metrics
+
+    def _run(self, nb: int):
+        if self.device.type != "cuda":
+            for _ in range(nb):
+                self._step()
+            return
+        done = 0
+        if self.graph is None:
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                while self.warm_steps < WARMUP_STEPS and done < nb:
+                    self._step()
+                    done += 1
+                    self.warm_steps += 1
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            if done == nb:
+                return  # captured in the next epoch
+            self._capture(stream)
+        for _ in range(nb - done):
+            self.graph.replay()
+            for c, d in zip(_COUNTERS, self.per_replay):
+                for k, n in d.items():
+                    c[k] += n
+
+
+def make_train_epoch(model, cfg: Config, loader, anomaly_shape,
+                     t0: float = 0.0, steps_per_epoch: int = 0):
+    """Fused train epoch over the device loader ``loader`` (JAX
+    ``make_train_epoch``, idee_tpu/train/steps.py:182-243): epoch(state) ->
+    metrics, a FusedEpoch of the train step's body: on a card one CUDA
+    graph replay per step. With the curriculum the epoch's per-step
+    lambda_anomaly goes up to the device with the order. The metrics are
+    this epoch's, in buffers the FusedEpoch owns: read them before the
+    next epoch. anomaly_shape: [V, T, H, W] of the loader's dataset."""
+    lam_at = _lambda_schedule(cfg, steps_per_epoch)
+    body = _train_body(model, cfg, t0)
+
+    def step():
+        lam = cfg.lambda_anomaly if lam_at is None else fused.step_value()
+        body(fused.state, fused.metrics, fused.batch(), lam)
+
+    fused = FusedEpoch(loader, step,
+                       init_epoch_metrics(anomaly_shape, loader.device),
+                       per_step=lam_at)
+    return fused
+
+
+def make_eval_epoch(model, cfg: Config, loader, anomaly_shape,
+                    t0: float = 0.0):
+    """Fused validation epoch (JAX ``make_eval_epoch``,
+    idee_tpu/train/steps.py:262-301): epoch() -> metrics, a FusedEpoch of
+    the eval step's body under inference_mode (see make_train_epoch)."""
+    body = _eval_body(model, cfg, t0)
+    fused = FusedEpoch(loader, lambda: body(fused.metrics, fused.batch()),
+                       init_epoch_metrics(anomaly_shape, loader.device),
+                       inference=True)
+    return fused
 
 
 def metrics_to_host(metrics) -> Dict[str, Any]:

@@ -11,9 +11,10 @@ metrics, and the 2-class {normal, drought} counters over valid pixels
 no-vegetation pixels are excluded too (test_CERRA.py:112-113).
 
 As in steps.py, counters and loss sums stay on the device; the host reads
-them once per epoch (``steps.metrics_to_host``). The JAX package's
-device-resident epochs (make_train_epoch_real, RealDeviceLoader) are not
-ported: the driver refuses ``device_data``.
+them once per epoch (``steps.metrics_to_host``). With ``device_data`` the
+driver runs the fused epochs over a data/device.py::RealDeviceLoader
+(``make_train_epoch_real``, ``make_eval_epoch_real``): on a card each step
+is one replay of a CUDA graph (steps.py::FusedEpoch).
 """
 # ------------------------------------------------------------------
 
@@ -23,7 +24,7 @@ import torch
 
 from idee_tpu_torch import losses
 from idee_tpu_torch.config import Config
-from idee_tpu_torch.train.steps import _LOSS_KEYS
+from idee_tpu_torch.train.steps import _LOSS_KEYS, FusedEpoch
 
 THRESHOLD = 0.35  # train_CERRA.py:212-213
 _COUNT_KEYS = ("correct", "seen", "iou_de", "predicted")
@@ -103,27 +104,75 @@ def _accumulate_real(metrics, comps, out, batch, mask_valid):
     return pred, pred_c
 
 
-def make_train_step_real(model, cfg: Config):
-    """step(state, metrics, batch) -> (state, metrics): forward with the
-    extreme-loss and cold-surface masks, total_loss_real, backward, one
-    optimizer step, then the counters on detached outputs. Nothing waits
-    for the device."""
+def _train_body_real(model, cfg: Config):
+    """body(state, metrics, batch): forward with the extreme-loss and
+    cold-surface masks, total_loss_real, backward, ``state.update()`` (the
+    optimizer step at the lr already set), then the counters on detached
+    outputs; no host state moves (steps.py::_train_body)."""
 
-    def step(state, metrics, batch):
+    def body(state, metrics, batch):
         model.train()
         out = _forward(model, batch, True, state.generator)
         loss, comps, mask_valid = total_loss_real(out, batch,
                                                   cfg.lambda_anomaly)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        state.apply_gradients()
+        state.update()
         with torch.no_grad():
             _accumulate_real(metrics, {k: v.detach()
                                        for k, v in comps.items()},
                              out, batch, mask_valid)
+
+    return body
+
+
+def make_train_step_real(model, cfg: Config):
+    """step(state, metrics, batch) -> (state, metrics): forward with the
+    extreme-loss and cold-surface masks, total_loss_real, backward, one
+    optimizer step, then the counters on detached outputs. Nothing waits
+    for the device."""
+    body = _train_body_real(model, cfg)
+
+    def step(state, metrics, batch):
+        state.set_lr(state.schedule(state.step))
+        body(state, metrics, batch)
+        state.step += 1
         return state, metrics
 
     return step
+
+
+def _eval_body_real(model, cfg: Config):
+    def body(metrics, batch):
+        model.eval()
+        out = _forward(model, batch, False)
+        _, comps, mask_valid = total_loss_real(out, batch,
+                                               cfg.lambda_anomaly)
+        _accumulate_real(metrics, comps, out, batch, mask_valid)
+
+    return body
+
+
+def make_train_epoch_real(model, cfg: Config, loader):
+    """Fused real-world train epoch over the RealDeviceLoader ``loader``
+    (JAX ``make_train_epoch_real``, idee_tpu/train/steps_real.py:142-172):
+    epoch(state) -> metrics, as steps.py::make_train_epoch."""
+    body = _train_body_real(model, cfg)
+    fused = FusedEpoch(loader, lambda: body(fused.state, fused.metrics,
+                                            fused.batch()),
+                       init_epoch_metrics_real(loader.device))
+    return fused
+
+
+def make_eval_epoch_real(model, cfg: Config, loader):
+    """Fused real-world validation epoch (JAX ``make_eval_epoch_real``,
+    idee_tpu/train/steps_real.py:175-191): epoch() -> metrics, under
+    inference_mode."""
+    body = _eval_body_real(model, cfg)
+    fused = FusedEpoch(loader, lambda: body(fused.metrics, fused.batch()),
+                       init_epoch_metrics_real(loader.device),
+                       inference=True)
+    return fused
 
 
 def make_eval_step_real(model, cfg: Config, test_mode: bool = False,

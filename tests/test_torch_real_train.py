@@ -326,8 +326,10 @@ def test_real_entry_points_need_a_card_or_explicit_cpu(monkeypatch, tree,
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_CERRA.main(["--root_CERRA", cfg.root_CERRA, "--dir_log",
                           cfg.dir_log])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_real(cfg.replace(device_data=True), "CERRA")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_real(cfg.replace(device_data=True), "CERRA", device="cpu")
+        train_real(cfg.replace(mesh_shape=[2]), "CERRA", device="cpu")
 
 
 # ---------------------------------------------------------------- card only

@@ -97,6 +97,7 @@ def test_port_imports_nothing_of_jax():
     modules = sorted(".".join(f.relative_to(REPO).with_suffix("").parts)
                      for f in package if f.name != "__init__.py")
     assert "idee_tpu_torch.train.driver_real" in modules
+    assert "idee_tpu_torch.data.device" in modules
     assert "idee_tpu_torch.cli.predict_synthetic" in modules
     assert {f"idee_tpu_torch.cli.{m}" for m in (
         "convert_synthetic", "convert_reanalysis", "train_benchmark_accuracy",

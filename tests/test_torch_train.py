@@ -572,8 +572,7 @@ def test_train_cli_reads_npz_cube(cube, tmp_path):
 
 
 def test_driver_refuses_what_is_not_ported(tmp_path):
-    for kw in ({"device_data": True}, {"mesh_shape": [2]},
-               {"profile_dir": str(tmp_path)}):
+    for kw in ({"mesh_shape": [2]}, {"profile_dir": str(tmp_path)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_synthetic(_driver_config(tmp_path, **kw), device="cpu")
 
