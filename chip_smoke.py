@@ -150,7 +150,42 @@ Phases, each printing one JSON line:
                  val steps/s, busy share and peak memory beside the host
                  loader's numbers of this run; Mamba also shows that
                  dropout draws new bits at every replay
- 19. kernels     one line listing every kernel: route, source, launches by
+ 19. profile_hook
+                 train_synthetic for 1 epoch of Mamba with profile_dir and
+                 device_data + fused_epoch: the hook selects the per-step
+                 loop; its Chrome trace of steps 2-7 names the fused scan's
+                 forward and backward kernels (18 of each), the losses
+                 equal train_device's per-step loop's, and the image panels
+                 (a writer stand-in keeps them) have JAX's shapes and
+                 values in [0, 1]. Since this slice every train_synthetic
+                 and train_real epoch ends with the panels' one more eval
+                 forward, which the launch counts include (PANEL_STEPS)
+ 20. reference_checkpoint
+                 for Mamba (d_state 1 and 2), Swin_3D and CNN_3D: a seeded
+                 model exported by cli/export_reference_checkpoint.py to a
+                 reference .pth and imported back by
+                 cli/import_reference_checkpoint.py, then test_synthetic
+                 on the imported weights: weights, logits and metrics
+                 bit-equal to the original's, exact launches, the export's
+                 keys in the key map's order; .pth bytes, export and
+                 import seconds
+ 21. native_loader, native_vhi
+                 the host batch engine (idee_tpu_torch/native): its g++
+                 build seconds, shuffled epochs bit-equal to the numpy
+                 path's with augmentation off and on and 0 and 8 loader
+                 workers, host ms per batch of each path, engine_threads,
+                 Mamba's train steps/s and busy share fed by each path;
+                 after the CERRA fixture, vhi_mask against its numpy
+                 version on 512x832 NOAA weeks with host ms for each
+ 22. memory_fit, profile_step
+                 cli/memory_fit.py's probes (200x200 for the three
+                 encoders, within 10 % of this run's train-phase peaks;
+                 512x832 CNN_3D, Swin_3D with and without recompute,
+                 Mamba with recompute; Swin_3D at batch 2; an
+                 out-of-memory row is a finding) and cli/profile_step.py
+                 per encoder at float32 and bf16, its full step within
+                 10 % of the profile phase's device ms per step
+ 23. kernels     one line listing every kernel: route, source, launches by
                  path, error and times
 Each "profile" line gives a path's device ms per step by operator and by
 kind of kernel (disjoint: cuDNN wgrad, dgrad, other GEMMs and implicit
@@ -251,6 +286,9 @@ IS_CLIMA_SCALE = False
 TRAIN_WEEKS, VAL_WEEKS = (1, 24), (25, 40)  # 17 train, 9 val samples
 N_EPOCHS = 2
 N_EPOCHS_SHORT = 1  # the d_state=2 and CNN_3D training paths
+# train_synthetic and train_real end each epoch with the TensorBoard image
+# panels: one more eval forward, of the last val batch
+PANEL_STEPS = 1
 
 
 def _finite(obj):
@@ -326,14 +364,20 @@ def kernel_modules():
 
 
 def phase_build():
+    from idee_tpu_torch import native
     from idee_tpu_torch.kernels import build
 
     sources = sorted({src for mod in kernel_modules()
                       for src in mod.SOURCES.values()})
     seconds = build.build(sources)
+    # the host batch engine (g++), which the host loader calls from the
+    # first phase on
+    SUMMARY["native_build_s"] = native.build()
     emit(phase="build", seconds=seconds,
          libraries=[os.path.relpath(build.library_path(s), REPO)
-                    for s in sources])
+                    for s in sources],
+         native_engine_build_s=SUMMARY["native_build_s"],
+         native_engine=os.path.relpath(native.library_path(), REPO))
 
 
 def check_fused_forward(ss, bounds, shapes=SCAN_SHAPES):
@@ -1253,8 +1297,8 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
                                    dtype=cfg.dtype)
     trn = kernel_launches_per_step(encoder, train=True, d_state=d_state,
                                    dtype=cfg.dtype)
-    want = {k: val.get(k, 0) * val_steps + trn.get(k, 0) * train_steps
-            for k in set(val) | set(trn)}
+    want = {k: val.get(k, 0) * (val_steps + n_epochs * PANEL_STEPS)
+            + trn.get(k, 0) * train_steps for k in set(val) | set(trn)}
     expect_launches(launches, want, phase)
     curves = history["train_loss"] + history["val_loss"]
     if len(curves) != 2 * n_epochs or not all(map(math.isfinite, curves)):
@@ -1977,7 +2021,7 @@ def phase_synthetic_netcdf():
     trn = kernel_launches_per_step("Mamba", train=True)
     val = kernel_launches_per_step("Mamba", train=False)
     expect_launches(launches, {
-        k: trn.get(k, 0) * n_train + val.get(k, 0) * n_val
+        k: trn.get(k, 0) * n_train + val.get(k, 0) * (n_val + PANEL_STEPS)
         for k in set(trn) | set(val)}, "synthetic_netcdf")
     curves = history["train_loss"] + history["val_loss"]
     if len(curves) != 2 or not all(map(math.isfinite, curves)):
@@ -2125,7 +2169,8 @@ def phase_accuracy():
     trn = kernel_launches_per_step("Mamba", train=True)
     val = kernel_launches_per_step("Mamba", train=False)
     expect_launches(launches["accuracy"], {
-        k: args.epochs * (trn.get(k, 0) * n_train + val.get(k, 0) * n_val)
+        k: args.epochs * (trn.get(k, 0) * n_train
+                          + val.get(k, 0) * (n_val + PANEL_STEPS))
         for k in set(trn) | set(val)}, "accuracy")
     history = payload["history"]
     if not all(map(math.isfinite, history["train_loss"]
@@ -2262,7 +2307,7 @@ def eager_first_epoch(run, cfg, what: str, n_train: int, n_val: int,
     eager = run(eager_cfg)
     torch.cuda.synchronize()
     expect_launches(read_launches(), {
-        k: val.get(k, 0) * n_val + trn.get(k, 0) * n_train
+        k: val.get(k, 0) * (n_val + PANEL_STEPS) + trn.get(k, 0) * n_train
         for k in set(val) | set(trn)}, f"{what} per-step")
     return eager
 
@@ -2321,7 +2366,8 @@ def phase_train_device(cube, phase: str, encoder: str, dtype: str,
     launches = read_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
     expect_launches(launches, {
-        k: n_epochs * (val.get(k, 0) * n_val + trn.get(k, 0) * n_train)
+        k: n_epochs * (val.get(k, 0) * (n_val + PANEL_STEPS)
+                       + trn.get(k, 0) * n_train)
         for k in set(val) | set(trn)}, phase)
     curves = history["train_loss"] + history["val_loss"]
     if len(curves) != 2 * n_epochs or not all(map(math.isfinite, curves)):
@@ -2332,7 +2378,8 @@ def phase_train_device(cube, phase: str, encoder: str, dtype: str,
         resumed = run(cfg.replace(n_epochs=n_epochs + 1))
         torch.cuda.synchronize()
         expect_launches(read_launches(), {
-            k: val.get(k, 0) * n_val + trn.get(k, 0) * n_train
+            k: val.get(k, 0) * (n_val + PANEL_STEPS)
+            + trn.get(k, 0) * n_train
             for k in set(val) | set(trn)}, f"{phase} resumed")
         if (resumed["train_loss"][:n_epochs] != history["train_loss"]
                 or resumed["state"].step != (n_epochs + 1) * n_train):
@@ -2341,6 +2388,11 @@ def phase_train_device(cube, phase: str, encoder: str, dtype: str,
 
     eager = eager_first_epoch(run, cfg, phase, n_train, n_val, trn, val)
     diff = hold_first_epoch(history, eager, phase)
+    # for profile_hook: the same first epoch with profile_dir
+    SUMMARY[f"{phase}_per_step"] = dict(
+        cfg=cfg.replace(n_epochs=1), train_cube=train_cube,
+        val_cube=val_cube, n_train=n_train, n_val=n_val,
+        train_loss=eager["train_loss"], val_loss=eager["val_loss"])
 
     train_ds, _ = _make_datasets(cfg, train_cube, val_cube)
     compared = same_order_as_host(
@@ -2428,8 +2480,9 @@ def phase_train_cerra_device(root: str):
     wall_s = time.perf_counter() - t0
     launches = read_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
-    expect_launches(launches, {k: N_EPOCHS * n * (val.get(k, 0) + trn[k])
-                               for k in trn}, phase)
+    expect_launches(launches, {
+        k: N_EPOCHS * ((n + PANEL_STEPS) * val.get(k, 0) + n * trn[k])
+        for k in trn}, phase)
     if not all(map(math.isfinite, history["train_loss"]
                    + history["val_loss"])):
         raise SystemExit(f"{phase}: bad loss history: {history}")
@@ -2626,8 +2679,9 @@ def phase_train_cerra(root: str):
     steps = N_EPOCHS * CERRA_SAMPLES  # train steps, and as many val steps
     val = kernel_launches_per_step("Mamba", train=False)
     trn = kernel_launches_per_step("Mamba", train=True)
-    expect_launches(launches, {k: val.get(k, 0) * steps + trn[k] * steps
-                               for k in trn}, "train_cerra")
+    expect_launches(launches, {
+        k: val.get(k, 0) * (steps + N_EPOCHS * PANEL_STEPS) + trn[k] * steps
+        for k in trn}, "train_cerra")
     curves = history["train_loss"] + history["val_loss"]
     if len(curves) != 2 * N_EPOCHS or not all(map(math.isfinite, curves)):
         raise SystemExit(f"bad loss history: {history}")
@@ -2828,6 +2882,424 @@ def phase_test_cerra(root: str, weights: str):
     return launches, fused
 
 
+# ------------------------------------------------------------------
+# slice 13: the reference's checkpoints, the host batch engine, the
+# profiler hook and image panels, memory_fit and profile_step
+
+# (phase name, encoder, d_state) of the reference-checkpoint round trips
+REFERENCE_CASES = (("Mamba", 1), ("Mamba", 2), ("Swin_3D", 1),
+                   ("CNN_3D", 1))
+# memory_fit probes: (family, encoder, batch, hw, remat); the 200x200
+# batch-1 rows are held against this run's train phases' peaks
+MEMORY_PROBES = (("synthetic", "Mamba", 1, "200", False),
+                 ("synthetic", "Swin_3D", 1, "200", False),
+                 ("synthetic", "CNN_3D", 1, "200", False),
+                 ("real", "CNN_3D", 1, "512x832", False),
+                 ("real", "Swin_3D", 1, "512x832", False),
+                 ("real", "Swin_3D", 1, "512x832", True),
+                 ("real", "Mamba", 1, "512x832", True),
+                 ("synthetic", "Swin_3D", 2, "200", False))
+MEMORY_TRAIN_PHASES = {"Mamba": "train", "Swin_3D": "train_swin",
+                       "CNN_3D": "train_cnn"}
+MEMORY_REL = 0.10
+# profile_step's full step against the profile phase's device ms per step
+PROFILE_STEP_ITERS = 10
+PROFILE_STEP_REL = 0.10
+PROFILE_TRAIN_PHASES = {("Mamba", "float32"): "train",
+                        ("Swin_3D", "float32"): "train_swin",
+                        ("CNN_3D", "float32"): "train_cnn",
+                        ("Mamba", "bfloat16"): "train_mamba_bf16",
+                        ("Swin_3D", "bfloat16"): "train_swin_bf16",
+                        ("CNN_3D", "bfloat16"): "train_cnn_bf16"}
+# host ms per batch: batches timed per path
+HOST_BATCHES = 16
+NATIVE_WORKERS = 8
+
+
+def phase_reference_checkpoint(cube):
+    """For Mamba (d_state 1 and 2), Swin_3D and CNN_3D at the bench width:
+    a seeded model's checkpoint exported by cli/export_reference_checkpoint
+    (from a run directory) to a reference .pth, imported back by
+    cli/import_reference_checkpoint (with the run's config snapshot), then
+    test_synthetic with --en_de_pretrained on the import: weights, logits
+    and metrics bit-equal to the original model's, launches exact, the
+    export's keys in the key map's order (JAX's). Returns the launches of
+    the imported evaluations."""
+    from idee_tpu_torch.cli import (export_reference_checkpoint,
+                                    import_reference_checkpoint)
+    from idee_tpu_torch.config import save_options, synthetic_config
+    from idee_tpu_torch.models import interop
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.train.evaluate import test_synthetic
+
+    base = _scratch("chip_smoke_reference_")
+    rows, total = {}, {}
+    n_steps = N_WEEKS - 8 + 1
+    try:
+        for encoder, d_state in REFERENCE_CASES:
+            name = f"{encoder}_n{d_state}"
+            cfg = synthetic_config(
+                encoder=encoder, d_state=[d_state, d_state], x_max=200,
+                y_max=200, times_test=(1, N_WEEKS), dir_log=base,
+                is_clima_scale=IS_CLIMA_SCALE, name=name)
+            model = build_model(cfg, torch.Generator().manual_seed(0))
+            params = model.state_dict()
+            save_options(cfg)
+            os.makedirs(os.path.join(cfg.log_dir, "model_checkpoints"))
+            torch.save({"model": params, "meta": {"epoch": 0}},
+                       os.path.join(cfg.log_dir, "model_checkpoints",
+                                    "seeded.pt"))
+            pth = os.path.join(base, f"{name}.pth")
+            exported = export_reference_checkpoint.main(
+                ["--run_dir", cfg.log_dir, "--alias", "seeded", "--out",
+                 pth, "--device", "cuda"])
+            imported_pt = os.path.join(base, f"{name}_imported.pt")
+            imported = import_reference_checkpoint.main(
+                ["--checkpoint", pth, "--out", imported_pt, "--config_pkl",
+                 os.path.join(cfg.log_dir, "config.json"), "--device",
+                 "cuda"])
+            ref = torch.load(pth, weights_only=True)["model_state_dict"]
+            entries = interop.build_param_map(
+                cfg, interop.state_dict_to_flax(params))
+            mapped = [k for e in entries for k in e.torch_keys]
+            if (list(ref)[:len(mapped)] != mapped
+                    or not all(k.endswith(interop.IGNORED_TORCH_SUFFIXES)
+                               for k in list(ref)[len(mapped):])):
+                raise SystemExit(f"{name}: export keys out of the map's "
+                                 f"order: {list(ref)[:8]}")
+            back = torch.load(imported_pt, weights_only=True)["model"]
+            if list(back) != list(params) or not all(
+                    torch.equal(back[k], params[k]) for k in params):
+                raise SystemExit(f"{name}: imported weights differ")
+
+            # the imported weights' evaluation, launches counted
+            torch.cuda.synchronize()
+            zero_launches()
+            got = test_synthetic(
+                cfg.replace(en_de_pretrained=imported_pt, name=name + "_i"),
+                cube=cube, device="cuda")
+            torch.cuda.synchronize()
+            launches = read_launches()
+            expect_launches(launches, {
+                k: v * n_steps for k, v in kernel_launches_per_step(
+                    encoder, train=False, d_state=d_state).items()},
+                f"reference_checkpoint {name}")
+            want = test_synthetic(cfg, cube=cube, params=params,
+                                  device="cuda")
+            same = all(got[k] == want[k] or (math.isnan(got[k])
+                                             and math.isnan(want[k]))
+                       for k in want)
+            x = torch.from_numpy(cube.dynamic[:, :8][None, :, None]).cuda()
+            loaded = build_model(cfg)
+            loaded.load_state_dict(back)
+            model.cuda().eval()
+            loaded.cuda().eval()
+            with torch.inference_mode():
+                z0, z1 = model(x).z, loaded(x).z
+            if not (same and torch.equal(z0, z1)):
+                raise SystemExit(f"{name}: imported evaluation differs: "
+                                 f"{got} {want}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            rows[name] = dict(
+                pth_bytes=exported["bytes"], export_s=exported["seconds"],
+                import_s=imported["seconds"], keys=len(ref),
+                parameters=imported["parameters"], metrics=got,
+                launches=launches, logits_bit_equal=True)
+            del model, loaded
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit(phase="reference_checkpoint", shape=[1, 6, 1, 8, 200, 200],
+         steps_per_eval=n_steps, cases=rows)
+    return total
+
+
+class _ItemsOnly:
+    """A dataset's item interface without get_batch: the loader collates
+    its items with numpy (the engine's plain version)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        return self.ds[i]
+
+    def draw_aug(self):
+        return self.ds.draw_aug()
+
+    def item(self, i, aug):
+        return self.ds.item(i, aug)
+
+
+def _host_ms(fn, n: int) -> float:
+    """Median host ms of fn(i) over i < n."""
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def phase_native_loader(cube):
+    """The host batch engine at the bench width: its g++ build seconds
+    (phase build);
+    every batch of a shuffled epoch bit-equal to the numpy path's
+    (augmentation off and on, loader_workers 0 and 8); host ms per batch
+    of each path and engine_threads(); then steady train steps/s and busy
+    share of Mamba's train step fed by the host loader with the engine and
+    with the numpy path."""
+    from idee_tpu_torch import native
+    from idee_tpu_torch.data.loader import DataLoader, collate
+    from idee_tpu_torch.data.synthetic import SyntheticDataset
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.train.state import create_train_state
+    from idee_tpu_torch.train.steps import init_epoch_metrics, make_train_step
+
+    def dataset(is_aug, times=(1, N_WEEKS)):
+        return SyntheticDataset(
+            cube=cube.time_slice(*times), times=times,
+            variables=cube.variables, delta_t=8, is_aug=is_aug,
+            is_clima_scale=IS_CLIMA_SCALE, x_max=200, y_max=200, seed=0)
+
+    compared = 0
+    for is_aug in (False, True):
+        for workers in (0, NATIVE_WORKERS):
+            kw = dict(device="cpu", shuffle=True, seed=1, workers=workers)
+            got = DataLoader(dataset(is_aug), 1, **kw)
+            want = DataLoader(_ItemsOnly(dataset(is_aug)), 1, device="cpu",
+                              shuffle=True, seed=1, prefetch=0)
+            for g, w in zip(got, want):
+                for k in w:
+                    if not torch.equal(g[k], w[k]):
+                        raise SystemExit(f"native_loader: {k} differs "
+                                         f"(aug {is_aug}, workers "
+                                         f"{workers})")
+                compared += 1
+    ds = dataset(True)
+    ref = dataset(True)
+    n = min(HOST_BATCHES, len(ds))
+    engine_ms = _host_ms(lambda i: ds.get_batch([i]), n)
+    numpy_ms = _host_ms(lambda i: collate([ref[i]]), n)
+    batch_bytes = sum(v.nbytes for v in ds.get_batch([0]).values())
+
+    # the train step fed by each host path
+    cfg = train_config("Mamba", n_epochs=1)
+    rates = {}
+    for path in ("engine", "numpy"):
+        train_ds = dataset(False, TRAIN_WEEKS)
+        src = train_ds if path == "engine" else _ItemsOnly(train_ds)
+        loader = DataLoader(src, 1, device="cuda", shuffle=True,
+                            keys=["x", "mask_extreme", "mask_extreme_loss",
+                                  "timestep"])
+        model = build_model(cfg, torch.Generator().manual_seed(0))
+        state = create_train_state(cfg, model, "cuda",
+                                   steps_per_epoch=len(loader))
+        step = make_train_step(model, cfg, t0=float(TRAIN_WEEKS[0]))
+        metrics = init_epoch_metrics(train_ds.anomaly.shape, "cuda")
+        sps, timed = steady_steps_per_s(lambda b: step(state, metrics, b),
+                                        iter(loader))
+        batches = iter(loader)
+        prof = profile_steps(lambda: step(state, metrics, next(batches)),
+                             n=3)
+        rates[path] = {"steady_train_steps_per_s": sps, "steps_timed": timed,
+                       "device_busy_share": prof["device_busy_share"],
+                       "device_ms_per_step": prof["device_ms_per_step"]}
+        del model, state
+    emit(phase="native_loader", build_s=SUMMARY["native_build_s"],
+         library=os.path.relpath(native.library_path(), REPO),
+         engine_threads=native.engine_threads(),
+         batches_compared=compared, workers=[0, NATIVE_WORKERS],
+         batch_shape=[1, 6, 1, 8, 200, 200], batch_bytes=batch_bytes,
+         host_ms_per_batch={"engine": engine_ms, "numpy": numpy_ms},
+         batches_timed=n, train=rates,
+         train_phase=SUMMARY["train"]["steady_train_steps_per_s"])
+
+
+def phase_native_vhi(root: str):
+    """The engine's vhi_mask against vhi_drought_plain on the CERRA
+    fixture's 512x832 NOAA weeks (the label engine's call: VHI = alpha
+    VCI + (1 - alpha) TCI, the cold mask binarised), bit for bit, with
+    host ms for each."""
+    from idee_tpu_torch import native
+    from idee_tpu_torch.data.netcdf import NetCDFFile
+    from idee_tpu_torch.data.reanalysis import vhi_drought_plain
+
+    noaa = os.path.join(root, "NOAA_CERRA", CERRA_YEAR)
+    files = sorted(os.listdir(noaa))[:HOST_BATCHES]
+    times = {"engine": [], "numpy": []}
+    pixels = drought = 0
+    for f in files:
+        with NetCDFFile(os.path.join(noaa, f)) as nc:
+            vci = nc.read("VCI").astype(np.float32)
+            tci = nc.read("TCI").astype(np.float32)
+            cold = nc.read("mask_cold_surface").astype(np.float32)
+        vhi = np.ascontiguousarray(0.5 * vci + 0.5 * tci, np.float32)
+        cold_eq1 = np.ascontiguousarray(cold == 1, np.float32)
+        t0 = time.perf_counter()
+        got = native.vhi_mask(vhi, vhi, cold_eq1, 0.5, 26.0)
+        times["engine"].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        want = vhi_drought_plain(vhi, cold, 26.0)
+        times["numpy"].append(1e3 * (time.perf_counter() - t0))
+        if not np.array_equal(got, want):
+            raise SystemExit(f"native_vhi: {f} differs from the numpy "
+                             "version")
+        pixels += got.size
+        drought += int(got.sum())
+    emit(phase="native_vhi", weeks=len(files), shape=list(vhi.shape),
+         drought_share=drought / pixels,
+         host_ms_per_week={k: float(np.median(v)) for k, v in times.items()})
+
+
+class PanelRecorder:
+    """A SummaryWriter stand-in that keeps the image panels."""
+
+    def __init__(self, log_dir):
+        self.images = []
+        PanelRecorder.last = self
+
+    def add_scalars(self, *args, **kwargs):
+        pass
+
+    def add_images(self, tag, images, step, dataformats="HWC"):
+        self.images.append((tag, np.asarray(images), step, dataformats))
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def phase_profile_hook():
+    """train_synthetic for 1 epoch (Mamba, float32, bench width) with
+    profile_dir and device_data + fused_epoch: the hook selects the
+    per-step device loop and traces steps 2-7. The trace names the fused
+    scan's forward and backward kernels; the epoch's losses equal those of
+    train_device's per-step loop (the same run without profile_dir); the
+    image panels are made (shapes as JAX's, values in [0, 1]). Returns
+    the launches."""
+    import idee_tpu_torch.train.driver as driver
+
+    ref = SUMMARY["train_device_per_step"]
+    prof_dir = _scratch("chip_smoke_profile_")
+    cfg = ref["cfg"].replace(name="chip_smoke_profile_hook",
+                             profile_dir=prof_dir)
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    writer = driver.SummaryWriter
+    driver.SummaryWriter = PanelRecorder
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        history = driver.train_synthetic(
+            cfg, train_cube=ref["train_cube"], val_cube=ref["val_cube"],
+            device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        path = os.path.join(prof_dir, f"{cfg.name}_train.trace.json")
+        trace_bytes = os.path.getsize(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        driver.SummaryWriter = writer
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    trn = kernel_launches_per_step("Mamba", train=True)
+    val = kernel_launches_per_step("Mamba", train=False)
+    n_train, n_val = ref["n_train"], ref["n_val"]
+    expect_launches(launches, {
+        k: val.get(k, 0) * (n_val + PANEL_STEPS) + trn.get(k, 0) * n_train
+        for k in set(val) | set(trn)}, "profile_hook")
+    kernels = {}
+    for e in events:
+        for name in ("fused_scan_n1_fwd_kernel", "fused_scan_n1_bwd_kernel"):
+            if name in e.get("name", ""):
+                kernels[name] = kernels.get(name, 0) + 1
+    # steps 2-7: six train steps, three of each kernel per step
+    if kernels != {"fused_scan_n1_fwd_kernel": 18,
+                   "fused_scan_n1_bwd_kernel": 18}:
+        raise SystemExit(f"profile_hook: trace kernels {kernels}")
+    diff = {k: abs(history[k][0] - ref[k][0]) / abs(ref[k][0])
+            for k in ("train_loss", "val_loss")}
+    if not all(d <= DEVICE_LOSS_RTOL for d in diff.values()):
+        raise SystemExit(f"profile_hook: losses {history['train_loss']} "
+                         f"{history['val_loss']} against {ref}")
+    images = PanelRecorder.last.images
+    shapes = {tag: list(im.shape) for tag, im, _, _ in images}
+    want = {"extremes": [1, 200, 600, 3],
+            **{v: [400, 1600, 3] for v in cfg.variables}}
+    if shapes != want or not all(0 <= im.min() and im.max() <= 1
+                                 for _, im, _, _ in images):
+        raise SystemExit(f"profile_hook: panels {shapes}")
+    emit(phase="profile_hook", encoder=cfg.encoder, traced_steps=[2, 7],
+         trace_bytes=trace_bytes, trace_events=len(events),
+         trace_kernels=kernels, launches=launches,
+         losses={k: history[k] for k in ("train_loss", "val_loss")},
+         rel_diff_to_per_step=diff,
+         losses_bit_equal=all(d == 0 for d in diff.values()),
+         panels=shapes, wall_s_with_setup=wall_s)
+    return launches
+
+
+def phase_memory_fit():
+    """cli/memory_fit.py's probes (MEMORY_PROBES): one train step each on
+    the card, the 200x200 batch-1 peaks within MEMORY_REL of this run's
+    train phases; an out-of-memory row is a finding."""
+    from idee_tpu_torch.cli import memory_fit
+
+    rows = []
+    for family, encoder, batch, hw, remat in MEMORY_PROBES:
+        H, W = memory_fit.parse_hw(hw)
+        t0 = time.perf_counter()
+        row = memory_fit.probe(family, encoder, batch, H, W, remat=remat,
+                               device="cuda")
+        row["seconds"] = time.perf_counter() - t0
+        if family == "synthetic" and batch == 1:
+            train_peak = SUMMARY[MEMORY_TRAIN_PHASES[encoder]][
+                "max_memory_allocated"]
+            row["train_phase_peak_bytes"] = train_peak
+            row["rel_to_train_phase"] = row["peak_bytes"] / train_peak - 1
+            if not (row["fits"] and abs(row["rel_to_train_phase"])
+                    <= MEMORY_REL):
+                raise SystemExit(f"memory_fit: {row}")
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    emit(phase="memory_fit", rel_tolerance=MEMORY_REL, probes=rows)
+
+
+def phase_profile_step():
+    """cli/profile_step.py per encoder at float32 and bf16
+    (PROFILE_STEP_ITERS iterations): the full step's median ms within
+    PROFILE_STEP_REL of the encoder's device ms per train step in this
+    run's profile phase."""
+    from idee_tpu_torch.cli import profile_step
+
+    runs = []
+    for (encoder, dtype), phase in PROFILE_TRAIN_PHASES.items():
+        s = profile_step.profile(encoder, hw=200, iters=PROFILE_STEP_ITERS,
+                                 dtype=dtype, device="cuda")
+        ref = SUMMARY[phase]["device_ms_per_step"]
+        rel = s["step_ms"] / ref - 1
+        if abs(rel) > PROFILE_STEP_REL:
+            raise SystemExit(f"profile_step {encoder} {dtype}: step "
+                             f"{s['step_ms']} ms against {ref} ms")
+        runs.append({"encoder": encoder, "dtype": dtype,
+                     "step_ms": s["step_ms"], "profile_phase": phase,
+                     "profile_device_ms_per_step": ref,
+                     "rel_to_profile": rel,
+                     "step_tflop_per_s": s["step_tflop_per_s"],
+                     "step_mfu": s["step_mfu"],
+                     "segments": {r["segment"]: r["ms"]
+                                  for r in s["segments"]}})
+    emit(phase="profile_step", iters=PROFILE_STEP_ITERS,
+         rel_tolerance=PROFILE_STEP_REL, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2872,15 +3344,21 @@ def main() -> int:
         cube, "train_device_swin_bf16", "Swin_3D", "bfloat16",
         N_EPOCHS_SHORT, resume=False,
         host=("train_swin_bf16", "main_swin_bf16"))
+    paths["profile_hook"] = phase_profile_hook()
     paths.update(phase_baselines(cube))
+    paths["reference_checkpoint"] = phase_reference_checkpoint(cube)
+    phase_native_loader(cube)
     del cube
     paths["synthetic_netcdf"] = phase_synthetic_netcdf()
     paths.update(phase_accuracy())
+    phase_memory_fit()
+    phase_profile_step()
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     cerra_root = tempfile.mkdtemp(prefix="chip_smoke_cerra_",
                                   dir=os.path.join(REPO, "build"))
     try:
         phase_cerra_fixture(cerra_root)
+        phase_native_vhi(cerra_root)
         paths["train_cerra"], weights = phase_train_cerra(cerra_root)
         paths["train_cerra_device"] = phase_train_cerra_device(cerra_root)
         cerra_paths, fused_cerra = phase_test_cerra(cerra_root, weights)

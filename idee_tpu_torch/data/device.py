@@ -178,11 +178,13 @@ class RealDeviceLoader(_EpochLoader):
     x [B, V, 2, dt, H, W] (index 0 the target week: no time flip on this
     path), mask_extreme, mask_extreme_loss (the window's union at 35),
     mask_cold_surface and mask_cold_surface_loss (the union without the
-    target week).
+    target week); ``with_eval_masks`` adds the static mask_sea and
+    mask_no_vegetation that the image panels read.
     """
 
     def __init__(self, ds, batch_size: int, seed: int = 0,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32,
+                 with_eval_masks: bool = False, device=None):
         super().__init__(len(ds), batch_size, seed, bool(ds.is_aug), device)
         self.ds = ds
         dt = ds.delta_t
@@ -216,6 +218,13 @@ class RealDeviceLoader(_EpochLoader):
         self.xw = put(xw, dtype)
         self.d35, self.dthr, self.cold = put(d35), put(dthr), put(cold)
         self.main_idx, self.noaa_idx = put(main_idx), put(noaa_idx)
+        self.eval_masks = None
+        if with_eval_masks:
+            masks = ((ds.mask_water_scaled, ds.mask_no_vegetation_scaled)
+                     if ds.is_reduce else
+                     (ds.mask_water, ds.mask_no_vegetation))
+            self.eval_masks = tuple(put(np.asarray(m, np.float32))
+                                    for m in masks)
 
     def _normalized_week(self, path: str) -> np.ndarray:
         """One week's normalised [V, 2, H, W] slab: the week's restriction
@@ -262,4 +271,8 @@ class RealDeviceLoader(_EpochLoader):
                # the cold-surface loss union leaves out the target week
                # (CERRA_dataset.py:594-595)
                "mask_cold_surface_loss": cw[:, 1:].sum(1).clamp(0.0, 1.0)}
+        if self.eval_masks is not None:
+            sea, noveg = self.eval_masks
+            out["mask_sea"] = sea.expand(B, H, W)
+            out["mask_no_vegetation"] = noveg.expand(B, H, W)
         return _augment(out, flips)

@@ -19,7 +19,10 @@ the default stream unless the caller made another current in that thread:
 the same stream as the steps that read them, so they are ordered before
 those steps. x is converted to ``x_dtype`` on the host before the pinned
 copy, as the JAX drivers cast it: the drivers upload x in the compute
-dtype, which halves its bytes at bfloat16.
+dtype, which halves its bytes at bfloat16. A dataset with ``get_batch``
+(the synthetic one) builds a whole batch in one call of the host engine,
+as the JAX loader does (idee_tpu/data/loader.py:86-88); others are
+collated item by item.
 """
 # ------------------------------------------------------------------
 
@@ -88,12 +91,14 @@ class DataLoader:
             yield idx[b * self.batch_size:(b + 1) * self.batch_size]
 
     def _make_batch(self, indices, augs=None) -> Dict[str, torch.Tensor]:
-        if augs is None:
-            items = [self.dataset[int(i)] for i in indices]
+        if hasattr(self.dataset, "get_batch"):
+            # the host engine's one call per batch (idee_tpu_torch/native)
+            batch = self.dataset.get_batch(indices, augs)
+        elif augs is None:
+            batch = collate([self.dataset[int(i)] for i in indices])
         else:
-            items = [self.dataset.item(int(i), a)
-                     for i, a in zip(indices, augs)]
-        batch = collate(items)
+            batch = collate([self.dataset.item(int(i), a)
+                             for i, a in zip(indices, augs)])
         if self.keys is not None:
             batch = {k: batch[k] for k in self.keys}
         out = {}

@@ -19,8 +19,9 @@ Semantics, as in the JAX package:
   weeks; clip +-10, nan/inf -> nan_fill
 * 2 channels per variable: statistic = [mean, std]
 
-The VHI threshold runs in numpy; the JAX package's optional C++ engine
-(idee_tpu/native) gives the same bits and is not ported.
+The VHI threshold runs in the host engine (idee_tpu_torch/native
+``vhi_mask``), as in the JAX package; ``vhi_drought_plain`` is its numpy
+version.
 """
 # ------------------------------------------------------------------
 
@@ -31,9 +32,20 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from idee_tpu_torch import native
 from idee_tpu_torch.config import CORDEX_REGIONS
 from idee_tpu_torch.data.netcdf import NetCDFFile
 from idee_tpu_torch.data.synthetic import _window_mean, draw_aug
+
+
+def vhi_drought_plain(vhi: np.ndarray, cold: np.ndarray,
+                      thr: float) -> np.ndarray:
+    """The numpy version of the engine's VHI core as the label engine
+    calls it: 1 where vhi < thr (a NaN VHI is no drought) and cold != 1,
+    else 0, float32."""
+    drought = (vhi < thr).astype(np.float32)
+    drought[cold == 1] = 0
+    return drought
 
 
 @dataclass
@@ -339,9 +351,13 @@ class ReanalysisDataset:
             noveg = self.mask_no_vegetation
             water = self.mask_water
 
-        # NaN compares false: a NaN VHI is no drought
-        drought = (np.flip(vhi, 0) < thr).astype(np.float32)
-        drought[cold == 1] = 0
+        # the engine's fused threshold with the cold exclusion (JAX
+        # idee_tpu/data/reanalysis.py:370-377): it drops any cold != 0 and
+        # the reference drops cold == 1, so it gets the binarised mask
+        v = np.ascontiguousarray(np.flip(vhi, 0), np.float32)
+        drought = native.vhi_mask(
+            v, v, np.ascontiguousarray(cold == 1, np.float32), self.alpha,
+            thr)
         drought[noveg == 1] = 0
         drought[water == 1] = 0
         return drought, cold

@@ -10,7 +10,8 @@ Sources: an in-memory ``SyntheticCube``, the ``datacube_<exp>.npz`` that
 data/convert.py writes, or the reference's directory schema
 (``datacube_<exp>.nc``, ``statistic_<exp>.json``, ``climatology_<exp>.nc``)
 through data/netcdf.py: NetCDF3 natively, NetCDF4 where h5py is
-installed. The native batch engine is not ported yet.
+installed. ``get_batch`` builds a whole collated batch in one call of the
+host engine (idee_tpu_torch/native), bit-equal to collating ``item``s.
 """
 # ------------------------------------------------------------------
 
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from idee_tpu_torch import native
 from idee_tpu_torch.data.netcdf import NetCDFFile
 
 
@@ -263,6 +265,7 @@ class SyntheticDataset:
         self._anomaly = cube.anomaly
         self._extreme = cube.extreme
         self._static = cube.static
+        self._engine_arrays = None  # get_batch's float32 copies
         V, T = self._dynamic.shape[:2]
         self._timestep = np.arange(times[0], times[0] + T, dtype=np.float32)
         self._week = _week_of(self._timestep)
@@ -338,6 +341,54 @@ class SyntheticDataset:
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         return self.item(index, self.draw_aug())
+
+    def get_batch(self, indices, augs=None) -> Dict[str, np.ndarray]:
+        """The collated batch of ``indices`` in one call of the host engine
+        (native.synth_batch; JAX ``get_batch``,
+        idee_tpu/data/synthetic.py:346-390), bit-equal to
+        ``collate([self.item(i, a) ...])``. ``augs``: one ``draw_aug()``
+        per index; by default drawn here, in index order, as ``__getitem__``
+        would draw them."""
+        if augs is None:
+            augs = [self.draw_aug() for _ in indices]
+        if self._engine_arrays is None:
+            # one assignment: a pool thread sees all three or none
+            self._engine_arrays = tuple(
+                np.ascontiguousarray(a, np.float32)
+                for a in (self._dynamic, self._extreme, self._anomaly))
+        dynamic, extreme, anomaly = self._engine_arrays
+        B, dt = len(indices), self.delta_t
+        base = np.asarray(indices, np.int64).reshape(B)
+        fh = np.zeros(B, np.uint8)
+        fw = np.zeros(B, np.uint8)
+        for b, aug in enumerate(augs):
+            # rotating by 180 degrees flips both axes; flip axis -1 is W,
+            # -2 is H
+            if aug is not None:
+                rotate, flip = aug
+                fh[b] = rotate != (flip == 2)
+                fw[b] = rotate != (flip == 1)
+        x, me, mel, mel_t, ma = native.synth_batch(
+            dynamic, extreme, anomaly, base, fh, fw, dt)
+        batch = {
+            "x": x,
+            "week": np.stack([np.flip(self._week[i:i + dt] + 1)
+                              for i in base]).astype(np.float32),
+            "mask_extreme": me, "mask_extreme_loss": mel,
+            "mask_extreme_loss_t": mel_t, "mask_anomaly": ma,
+            "timestep": self._timestep[base + dt - 1][:, None].astype(
+                np.float32),
+        }
+        if self._static is not None:
+            static = np.repeat(np.asarray(self._static, np.float32)[None], B,
+                               axis=0)
+            for b in range(B):
+                if fh[b]:
+                    static[b] = static[b, :, ::-1, :]
+                if fw[b]:
+                    static[b] = static[b, :, :, ::-1]
+            batch["static"] = static
+        return batch
 
     def item(self, index: int, aug) -> Dict[str, np.ndarray]:
         """Item ``index`` with the augmentation ``aug`` of draw_aug."""

@@ -16,9 +16,13 @@ graph replay per step, train/steps.py::FusedEpoch) or, with
 epoch is timed from its start to one synchronise at its end (JAX's
 ``nb / wall``).
 
-Not ported yet (ROADMAP.md): meshes (``mesh_shape``), the profiler hook
-(``profile_dir``) and the TensorBoard image panels (scalars are written;
-so the val device loader carries no anomaly bits).
+``profile_dir`` traces steps 2-7 of the first epoch with torch.profiler
+(utils/logging.py::StepTrace) and so selects the per-step loop, as in JAX.
+Each epoch the TensorBoard image panels (utils/vis.py) are made from the
+last val batch, which the val loaders carry with its anomaly bits, through
+an eval step that returns the predictions, outside any captured graph.
+
+Not ported yet (ROADMAP.md): meshes (``mesh_shape``).
 """
 # ------------------------------------------------------------------
 
@@ -44,8 +48,11 @@ from idee_tpu_torch.train.state import count_parameters, create_train_state
 from idee_tpu_torch.train.steps import (init_epoch_metrics, make_eval_epoch,
                                         make_eval_step, make_train_epoch,
                                         make_train_step, metrics_to_host)
-from idee_tpu_torch.utils.logging import (StepTimer, SummaryWriter, fix_seed,
+from idee_tpu_torch.utils.logging import (StepTimer, StepTrace,
+                                          SummaryWriter, fix_seed,
                                           get_logger, log_string)
+from idee_tpu_torch.utils.vis import (generate_anomaly,
+                                      generate_images_synthetic)
 
 _KEYS = ["x", "mask_extreme", "mask_extreme_loss", "timestep"]
 
@@ -77,13 +84,10 @@ def _make_datasets(cfg: Config, train_cube=None, val_cube=None):
 
 
 def _check_supported(cfg: Config):
-    for flag, item in (("mesh_shape", "multi-GPU"),
-                       ("profile_dir", "the profiler hook")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag}: {item} is not ported yet (ROADMAP.md, open "
-                "items)")
-    if cfg.debug_nans and cfg.device_data and cfg.fused_epoch:
+    if cfg.mesh_shape:
+        raise NotImplementedError("mesh_shape: multi-GPU is not ported yet "
+                                  "(ROADMAP.md, open items)")
+    if cfg.debug_nans and use_fused(cfg):
         # anomaly detection reads every gradient on the host, which a CUDA
         # graph cannot capture
         raise ValueError("debug_nans needs the per-step loop: set "
@@ -91,8 +95,28 @@ def _check_supported(cfg: Config):
 
 
 def use_fused(cfg: Config) -> bool:
-    """The fused epochs run with ``device_data`` and ``fused_epoch``."""
-    return bool(cfg.device_data and cfg.fused_epoch)
+    """The fused epochs run with ``device_data`` and ``fused_epoch``, unless
+    ``profile_dir`` asks for the per-step loop's step boundaries (JAX
+    idee_tpu/train/driver.py:176-177)."""
+    return bool(cfg.device_data and cfg.fused_epoch and not cfg.profile_dir)
+
+
+def traced(loader, cfg: Config, epoch: int, start_epoch: int, device,
+           logger):
+    """``loader``'s batches; in the first epoch with ``profile_dir`` the
+    ``profile_dir`` hook traces steps 2-7 (utils/logging.py::StepTrace)."""
+    if not cfg.profile_dir or epoch != start_epoch:
+        return loader
+    return StepTrace(cfg.profile_dir, f"{cfg.name}_train", device,
+                     logger).steps(loader)
+
+
+def last_val_batch(fused, loader) -> Dict[str, torch.Tensor]:
+    """The last batch of the fused val epoch just run (JAX's one extra
+    fetch, idee_tpu/train/driver.py:269-271), built eagerly from the
+    epoch's order and flip bits."""
+    flips = None if fused.flips is None else fused.flips[-1]
+    return loader.batch(fused.order[-1], flips)
 
 
 def _epoch_results(m, evaluator, eval_anom, gt_anomaly) -> float:
@@ -103,6 +127,24 @@ def _epoch_results(m, evaluator, eval_anom, gt_anomaly) -> float:
     eval_anom(np.swapaxes(anomaly, 0, 1), np.swapaxes(gt_anomaly, 0, 1))
     n = max(int(m["n_steps"]), 1)
     return float(m["loss_sums"]["loss"]) / n
+
+
+def _panels(writer, eval_step_preds, batch, metrics, variables, step: int):
+    """The extremes panel (probability | prediction | target) and one
+    driver panel (prediction | ground truth) per variable of ``batch``
+    (JAX idee_tpu/train/driver.py:315-333)."""
+    _, preds = eval_step_preds(metrics, batch)
+    pred = preds["pred"][:, 0].float().cpu().numpy()
+    pred_c = preds["pred_c"][:, 0].float().cpu().numpy()
+    im_p, im_c, im_t = generate_images_synthetic(
+        pred, pred_c, batch["mask_extreme"].cpu().numpy())
+    writer.add_images("extremes", np.concatenate([im_p, im_c, im_t], axis=2),
+                      step, dataformats="NHWC")
+    im_a = np.concatenate([
+        generate_anomaly(preds["anomaly"].cpu().numpy()),
+        generate_anomaly(batch["mask_anomaly"].cpu().numpy())], axis=2)
+    for v, var in enumerate(variables):
+        writer.add_images(var, im_a[0, v], step, dataformats="HWC")
 
 
 def train_synthetic(cfg: Config,
@@ -130,15 +172,17 @@ def train_synthetic(cfg: Config,
         # the cube lives on the card; a step sends the host nothing
         train_loader = DeviceLoader(train_ds, cfg.batch_size, seed=cfg.seed,
                                     dtype=compute_dtype(cfg), device=dev)
+        # the anomaly bits feed the image panels only
         val_loader = DeviceLoader(val_ds, cfg.batch_size, seed=cfg.seed,
-                                  dtype=compute_dtype(cfg), device=dev)
+                                  dtype=compute_dtype(cfg),
+                                  with_anomaly=True, device=dev)
     else:
         train_loader = DataLoader(train_ds, cfg.batch_size, device=dev,
                                   keys=_KEYS, shuffle=True,
                                   drop_last=True, seed=cfg.seed,
                                   x_dtype=compute_dtype(cfg))
         val_loader = DataLoader(val_ds, cfg.batch_size, device=dev,
-                                keys=_KEYS, shuffle=True,
+                                keys=_KEYS + ["mask_anomaly"], shuffle=True,
                                 drop_last=True, seed=cfg.seed,
                                 x_dtype=compute_dtype(cfg))
 
@@ -172,6 +216,8 @@ def train_synthetic(cfg: Config,
     train_step = make_train_step(model, cfg, t0=t0_train,
                                  steps_per_epoch=len(train_loader))
     eval_step = make_eval_step(model, cfg, t0=t0_val)
+    eval_step_preds = make_eval_step(model, cfg, t0=t0_val,
+                                     return_preds=True)
     writer = SummaryWriter(cfg.log_dir)
 
     eval_train = EvaluatorSynthetic(logger, "Training")
@@ -202,7 +248,8 @@ def train_synthetic(cfg: Config,
                 sps = len(train_loader) / (time.perf_counter() - t_ep)
             else:
                 metrics = init_epoch_metrics(train_ds.anomaly.shape, dev)
-                for batch in train_loader:
+                for batch in traced(train_loader, cfg, epoch, start_epoch,
+                                    dev, logger):
                     state, metrics = train_step(state, metrics, batch)
                     timer.tick()
                 sps = timer.steps_per_sec
@@ -214,12 +261,15 @@ def train_synthetic(cfg: Config,
             best_loss_train = min(best_loss_train, mean_loss_train)
 
             # -- validation --
+            last_batch = None
             if use_fused(cfg):
                 m = metrics_to_host(eval_epoch())
+                last_batch = last_val_batch(eval_epoch, val_loader)
             else:
                 metrics = init_epoch_metrics(val_ds.anomaly.shape, dev)
                 for batch in val_loader:
                     metrics = eval_step(metrics, batch)
+                    last_batch = batch
                 m = metrics_to_host(metrics)
             mean_loss_val = _epoch_results(m, eval_val, eval_val_anom,
                                            val_ds.anomaly)
@@ -257,6 +307,12 @@ def train_synthetic(cfg: Config,
             writer.add_scalars("IOU", {"train": _nanmean(eval_train.iou),
                                        "val": _nanmean(eval_val.iou)},
                                epoch + 1)
+            if last_batch is not None:
+                # last-batch image panels (reference:
+                # train_synthetic.py:283-299)
+                _panels(writer, eval_step_preds, last_batch,
+                        init_epoch_metrics(val_ds.anomaly.shape, dev),
+                        cfg.variables, epoch + 1)
             writer.flush()
 
             for ev in (eval_train, eval_val, eval_train_anom, eval_val_anom):

@@ -12,11 +12,13 @@ checkpoints, auto-resume from latest, per-epoch history.json and
 TensorBoard scalars as in the synthetic driver. With ``device_data`` the
 weeks live on the card (data/device.py::RealDeviceLoader) and the epochs
 run fused (on a card as CUDA graph replays) or, with
-``fused_epoch=False``, step by step over the device batches.
+``fused_epoch=False``, step by step over the device batches. The
+``profile_dir`` hook and the image panels (probability, prediction and
+target with the sea, no-vegetation and cold overlays, and the drivers)
+are train/driver.py's; the val loaders carry the sea and no-vegetation
+masks for the panels.
 
-Not ported yet (ROADMAP.md): meshes, the profiler hook, and the
-TensorBoard image panels (so the val device loader carries no sea or
-no-vegetation masks).
+Not ported yet (ROADMAP.md): meshes.
 """
 # ------------------------------------------------------------------
 
@@ -35,7 +37,8 @@ from idee_tpu_torch.data.reanalysis import (ReanalysisDataset, cerra_spec,
                                             era5_land_spec)
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
 from idee_tpu_torch.train.checkpoint import CheckpointManager
-from idee_tpu_torch.train.driver import _check_supported, use_fused
+from idee_tpu_torch.train.driver import (_check_supported, last_val_batch,
+                                         traced, use_fused)
 from idee_tpu_torch.train.evaluate import load_weights
 from idee_tpu_torch.train.history import flush_history, seed_history
 from idee_tpu_torch.train.metrics import Evaluator
@@ -48,6 +51,7 @@ from idee_tpu_torch.train.steps_real import (init_epoch_metrics_real,
                                              make_train_step_real)
 from idee_tpu_torch.utils.logging import (StepTimer, SummaryWriter, fix_seed,
                                           get_logger, log_string)
+from idee_tpu_torch.utils.vis import generate_anomaly, generate_images
 
 # what the train and val steps read; the test step also reads the sea and
 # no-vegetation masks
@@ -90,6 +94,30 @@ def _mean_loss(m) -> float:
     return float(m["loss_sums"]["loss"]) / max(int(m["n_steps"]), 1)
 
 
+def _panels_real(writer, eval_step_preds, batch, metrics, variables,
+                 step: int):
+    """Probability, prediction and target panels with the sea,
+    no-vegetation and cold overlays, and one driver panel per variable, of
+    ``batch`` (JAX idee_tpu/train/driver_real.py:264-291; reference
+    train_CERRA.py:283-310)."""
+    _, preds = eval_step_preds(metrics, batch)
+    host = {k: batch[k].float().cpu().numpy() for k in (
+        "mask_extreme", "mask_cold_surface", "mask_sea",
+        "mask_no_vegetation")}
+    mask_valid = np.clip(1.0 - host["mask_cold_surface"], 0.0, None)
+    im_pred, im_pred_c, im_target = generate_images(
+        preds["pred"].float().cpu().numpy(),
+        preds["pred_c"].float().cpu().numpy(), host["mask_extreme"],
+        host["mask_cold_surface"], host["mask_sea"],
+        host["mask_no_vegetation"], mask_valid)
+    writer.add_images("probability", im_pred, step, dataformats="NHWC")
+    writer.add_images("prediction", im_pred_c, step, dataformats="NHWC")
+    writer.add_images("target", im_target, step, dataformats="NHWC")
+    im_anom = generate_anomaly(preds["anomaly"].cpu().numpy())
+    for v, var in enumerate(variables):
+        writer.add_images(var, im_anom[0, v], step, dataformats="HWC")
+
+
 def train_real(cfg: Config, family: str,
                train_ds: Optional[ReanalysisDataset] = None,
                val_ds: Optional[ReanalysisDataset] = None,
@@ -119,14 +147,18 @@ def train_real(cfg: Config, family: str,
         # one normalised slab and mask triple per unique week on the card
         loader_kw = dict(seed=cfg.seed, dtype=compute_dtype(cfg), device=dev)
         train_loader = RealDeviceLoader(train_ds, cfg.batch_size, **loader_kw)
-        val_loader = RealDeviceLoader(val_ds, cfg.batch_size, **loader_kw)
+        val_loader = RealDeviceLoader(val_ds, cfg.batch_size,
+                                      with_eval_masks=True, **loader_kw)
     else:
-        loader_kw = dict(device=dev, keys=TRAIN_KEYS, shuffle=True,
-                         drop_last=True, seed=cfg.seed,
-                         workers=cfg.loader_workers,
+        # the val batches also carry the sea and no-vegetation masks of the
+        # image panels (JAX idee_tpu/train/driver_real.py:111-114)
+        loader_kw = dict(device=dev, shuffle=True, drop_last=True,
+                         seed=cfg.seed, workers=cfg.loader_workers,
                          x_dtype=compute_dtype(cfg))
-        train_loader = DataLoader(train_ds, cfg.batch_size, **loader_kw)
-        val_loader = DataLoader(val_ds, cfg.batch_size, **loader_kw)
+        train_loader = DataLoader(train_ds, cfg.batch_size, keys=TRAIN_KEYS,
+                                  **loader_kw)
+        val_loader = DataLoader(val_ds, cfg.batch_size, keys=TEST_KEYS,
+                                **loader_kw)
 
     log_string(logger, "\nloading the model ...")
     model = build_model(cfg)
@@ -150,6 +182,7 @@ def train_real(cfg: Config, family: str,
         eval_epoch = make_eval_epoch_real(model, cfg, val_loader)
     train_step = make_train_step_real(model, cfg)
     eval_step = make_eval_step_real(model, cfg)
+    eval_step_preds = make_eval_step_real(model, cfg, return_preds=True)
     writer = SummaryWriter(cfg.log_dir)
     eval_train = Evaluator(logger, "Training")
     eval_val = Evaluator(logger, "Validation")
@@ -172,7 +205,8 @@ def train_real(cfg: Config, family: str,
                 sps = len(train_loader) / (time.perf_counter() - t_ep)
             else:
                 metrics = init_epoch_metrics_real(dev)
-                for batch in train_loader:
+                for batch in traced(train_loader, cfg, epoch, start_epoch,
+                                    dev, logger):
                     state, metrics = train_step(state, metrics, batch)
                     timer.tick()
                 sps = timer.steps_per_sec
@@ -182,12 +216,15 @@ def train_real(cfg: Config, family: str,
             eval_train.get_results(mean_loss_train, best_loss_train)
             best_loss_train = min(best_loss_train, mean_loss_train)
 
+            last_batch = None
             if use_fused(cfg):
                 m = metrics_to_host(eval_epoch())
+                last_batch = last_val_batch(eval_epoch, val_loader)
             else:
                 metrics = init_epoch_metrics_real(dev)
                 for batch in val_loader:
                     metrics = eval_step(metrics, batch)
+                    last_batch = batch
                 m = metrics_to_host(metrics)
             eval_val.update_counts(m["counts"])
             mean_loss_val = _mean_loss(m)
@@ -214,6 +251,10 @@ def train_real(cfg: Config, family: str,
                                epoch + 1)
             writer.add_scalars("F1", {"train": float(eval_train.F1[1]),
                                       "val": f1_val}, epoch + 1)
+            if last_batch is not None:
+                _panels_real(writer, eval_step_preds, last_batch,
+                             init_epoch_metrics_real(dev), cfg.variables,
+                             epoch + 1)
             writer.flush()
 
             history["train_loss"].append(mean_loss_train)

@@ -270,7 +270,7 @@ def test_accuracy_cli_on_card(cuda, tmp_path, encoder):
     """1 epoch of the accuracy CLI at 32x32 over 2 years, batch 8, bf16:
     each block launches its kernel once per forward (10 train and 1 val
     step: the 81 and 9 windows of weeks 1-88 and 89-104, partial batches
-    dropped)."""
+    dropped; and the epoch's image panels, one more val forward)."""
     from idee_tpu_torch.kernels import selective_scan as ss
     from idee_tpu_torch.kernels import window_attention as wa
 
@@ -280,7 +280,7 @@ def test_accuracy_cli_on_card(cuda, tmp_path, encoder):
                         "--epochs", "1", "--batch", "8", "--dir_log",
                         str(tmp_path), "--out", str(tmp_path / "a.json")])
     got = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c}
-    train, val = 10, 1
+    train, val = 10, 1 + 1
     if encoder == "Mamba":
         want = {ss.FUSED_FWD: 3 * (train + val), ss.FUSED_BWD: 3 * train}
     else:

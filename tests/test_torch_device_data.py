@@ -295,8 +295,9 @@ def test_graph_replays_match_the_eager_steps_on_card(cuda, cube, tmp_path):
     relative (cuDNN's backward convolutions are not bit-deterministic); the
     fused scan's launches counted once per step on both paths (3 forward
     and 3 backward per train step, 3 forward per val step); the train
-    state's step count advanced by every step. chip_smoke.py checks that
-    replays draw new dropout bits."""
+    state's step count advanced by every step; each epoch's image panels
+    add one eager val forward. chip_smoke.py checks that replays draw new
+    dropout bits."""
     from idee_tpu_torch.kernels import selective_scan as ss
 
     def run(fused):
@@ -311,7 +312,8 @@ def test_graph_replays_match_the_eager_steps_on_card(cuda, cube, tmp_path):
 
     fused, fused_launches = run(True)
     step, step_launches = run(False)
-    n_train, n_val = 2 * ((28 - 7) // 2), 2 * ((N_TIME - 28 - 7) // 2)
+    # per epoch: the val steps and the image panels' forward
+    n_train, n_val = 2 * ((28 - 7) // 2), 2 * ((N_TIME - 28 - 7) // 2 + 1)
     want = {ss.FUSED_FWD: 3 * (n_train + n_val), ss.FUSED_BWD: 3 * n_train,
             ss.LINEAR_SCAN: 0}
     assert fused_launches == want and step_launches == want

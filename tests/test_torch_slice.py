@@ -104,6 +104,28 @@ def test_port_imports_nothing_of_jax():
         "train_baselines_zoo")} <= set(modules)
     assert {f"idee_tpu_torch.quant.{m}" for m in (
         "lfq", "vq", "fsq", "latent_quantize", "random_vq")} <= set(modules)
+    assert {f"idee_tpu_torch.cli.{m}" for m in (
+        "import_reference_checkpoint", "export_reference_checkpoint",
+        "memory_fit", "profile_step", "visualize_data")} <= set(modules)
+    assert "idee_tpu_torch.utils.vis" in modules
+    assert (REPO / "idee_tpu_torch" / "native" / "__init__.py") in package
+    # the port's C++ and CUDA sources include nothing of the JAX package and
+    # name no path into it
+    sources = sorted(
+        f for pattern in ("*.cpp", "*.cu", "*.h", "*.cuh")
+        for f in (REPO / "idee_tpu_torch").rglob(pattern)
+        if "build" not in f.relative_to(REPO).parts)
+    assert REPO / "idee_tpu_torch" / "native" / "datacube_engine.cpp" \
+        in sources
+    include = re.compile(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', re.M)
+    hits = [f"{f.relative_to(REPO)}: {inc}" for f in sources
+            for inc in include.findall(f.read_text())
+            if re.search(r"(^|/)idee_tpu(/|$)", inc)]
+    hits += [f"{f.relative_to(REPO)}: names idee_tpu/" for f in sources
+             if re.search(r"(?<![\w.])idee_tpu/", "\n".join(
+                 line for line in f.read_text().splitlines()
+                 if not line.lstrip().startswith("//")))]
+    assert not hits, hits
     code = ("import sys, importlib; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -134,6 +156,26 @@ def test_entry_points_need_a_card_or_explicit_cpu(monkeypatch, cube,
                    "--y_max", "16", "--times_train", "(1, 12)",
                    "--times_val", f"(13, {N_TIME})"])
     assert idee_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_tool_clis_need_a_card_or_explicit_cpu(monkeypatch, tmp_path):
+    """The reference-checkpoint CLIs, memory_fit and profile_step run on
+    cuda unless given --device cpu (the check above)."""
+    from idee_tpu_torch.cli import (export_reference_checkpoint,
+                                    import_reference_checkpoint, memory_fit,
+                                    profile_step)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pth = tmp_path / "missing.pth"
+    for main, argv in (
+            (import_reference_checkpoint.main,
+             ["--checkpoint", str(pth), "--out", str(tmp_path / "o.pt")]),
+            (export_reference_checkpoint.main,
+             ["--checkpoint", str(pth), "--out", str(tmp_path / "o.pth")]),
+            (memory_fit.main, ["--family", "synthetic", "--hw", "16"]),
+            (profile_step.main, ["--hw", "16", "--iters", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
 
 
 def test_vq_model_forward_matches_jax(jax_side, cube):

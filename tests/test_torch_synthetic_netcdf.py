@@ -304,7 +304,8 @@ def cuda():
 @pytest.mark.gpu
 def test_train_from_netcdf3_tree_on_card(cuda, tmp_path):
     """1 epoch of Mamba from a NetCDF3 tree of two years at 32x32 (no
-    .npz, the weekly climatology): exact fused-scan launches, finite
+    .npz, the weekly climatology): exact fused-scan launches (the val
+    steps and the epoch's image panels, one more val forward), finite
     losses."""
     from idee_tpu_torch.kernels import selective_scan as ss
     from idee_tpu_torch.train.driver import train_synthetic
@@ -318,7 +319,7 @@ def test_train_from_netcdf3_tree_on_card(cuda, tmp_path):
                            times_val=(25, 40), n_epochs=1, batch_size=1)
     before = dict(ss.launches)
     history = train_synthetic(cfg, device=cuda)
-    train_steps, val_steps = 24 - 8 + 1, 16 - 8 + 1
+    train_steps, val_steps = 24 - 8 + 1, 16 - 8 + 1 + 1
     assert ss.launches[ss.FUSED_FWD] - before[ss.FUSED_FWD] == \
         3 * (train_steps + val_steps)
     assert ss.launches[ss.FUSED_BWD] - before[ss.FUSED_BWD] == \

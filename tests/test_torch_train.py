@@ -572,9 +572,17 @@ def test_train_cli_reads_npz_cube(cube, tmp_path):
 
 
 def test_driver_refuses_what_is_not_ported(tmp_path):
-    for kw in ({"mesh_shape": [2]}, {"profile_dir": str(tmp_path)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_synthetic(_driver_config(tmp_path, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_synthetic(_driver_config(tmp_path, mesh_shape=[2]),
+                        device="cpu")
+    # the profiler hook is ported: accepted, and it selects the per-step
+    # loop over the fused epochs (tests/test_torch_tools.py runs it)
+    from idee_tpu_torch.train.driver import _check_supported, use_fused
+
+    cfg = _driver_config(tmp_path, profile_dir=str(tmp_path),
+                         device_data=True)
+    _check_supported(cfg)
+    assert not use_fused(cfg) and use_fused(cfg.replace(profile_dir=None))
 
 
 # ---------------------------------------------------------------- card only
