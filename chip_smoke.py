@@ -96,7 +96,8 @@ Phases, each printing one JSON line:
                  share and peak memory beside its float32 phase's. The
                  kernel phase also holds the bf16 attention kernels against
                  their plain bf16 versions (one bf16 ulp), reruns them bit
-                 for bit and times them beside SDPA on bf16 inputs
+                 for bit, times them beside SDPA on bf16 inputs and reads
+                 their shared memory, blocks per SM and registers
  15. train_deepmil, train_arnet, train_rtfm, train_mgfn, train_rtfm_mamba,
      train_deepmil_swin, train_simplenet, train_steal, train_uniad
                  the baseline zoo (idee_tpu_torch/baselines/) at the bench
@@ -718,9 +719,9 @@ def check_attention_bf16(bounds, f32_rows):
     versions at each stage shape (q, k, v and the output gradient rounded
     to bf16; bias and mask float32), each run twice and compared bit for
     bit; timed beside SDPA on the same bf16 inputs and their bounds; their
-    shared memory and blocks per SM. The backward's time is its two
-    launches less the float32 row's dbias sum (the same launch on the same
-    shape)."""
+    shared memory, blocks per SM and registers per thread. The backward's
+    time is its two launches less the float32 row's dbias sum (the same
+    launch on the same shape)."""
     wa = kernel_modules()[1]
     bf16 = torch.bfloat16
     per_shape = {}
@@ -774,20 +775,22 @@ def check_attention_bf16(bounds, f32_rows):
         row = dict(BW=BW, n=n, G=ATTN_G, hd=ATTN_HD, shifted=geom is not None,
                    dtype="bfloat16")
         smem, per_sm = wa.fwd_occupancy(n, ATTN_HD, geom is not None, bf16)
+        fwd_regs, bwd_regs = wa.bf16_registers(n, ATTN_HD)
         row["forward"] = dict(
             max_abs_err=fwd_err, bitwise_deterministic=True,
             ms=cuda_ms(fwd, iters=50),
             plain_ms=cuda_ms(lambda: wa.window_attention_fwd_plain(
                 q, k, v, bias, mask, scale), iters=5, warmup=1),
             library_ms=sdpa_fwd, library_max_abs_err=sdpa_err,
-            smem_bytes_per_block=smem, blocks_per_sm=per_sm)
+            smem_bytes_per_block=smem, blocks_per_sm=per_sm,
+            registers=fwd_regs)
         smem, per_sm = wa.bwd_occupancy(n, ATTN_HD, geom is not None, bf16)
         row["backward"] = dict(
             max_abs_err=bwd_err, bitwise_deterministic=True,
             ms=cuda_ms(bwd, iters=20) - f32_rows[stage]["dbias_sum"]["ms"],
             plain_ms=cuda_ms(plain_bwd, iters=5, warmup=1),
             library_ms=sdpa_bwd, smem_bytes_per_block=smem,
-            blocks_per_sm=per_sm)
+            blocks_per_sm=per_sm, registers=bwd_regs)
         for key, fn in (("forward", bounds.window_attention_fwd),
                         ("backward", bounds.window_attention_bwd)):
             r = row[key]
@@ -3380,9 +3383,9 @@ def main() -> int:
         def total(field):
             return sum(r[key][field] for r in rows.values())
 
-        return {
+        row = {
             "name": name, "route": "cuda",
-            "source": "idee_tpu_torch/kernels/csrc/window_attention.cu",
+            "source": f"idee_tpu_torch/kernels/csrc/{wa.SOURCES[name]}.cu",
             "replaces": f"idee_tpu/kernels/window_attention.py:{source_line}",
             "launches": paths[path][name], "launches_by_path": by_path(name),
             "max_abs_err": max(r[key]["max_abs_err"] for r in rows.values()),
@@ -3391,6 +3394,13 @@ def main() -> int:
             "bound_by": rows["stage0"][key]["bound_by"],
             "library_ms": total("library_ms"),
         }
+        if "registers" in rows["stage0"][key]:
+            # by stage shape: registers per thread, shared memory per block,
+            # resident blocks per SM
+            row["occupancy"] = {stage: {f: r[key][f] for f in (
+                "registers", "smem_bytes_per_block", "blocks_per_sm")}
+                for stage, r in rows.items()}
+        return row
 
     emit(kernels=[{
         "name": ss.FUSED_FWD, "route": "cuda",
@@ -3451,8 +3461,8 @@ def main() -> int:
         attn_row(wa.ATTN_BWD, "backward", 240, "train_swin"),
         # library: torch.sum of the partials over the block axis
         attn_row(wa.DBIAS_SUM, "dbias_sum", 272, "train_swin"),
-        # the bf16 instantiations (compute dtype "bfloat16"); library: SDPA
-        # on the same bf16 inputs
+        # the bf16 kernels on the tensor cores (compute dtype "bfloat16");
+        # library: SDPA on the same bf16 inputs
         attn_row(wa.ATTN_FWD_BF16, "forward", 192, "train_swin_bf16",
                  attn_bf16),
         attn_row(wa.ATTN_BWD_BF16, "backward", 240, "train_swin_bf16",

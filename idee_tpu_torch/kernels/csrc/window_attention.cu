@@ -84,27 +84,14 @@
 //         may take, so every shape the wrapper accepts launches.
 // Windows of any n <= 128 run (the TPU path takes only n dividing 128).
 //
-// bf16 (the compute dtype "bfloat16"): both kernels are templates on the
-// element type T of q, k, v, o and their gradients, instantiated for float
-// and __nv_bfloat16, as _fwd_kernel / _bwd_kernel take the input dtype and
-// compute in float32. A bf16 row is widened exactly on its way into
-// registers and shared memory (four elements per 8-byte load, load4), the
-// arithmetic is the float kernels' own, and each output is rounded once on
-// its store (store4). Shared memory holds floats either way, so the budgets
-// above hold for both. The bias, the mask bank and dbias stay float32. The
-// bf16 backward forms D_i = sum_j p_ij dp_ij in float32 from the
-// recomputed scores, as the TPU kernel does, instead of go_i . o_i from
-// the saved output, which bf16 has rounded (attn_bwd_kernel). What bounds
-// them is still the float32 FMAs, expf and shared-memory traffic, not the
-// halved bytes; tensor cores are later work.
+// bf16 q, k, v (the compute dtype "bfloat16") have kernels of their own on
+// the tensor cores, in csrc/window_attention_bf16.cu; their dbias partials
+// go through dbias_sum_kernel here.
 // ------------------------------------------------------------------
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -115,34 +102,14 @@ __device__ __forceinline__ int64_t row_offset(int w, int i, int g, int n,
   return (((int64_t)w * n + i) * G + g) * hd;
 }
 
-// Four consecutive elements as floats, and back. A float group is one
-// 16-byte float4; a bf16 group is one 8-byte load, widened exactly, and
-// its store rounds each float once to nearest even. p must be aligned to
-// the group's size: rows start at multiples of HD (4, 8 or 16) elements.
+// Four consecutive floats as one 16-byte float4, and back. p must be
+// aligned to 16 bytes: rows start at multiples of HD (4, 8 or 16) floats.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // Stage the additive term into add, rows padded to n + 1: without a mask
@@ -197,10 +164,10 @@ __device__ __forceinline__ void axpy_row(float (&acc)[HD], float a,
   }
 }
 
-// dst[d] = a[d] * scale as HD / 4 stores of four elements (dst aligned as
-// load4 / store4 need), rounded once when T is bf16
-template <int HD, typename T>
-__device__ __forceinline__ void store_row(T* dst, const float (&a)[HD],
+// dst[d] = a[d] * scale as HD / 4 float4 stores (dst aligned as load4 /
+// store4 need)
+template <int HD>
+__device__ __forceinline__ void store_row(float* dst, const float (&a)[HD],
                                           float scale) {
 #pragma unroll
   for (int c = 0; c < HD / 4; ++c)
@@ -209,12 +176,11 @@ __device__ __forceinline__ void store_row(T* dst, const float (&a)[HD],
                                     a[4 * c + 3] * scale));
 }
 
-// this thread's q, k, v rows at `row` (HD elements each) into registers,
-// as floats
-template <int R4, typename T>
-__device__ __forceinline__ void load_qkv(const T* __restrict__ q,
-                                         const T* __restrict__ k,
-                                         const T* __restrict__ v,
+// this thread's q, k, v rows at `row` (HD floats each) into registers
+template <int R4>
+__device__ __forceinline__ void load_qkv(const float* __restrict__ q,
+                                         const float* __restrict__ k,
+                                         const float* __restrict__ v,
                                          int64_t row, float4 (&qr)[R4],
                                          float4 (&kr)[R4], float4 (&vr)[R4]) {
 #pragma unroll
@@ -225,12 +191,12 @@ __device__ __forceinline__ void load_qkv(const T* __restrict__ q,
   }
 }
 
-template <int HD, bool MASKED, typename T>
+template <int HD, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ bias,
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ bias,
                 const float* __restrict__ bank, const int* __restrict__ idx,
-                T* __restrict__ o, int BW, int n, int G, int nW, int wpb,
+                float* __restrict__ o, int BW, int n, int G, int nW, int wpb,
                 float scale) {
   extern __shared__ float4 smem4[];
   constexpr int R4 = HD / 4;       // float4s per row
@@ -259,7 +225,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   float4 qn[R4], kn[R4], vn[R4];  // this thread's rows of the next head
-  if (active) load_qkv<R4, T>(q, k, v, row, qn, kn, vn);
+  if (active) load_qkv<R4>(q, k, v, row, qn, kn, vn);
   const float4* Kw = Ks + wl * slot4;
   const float4* Vw = Vs + wl * slot4;
   float* prow = P + wl * p_slot + i * srow;
@@ -279,7 +245,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qs[4 * c + 2] = qn[c].z * scale;
         qs[4 * c + 3] = qn[c].w * scale;
       }
-      if (g + 1 < G) load_qkv<R4, T>(q, k, v, row + HD, qn, kn, vn);
+      if (g + 1 < G) load_qkv<R4>(q, k, v, row + HD, qn, kn, vn);
     }
     const float* bias_g = bias + (int64_t)g * nn;
     for (int e = threadIdx.x; e < nn; e += blockDim.x)
@@ -306,26 +272,21 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l += e;
       axpy_row<HD>(acc, e, Vw + j * R4);
     }
-    store_row<HD, T>(o + row, acc, 1.0f / l);
+    store_row<HD>(o + row, acc, 1.0f / l);
   }
 }
 
-// T = float: D_i = go_i . o_i from the saved output. T = bf16: that output
-// was rounded to 8 bits, and the rounding would enter every ds_ij = p_ij
-// (dp_ij - D_i), which cancels, and then dbias, a sum over all windows; so
-// D_i = sum_j p_ij dp_ij is formed in float32 from the recomputed scores,
-// as the TPU kernel forms it, and o is not read (it may be null).
-template <int HD, typename T>
+// D_i = go_i . o_i from the saved output
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ bias,
+attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ bias,
                 const float* __restrict__ bank, const int* __restrict__ idx,
-                const T* __restrict__ o, const T* __restrict__ go,
-                T* __restrict__ dq, T* __restrict__ dk,
-                T* __restrict__ dv, float* __restrict__ dbias_part,
+                const float* __restrict__ o, const float* __restrict__ go,
+                float* __restrict__ dq, float* __restrict__ dk,
+                float* __restrict__ dv, float* __restrict__ dbias_part,
                 int BW, int n, int G, int nW, int wpb, int n_groups,
                 float scale) {
-  constexpr bool kDFromP = !std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   constexpr int R4 = HD / 4;       // float4s per row
   const int slot = n * HD + 4;     // a window's rows (a multiple of 4)
@@ -360,8 +321,8 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (bank != nullptr)
       stage_additive(bias, bank, idx, add, g, c * wpb, BW, n, nW, wpb);
 
-    // stage this thread's row r of q, k, v, go as floats; keep q * scale,
-    // go, v and (T = float) D_r in registers
+    // stage this thread's row r of q, k, v, go; keep q * scale, go, v and
+    // D_r in registers
     float qs[HD], gr[HD], vr[HD], delta = 0.0f;
     const int64_t row = row_offset(w, r, g, n, G, HD);
     if (active) {
@@ -371,8 +332,7 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      kv = load4(k + row + 4 * c4),
                      vv = load4(v + row + 4 * c4),
                      gv = load4(go + row + 4 * c4),
-                     ov = kDFromP ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
-                                  : load4(o + row + 4 * c4);
+                     ov = load4(o + row + 4 * c4);
         Qs[wl * slot4 + r * R4 + c4] = qv;
         Ks[wl * slot4 + r * R4 + c4] = kv;
         Vs[wl * slot4 + r * R4 + c4] = vv;
@@ -386,10 +346,10 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           qs[4 * c4 + u] = qa[u] * scale;
           gr[4 * c4 + u] = ga[u];
           vr[4 * c4 + u] = va[u];
-          if (!kDFromP) delta = fmaf(ga[u], oa[u], delta);
+          delta = fmaf(ga[u], oa[u], delta);
         }
       }
-      if (!kDFromP) Dl[threadIdx.x] = delta;
+      Dl[threadIdx.x] = delta;
     }
     __syncthreads();
 
@@ -410,28 +370,16 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l += e;
       }
       const float il = 1.0f / l;
-      if (kDFromP) {  // D_r = sum_j p_rj dp_rj, before any ds
-        delta = 0.0f;
-        for (int j = 0; j < n; ++j) {
-          const float p = prow[j] * il;
-          prow[j] = p;
-          delta = fmaf(p, dot_row<HD>(gr, Vw + j * R4), delta);
-        }
-        Dl[threadIdx.x] = delta;
-      }
       float dqa[HD];
 #pragma unroll
       for (int d = 0; d < HD; ++d) dqa[d] = 0.0f;
       for (int j = 0; j < n; ++j) {
-        float p = prow[j];
-        if (!kDFromP) {
-          p *= il;
-          prow[j] = p;
-        }
+        const float p = prow[j] * il;
+        prow[j] = p;
         const float ds = p * (dot_row<HD>(gr, Vw + j * R4) - delta);
         axpy_row<HD>(dqa, ds, Kw + j * R4);
       }
-      store_row<HD, T>(dq + row, dqa, scale);
+      store_row<HD>(dq + row, dqa, scale);
     }
     __syncthreads();
 
@@ -465,8 +413,8 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int d = 0; d < HD; ++d) dva[d] = fmaf(p, gi[d], dva[d]);
         axpy_row<HD>(dka, ds, Qw + i * R4);
       }
-      store_row<HD, T>(dk + row, dka, scale);
-      store_row<HD, T>(dv + row, dva, 1.0f);
+      store_row<HD>(dk + row, dka, scale);
+      store_row<HD>(dv + row, dva, 1.0f);
     }
     __syncthreads();
 
@@ -553,31 +501,31 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int HD, bool MASKED, typename T>
-int launch_fwd(const T* q, const T* k, const T* v, const float* bias,
-               const float* bank, const int* idx, T* o, int BW, int n, int G,
+template <int HD, bool MASKED>
+int launch_fwd(const float* q, const float* k, const float* v,
+               const float* bias, const float* bank, const int* idx, float* o, int BW, int n, int G,
                int nW, float scale, cudaStream_t stream) {
   const int wpb = windows_per_block(n);
   const size_t smem = fwd_smem_bytes(n, HD, MASKED);
-  const cudaError_t err = allow_smem(attn_fwd_kernel<HD, MASKED, T>, smem);
+  const cudaError_t err = allow_smem(attn_fwd_kernel<HD, MASKED>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (BW + wpb - 1) / wpb;  // each walks all G heads
-  attn_fwd_kernel<HD, MASKED, T><<<(unsigned int)blocks, kThreads, smem,
+  attn_fwd_kernel<HD, MASKED><<<(unsigned int)blocks, kThreads, smem,
                                    stream>>>(q, k, v, bias, bank, idx, o, BW,
                                              n, G, nW, wpb, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_fwd(const T* q, const T* k, const T* v, const float* bias,
-               const float* bank, const int* idx, T* o, int BW, int n, int G,
-               int hd, int nW, float scale, cudaStream_t stream) {
+int launch_fwd(const float* q, const float* k, const float* v,
+               const float* bias, const float* bank, const int* idx, float* o,
+               int BW, int n, int G, int hd, int nW, float scale,
+               cudaStream_t stream) {
   const bool m = bank != nullptr;
   switch (hd * 2 + (m ? 1 : 0)) {
 #define IDEE_FWD(HD, MASKED)                                               \
   case HD * 2 + MASKED:                                                    \
-    return launch_fwd<HD, (MASKED != 0), T>(q, k, v, bias, bank, idx, o,  \
-                                            BW, n, G, nW, scale, stream);
+    return launch_fwd<HD, (MASKED != 0)>(q, k, v, bias, bank, idx, o, BW, \
+                                         n, G, nW, scale, stream);
     IDEE_FWD(4, 0) IDEE_FWD(4, 1) IDEE_FWD(8, 0) IDEE_FWD(8, 1)
     IDEE_FWD(16, 0) IDEE_FWD(16, 1)
 #undef IDEE_FWD
@@ -586,35 +534,36 @@ int launch_fwd(const T* q, const T* k, const T* v, const float* bias,
   }
 }
 
-template <int HD, typename T>
-int launch_bwd(const T* q, const T* k, const T* v, const float* bias,
-               const float* bank, const int* idx, const T* o, const T* go,
-               T* dq, T* dk, T* dv, float* dbias_part, int BW, int n, int G,
+template <int HD>
+int launch_bwd(const float* q, const float* k, const float* v,
+               const float* bias, const float* bank, const int* idx,
+               const float* o, const float* go, float* dq, float* dk,
+               float* dv, float* dbias_part, int BW, int n, int G,
                int nW, int n_blocks, float scale, cudaStream_t stream) {
   const int wpb = windows_per_block(n);
   const size_t smem = bwd_smem_bytes(n, HD, bank != nullptr);
-  const cudaError_t err = allow_smem(attn_bwd_kernel<HD, T>, smem);
+  const cudaError_t err = allow_smem(attn_bwd_kernel<HD>, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_groups = (BW + wpb - 1) / wpb;
   // head-fastest: block b takes head b % G and window groups b / G,
   // b / G + n_blocks, ...
-  attn_bwd_kernel<HD, T><<<(unsigned int)((int64_t)n_blocks * G), kThreads,
+  attn_bwd_kernel<HD><<<(unsigned int)((int64_t)n_blocks * G), kThreads,
                            smem, stream>>>(
       q, k, v, bias, bank, idx, o, go, dq, dk, dv, dbias_part, BW, n, G, nW,
       wpb, n_groups, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const T* q, const T* k, const T* v, const float* bias,
-               const float* bank, const int* idx, const T* o, const T* go,
-               T* dq, T* dk, T* dv, float* dbias_part, int BW, int n, int G,
+int launch_bwd(const float* q, const float* k, const float* v,
+               const float* bias, const float* bank, const int* idx,
+               const float* o, const float* go, float* dq, float* dk,
+               float* dv, float* dbias_part, int BW, int n, int G,
                int hd, int nW, int n_blocks, float scale,
                cudaStream_t stream) {
   switch (hd) {
 #define IDEE_BWD(HD)                                                        \
   case HD:                                                                  \
-    return launch_bwd<HD, T>(q, k, v, bias, bank, idx, o, go, dq, dk, dv,   \
+    return launch_bwd<HD>(q, k, v, bias, bank, idx, o, go, dq, dk, dv,      \
                              dbias_part, BW, n, G, nW, n_blocks, scale,     \
                              stream);
     IDEE_BWD(4) IDEE_BWD(8) IDEE_BWD(16)
@@ -624,7 +573,6 @@ int launch_bwd(const T* q, const T* k, const T* v, const float* bias,
   }
 }
 
-template <typename T>
 int fwd_occupancy(int n, int hd, bool masked, int* smem_bytes,
                   int* blocks_per_sm) {
   if (n < 1 || n > kThreads) return (int)cudaErrorInvalidValue;
@@ -634,10 +582,10 @@ int fwd_occupancy(int n, int hd, bool masked, int* smem_bytes,
 #define IDEE_FWD_OCC(HD, MASKED)                                            \
   case HD * 2 + MASKED: {                                                   \
     const cudaError_t err =                                                 \
-        allow_smem(attn_fwd_kernel<HD, (MASKED != 0), T>, smem);            \
+        allow_smem(attn_fwd_kernel<HD, (MASKED != 0)>, smem);            \
     if (err != cudaSuccess) return (int)err;                                \
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
-        blocks_per_sm, attn_fwd_kernel<HD, (MASKED != 0), T>, kThreads,     \
+        blocks_per_sm, attn_fwd_kernel<HD, (MASKED != 0)>, kThreads,     \
         smem);                                                              \
   }
     IDEE_FWD_OCC(4, 0) IDEE_FWD_OCC(4, 1) IDEE_FWD_OCC(8, 0)
@@ -648,7 +596,6 @@ int fwd_occupancy(int n, int hd, bool masked, int* smem_bytes,
   }
 }
 
-template <typename T>
 int bwd_occupancy(int n, int hd, bool masked, int* smem_bytes,
                   int* blocks_per_sm) {
   if (n < 1 || n > kThreads) return (int)cudaErrorInvalidValue;
@@ -657,10 +604,10 @@ int bwd_occupancy(int n, int hd, bool masked, int* smem_bytes,
   switch (hd) {
 #define IDEE_BWD_OCC(HD)                                                    \
   case HD: {                                                                \
-    const cudaError_t err = allow_smem(attn_bwd_kernel<HD, T>, smem);       \
+    const cudaError_t err = allow_smem(attn_bwd_kernel<HD>, smem);       \
     if (err != cudaSuccess) return (int)err;                                \
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
-        blocks_per_sm, attn_bwd_kernel<HD, T>, kThreads, smem);             \
+        blocks_per_sm, attn_bwd_kernel<HD>, kThreads, smem);             \
   }
     IDEE_BWD_OCC(4) IDEE_BWD_OCC(8) IDEE_BWD_OCC(16)
 #undef IDEE_BWD_OCC
@@ -673,14 +620,12 @@ bool fwd_shape_ok(int n, int G) { return n >= 1 && n <= kThreads && G <= 65535; 
 
 }  // namespace
 
-// The C interface. q, k, v, o, go, dq, dk, dv: [BW, n, G, hd], float32
-// for the plain entry points and bf16 for the _bf16 ones (computed in
-// float32 inside, each output rounded once); bias: [G, n, n] float32;
-// bank: [K, n, n] float32 and idx: [nW] int32, or both NULL for no mask;
-// 1 <= n <= 128; hd in {4, 8, 16}; the kernels move q, k, v, o, go, dq,
-// dk, dv in groups of four elements, so their pointers must be aligned to
-// 16 bytes (the wrapper checks). Launches on `stream` (a cudaStream_t
-// passed as a pointer) and returns cudaGetLastError(), or
+// The C interface. q, k, v, o, go, dq, dk, dv: [BW, n, G, hd] float32;
+// bias: [G, n, n] float32; bank: [K, n, n] float32 and idx: [nW] int32,
+// or both NULL for no mask; 1 <= n <= 128; hd in {4, 8, 16}; the kernels
+// move q, k, v, o, go, dq, dk, dv as float4, so their pointers must be
+// aligned to 16 bytes (the wrapper checks). Launches on `stream` (a
+// cudaStream_t passed as a pointer) and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape the kernels do not take.
 
 extern "C" int idee_window_attention_fwd(const float* q, const float* k,
@@ -691,18 +636,8 @@ extern "C" int idee_window_attention_fwd(const float* q, const float* k,
                                          void* stream) {
   if (BW <= 0 || G <= 0) return (int)cudaSuccess;
   if (!fwd_shape_ok(n, G)) return (int)cudaErrorInvalidValue;
-  return launch_fwd<float>(q, k, v, bias, bank, idx, o, BW, n, G, hd, nW,
-                           scale, (cudaStream_t)stream);
-}
-
-extern "C" int idee_window_attention_fwd_bf16(
-    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const float* bias, const float* bank, const int* idx, __nv_bfloat16* o,
-    int BW, int n, int G, int hd, int nW, float scale, void* stream) {
-  if (BW <= 0 || G <= 0) return (int)cudaSuccess;
-  if (!fwd_shape_ok(n, G)) return (int)cudaErrorInvalidValue;
-  return launch_fwd<__nv_bfloat16>(q, k, v, bias, bank, idx, o, BW, n, G, hd,
-                                   nW, scale, (cudaStream_t)stream);
+  return launch_fwd(q, k, v, bias, bank, idx, o, BW, n, G, hd, nW, scale,
+                    (cudaStream_t)stream);
 }
 
 // dbias_part: [n_blocks, G, n, n] float32 scratch; each of the n_blocks x G
@@ -715,24 +650,8 @@ extern "C" int idee_window_attention_bwd(
     int hd, int nW, int n_blocks, float scale, void* stream) {
   if (BW <= 0 || G <= 0) return (int)cudaSuccess;
   if (!fwd_shape_ok(n, G) || n_blocks < 1) return (int)cudaErrorInvalidValue;
-  return launch_bwd<float>(q, k, v, bias, bank, idx, o, go, dq, dk, dv,
-                           dbias_part, BW, n, G, hd, nW, n_blocks, scale,
-                           (cudaStream_t)stream);
-}
-
-// The bf16 backward takes no saved output: it forms D_i from the
-// recomputed scores (see attn_bwd_kernel).
-extern "C" int idee_window_attention_bwd_bf16(
-    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const float* bias, const float* bank, const int* idx,
-    const __nv_bfloat16* go, __nv_bfloat16* dq, __nv_bfloat16* dk,
-    __nv_bfloat16* dv, float* dbias_part, int BW, int n, int G, int hd,
-    int nW, int n_blocks, float scale, void* stream) {
-  if (BW <= 0 || G <= 0) return (int)cudaSuccess;
-  if (!fwd_shape_ok(n, G) || n_blocks < 1) return (int)cudaErrorInvalidValue;
-  return launch_bwd<__nv_bfloat16>(q, k, v, bias, bank, idx, nullptr, go, dq,
-                                   dk, dv, dbias_part, BW, n, G, hd, nW,
-                                   n_blocks, scale, (cudaStream_t)stream);
+  return launch_bwd(q, k, v, bias, bank, idx, o, go, dq, dk, dv, dbias_part,
+                    BW, n, G, hd, nW, n_blocks, scale, (cudaStream_t)stream);
 }
 
 // dbias [E] = the sum of part [n_blocks, E] over its first axis, in the
@@ -755,32 +674,16 @@ extern "C" int idee_window_attention_dbias_sum(const float* part,
 
 // Each kernel's shared memory per block (fwd_smem_bytes, bwd_smem_bytes)
 // and its resident blocks per SM on the current device, at window n, head
-// width hd, with (masked != 0) or without a mask. The bf16 instantiations
-// stage the same float32 rows, so only their registers can differ.
+// width hd, with (masked != 0) or without a mask.
 extern "C" int idee_window_attention_fwd_occupancy(int n, int hd, int masked,
                                                    int* smem_bytes,
                                                    int* blocks_per_sm) {
-  return fwd_occupancy<float>(n, hd, masked != 0, smem_bytes, blocks_per_sm);
-}
-
-extern "C" int idee_window_attention_fwd_bf16_occupancy(int n, int hd,
-                                                        int masked,
-                                                        int* smem_bytes,
-                                                        int* blocks_per_sm) {
-  return fwd_occupancy<__nv_bfloat16>(n, hd, masked != 0, smem_bytes,
-                                      blocks_per_sm);
+  return fwd_occupancy(n, hd, masked != 0, smem_bytes, blocks_per_sm);
 }
 
 extern "C" int idee_window_attention_bwd_occupancy(int n, int hd, int masked,
                                                    int* smem_bytes,
                                                    int* blocks_per_sm) {
-  return bwd_occupancy<float>(n, hd, masked != 0, smem_bytes, blocks_per_sm);
+  return bwd_occupancy(n, hd, masked != 0, smem_bytes, blocks_per_sm);
 }
 
-extern "C" int idee_window_attention_bwd_bf16_occupancy(int n, int hd,
-                                                        int masked,
-                                                        int* smem_bytes,
-                                                        int* blocks_per_sm) {
-  return bwd_occupancy<__nv_bfloat16>(n, hd, masked != 0, smem_bytes,
-                                      blocks_per_sm);
-}

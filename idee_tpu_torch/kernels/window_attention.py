@@ -2,8 +2,9 @@
 """Window attention of the Swin_3D encoder, with its gradient.
 
 Counterpart of idee_tpu/kernels/window_attention.py. Per window and head,
-softmax(q k^T * scale + bias[g] + mask[w mod nW]) v, as three hand-written
-CUDA kernels in ``csrc/window_attention.cu``, built by ``kernels/build.py``:
+softmax(q k^T * scale + bias[g] + mask[w mod nW]) v, as hand-written CUDA
+kernels built by ``kernels/build.py``: for float32 q, k, v in
+``csrc/window_attention.cu``
 
   * the forward (``_fwd_kernel`` of the TPU package);
   * the backward (``_bwd_kernel``): dq, dk, dv and per-block partial sums of
@@ -11,7 +12,13 @@ CUDA kernels in ``csrc/window_attention.cu``, built by ``kernels/build.py``:
   * the sum of those partials, in a fixed order, into dbias: a launch of
     its own, so the bias gradient takes no float atomics and two runs give
     the same bits (``dbias_sum``; ``dbias_sum_plain`` adds in the same
-    order).
+    order);
+
+and for bfloat16 q, k, v (the compute dtype "bfloat16") a forward and a
+backward on the tensor cores in ``csrc/window_attention_bf16.cu``
+(``window_attention_fwd_bf16``, ``window_attention_bwd_bf16``: mma.sync of
+bf16 operands with float32 sums, p and ds as hi + lo bf16 pairs), whose
+dbias partials go through the same float32 sum.
 
 ``window_attention`` is a ``torch.autograd.Function``: its forward saves q,
 k, v, bias and the output, its backward is the backward kernels; bias gets
@@ -28,15 +35,12 @@ window-minor (``nn/swin3d.py::window_partition``), G = variables x heads
 idx [nW]) pair (window w uses bank[idx[w % nW]]; ``nn/swin3d.py::
 compute_shift_mask``), or a dense [nW, n, n] float32 tensor.
 
-q, k, v are float32, or bfloat16 (the compute dtype "bfloat16") with a
-float32 bias, as the TPU kernels take the input dtype. Their dtype picks
-the kernels: float32 the float kernels, bfloat16 their bf16 instantiations
-(``window_attention_fwd_bf16``, ``window_attention_bwd_bf16``), which
-compute in float32 and round each output once; dbias and the dbias sum
-stay float32. At bf16 the plain versions upcast, run the float32 math and
-round the outputs, and the backward's D_i = sum_j p_ij dp_ij is formed
-from the recomputed scores (JAX's ``_bwd_kernel``), not from the rounded
-output.
+q, k, v are float32, or bfloat16 with a float32 bias, as the TPU kernels
+take the input dtype. Their dtype picks the kernels; each output is
+rounded once to q's dtype, and dbias and the dbias sum stay float32. At
+bf16 the plain versions upcast, run the float32 math and round the
+outputs, and the backward's D_i = sum_j p_ij dp_ij is formed from the
+recomputed scores (JAX's ``_bwd_kernel``), not from the rounded output.
 """
 # ------------------------------------------------------------------
 
@@ -54,8 +58,10 @@ ATTN_FWD_BF16 = "window_attention_fwd_bf16"
 ATTN_BWD_BF16 = "window_attention_bwd_bf16"
 DBIAS_SUM = "window_attention_dbias_sum"
 # the csrc/<source>.cu of each kernel
-SOURCES = {name: "window_attention" for name in (
-    ATTN_FWD, ATTN_BWD, ATTN_FWD_BF16, ATTN_BWD_BF16, DBIAS_SUM)}
+SOURCES = {ATTN_FWD: "window_attention", ATTN_BWD: "window_attention",
+           DBIAS_SUM: "window_attention",
+           ATTN_FWD_BF16: "window_attention_bf16",
+           ATTN_BWD_BF16: "window_attention_bf16"}
 
 # launches of each CUDA kernel in this process; the plain CPU versions do
 # not count. A step captured in a CUDA graph counts once per replay, not at
@@ -318,8 +324,9 @@ def fwd_occupancy(n: int, hd: int, masked: bool,
                   dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """(shared-memory bytes per block, resident blocks per SM) of the
     forward kernel for q, k, v of ``dtype`` at window n and head width hd,
-    as the current card's occupancy calculator gives them. Launches
-    nothing."""
+    as the current card's occupancy calculator gives them (the bf16 one:
+    for G >= the heads of its work item, 12 at the stage shapes; the mask
+    changes neither). Launches nothing."""
     return _occupancy(KERNELS[dtype][0], n, hd, masked)
 
 
@@ -327,6 +334,24 @@ def bwd_occupancy(n: int, hd: int, masked: bool,
                   dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """The same for the backward kernel."""
     return _occupancy(KERNELS[dtype][1], n, hd, masked)
+
+
+def bf16_registers(n: int, hd: int) -> Tuple[int, int]:
+    """Registers per thread of the bf16 forward and backward kernels at
+    window n and head width hd, as cudaFuncGetAttributes reads them from
+    the built library. Launches nothing."""
+    out = []
+    for kernel in (ATTN_FWD_BF16, ATTN_BWD_BF16):
+        fn = build.c_function(
+            SOURCES[kernel], f"{_SIGNATURES[kernel][0]}_registers",
+            [_I, _I, ctypes.POINTER(_I)])
+        regs = _I()
+        torch.cuda.current_device()  # initialises the card's context
+        err = fn(n, hd, ctypes.byref(regs))
+        if err != 0:
+            raise RuntimeError(f"register query failed: cudaError {err}")
+        out.append(regs.value)
+    return out[0], out[1]
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -354,7 +379,7 @@ class _WindowAttention(torch.autograd.Function):
 
 def _aligned(t):
     """``t`` contiguous, starting 16-byte aligned on a card (the kernels
-    move rows in groups of four elements: a float4, or 8 bytes of bf16,
+    move rows as a float4, or bf16 rows in 16-byte pieces, 8 at hd = 4,
     and a row starts at a multiple of hd >= 4 elements): a misaligned view
     is copied."""
     t = t.contiguous()

@@ -41,9 +41,9 @@ import pytest
 import torch
 
 from idee_tpu_torch.kernels import window_attention as wa
-from test_torch_window_attention import (CARD_CASES, FWD_CASES, GRAD_ATOL,
-                                         GRAD_RTOL, DBIAS_REL, _case,
-                                         _torch_mask)
+from test_torch_window_attention import (CARD_CASES, FWD_CASES, GEOM_8,
+                                         GEOM_32, GRAD_ATOL, GRAD_RTOL,
+                                         DBIAS_REL, _case, _torch_mask)
 
 torch.set_num_threads(1)
 
@@ -194,6 +194,91 @@ def test_cpu_bf16_call_counts_no_launch():
     assert wa.launches == before
 
 
+def _bf16_parts(x, split: bool):
+    """x float32 as the tensor-core operands the kernels give it: a hi + lo
+    pair of bf16 (hi = bf16(x), lo = bf16(x - hi)), or one rounding."""
+    hi = x.to(BF16).float()
+    return (hi, (x - hi).to(BF16).float()) if split else (hi,)
+
+
+def _kernel_rounding_model(q, k, v, g, bias, mask, scale, split=True):
+    """The arithmetic of csrc/window_attention_bf16.cu in plain torch:
+    q, k, v and g enter every product as the bf16 values they are (each
+    product exact) and the products sum in float32; the scale applies to
+    the float32 scores, bias and mask are summed first; the forward's
+    weights e = exp(s - max s) enter e v as a hi + lo pair of bf16 and o is
+    divided by sum e; the backward's p = e / sum e and ds enter p^T g, ds k
+    and ds^T q as such pairs (split=False: rounded once, the design the
+    pair avoids). (o, dq, dk, dv) rounded once to bf16 and dbias = sum over
+    windows of ds, float32."""
+    bank, idx = wa._mask_parts(mask, q.shape[0], q.shape[1], q.device)
+    q, k, v, g = (t.float() for t in (q, k, v, g))
+    BW, n, G, _ = q.shape
+    add = bias[None, None].expand(BW, 1, G, n, n).reshape(BW, G, n, n)
+    if bank is not None:
+        m = bank[idx.long()]
+        nW = m.shape[0]
+        add = (bias[None, None] + m[None, :, None]).expand(
+            BW // nW, nW, G, n, n).reshape(BW, G, n, n)
+    s = torch.einsum("bngd,bmgd->bgnm", q, k) * scale + add
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    l = e.sum(-1, keepdim=True)
+    p = e / l
+    dp = torch.einsum("bngd,bmgd->bgnm", g, v)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    pp, dd = _bf16_parts(p, split), _bf16_parts(ds, split)
+    o = sum(torch.einsum("bgnm,bmgd->bngd", x, v)
+            for x in _bf16_parts(e, split)) / l.squeeze(-1).permute(0, 2, 1)[
+                ..., None]
+    dq = scale * sum(torch.einsum("bgnm,bmgd->bngd", x, k) for x in dd)
+    dk = scale * sum(torch.einsum("bgnm,bngd->bmgd", x, q) for x in dd)
+    dv = sum(torch.einsum("bgnm,bngd->bmgd", x, g) for x in pp)
+    return tuple(t.to(BF16) for t in (o, dq, dk, dv)) + (ds.sum(0),)
+
+
+def _excess(got, want, atol):
+    """Largest |got - want| beyond one bf16 ulp of want + atol (<= 0: within
+    the check)."""
+    got, want = _np(got), _np(want)
+    return float((np.abs(got - want) - (bf16_ulp(want) + atol)).max())
+
+
+# n = 98 is the reference's default (2, 7, 7) window, shifted by (1, 3, 3)
+MODEL_GEOMS = {8: GEOM_8, 32: GEOM_32, 98: (4, 14, 14, (2, 7, 7), (1, 3, 3))}
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("hd", wa.HEAD_DIMS)
+@pytest.mark.parametrize("n", sorted(MODEL_GEOMS))
+def test_kernel_rounding_model_is_within_one_ulp_of_plain(n, hd, masked):
+    """The bf16 kernels' numerics design, before any card run: the model
+    of their rounding (_kernel_rounding_model) lies within the card
+    checks' tolerances of the plain bf16 versions: o, dq, dk, dv within one
+    bf16 ulp + 1e-5, dbias at rtol 1e-4 / atol 1e-5 x max |dbias|. Prints,
+    without asserting, how far beyond that tolerance one bf16 rounding of p
+    and ds would land."""
+    geom = MODEL_GEOMS[n]
+    q, k, v, g, bias, mask = _bf16_case(BW=8, n=n, G=2, hd=hd, seed=40 + n,
+                                        mask_geom=geom if masked else None)
+    m = _torch_mask(mask)
+    scale = hd ** -0.5
+    o = wa.window_attention_fwd_plain(q, k, v, bias, m, scale)
+    want = (o,) + wa.window_attention_bwd_plain(q, k, v, bias, m, scale, o,
+                                                g)
+    names = ("o", "dq", "dk", "dv")
+    once = _kernel_rounding_model(q, k, v, g, bias, m, scale, split=False)
+    print(f"\nn={n} hd={hd} masked={masked}: one rounding of p and ds, "
+          "excess over one ulp + 1e-5: " + ", ".join(
+              f"{name} {_excess(a, b, CARD_ATOL):.3g}"
+              for name, a, b in zip(names, once, want)))
+    got = _kernel_rounding_model(q, k, v, g, bias, m, scale)
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == BF16
+        _within(_np(a), _np(b), CARD_ATOL, f"n={n} hd={hd} {name}")
+    torch.testing.assert_close(got[4], want[4], rtol=GRAD_RTOL,
+                               atol=DBIAS_REL * want[4].abs().max().item())
+
+
 BAD = {
     "bf16_bias": lambda q, k, v, b: (q, k, v, b.to(BF16)),
     "f32_k_with_bf16_q": lambda q, k, v, b: (q, k.float(), v, b),
@@ -331,3 +416,24 @@ def test_bf16_misaligned_cuda_view_matches_plain(cuda):
         _within(_np(a), _np(b), GRAD_ATOL, name)
     torch.testing.assert_close(got[3], want[3], rtol=GRAD_RTOL,
                                atol=GRAD_ATOL)
+
+
+# the bf16 kernels' shared memory per block at the stage shapes (n, masked),
+# forward and backward: the budgets of csrc/window_attention_bf16.cu's
+# design note (two stages of q, k, v for 4 heads x 193 rows of 16 B; the
+# backward's stages, p and ds tiles and outputs); the mask changes neither
+BF16_SMEM = {"stage0": (32, False, 74_112, 63_616),
+             "stage0_shifted": (32, True, 74_112, 63_616),
+             "stage1": (8, False, 74_112, 35_968)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BF16_SMEM))
+def test_bf16_occupancy_reports_the_kernels_shared_memory_on_card(cuda,
+                                                                   case):
+    n, masked, fwd_smem, bwd_smem = BF16_SMEM[case]
+    assert wa.fwd_occupancy(n, 8, masked, BF16)[0] == fwd_smem
+    assert wa.bwd_occupancy(n, 8, masked, BF16)[0] == bwd_smem
+    assert wa.fwd_occupancy(n, 8, masked, BF16)[1] >= 1
+    assert wa.bwd_occupancy(n, 8, masked, BF16)[1] >= 1
+    assert all(0 < r <= 255 for r in wa.bf16_registers(n, 8))
