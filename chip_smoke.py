@@ -113,6 +113,30 @@ Phases, each printing one JSON line:
                  variants); train steps/s, peak memory, a profile of 3
                  train steps; RTFM over Mamba and DeepMIL over Swin_3D
                  also one step's gradients against the plain op
+ 15b. train_deepmil_swin_bf16, train_rtfm_mamba_bf16, train_mgfn_bf16,
+     train_simplenet_bf16, train_steal_bf16, train_uniad_bf16
+                 phase 15 at cfg.dtype "bfloat16": the MIL models and
+                 SimpleNet's backbone compute in bf16 (DeepMIL over Swin_3D
+                 through the bf16 attention kernels, RTFM over Mamba
+                 through the float32 scans, both with their step gradients
+                 against the plain op under pinned top-k selections, held
+                 as one relative L2 distance); MGFN's head, SimpleNet's
+                 head, STEAL and UniAD compute in float32, as JAX builds
+                 them (STEAL's and UniAD's parameters and outputs checked
+                 float32); then baselines_bf16_vs_float32, each one's train
+                 steps/s, device ms per step, busy share and peak memory
+                 beside its float32 phase's
+ 15c. train_ddp  data parallelism (idee_tpu_torch/parallel/mesh.py): (a)
+                 train_synthetic under a mesh of one rank (mesh_shape [1],
+                 NCCL), Mamba float32, 1 epoch, exact launches, its epoch
+                 steps/s beside phase train's (no mesh); (b) two processes
+                 of tests/torch_parallel_worker.py on this card (gloo
+                 named: NCCL takes one rank per device), Mamba float32, 3
+                 train steps on global batches of 2 cube rows, dropout 0:
+                 both ranks' parameters equal each other and the
+                 single-device steps', 3 + 3 fused-scan launches per step
+                 on each rank; (c) the same for VQ-EMA, its codebook
+                 buffers equal to the single-device run's
  16. synthetic_netcdf
                  the reference's synthetic directory schema: a
                  make_fake_cube at the bench width over 104 weeks (two
@@ -234,7 +258,8 @@ LINEAR_SCAN_SHAPES = {stage: (L, M * D_STATE2)
 LONG_SCAN = (200, 1_000_000)
 SCAN_RTOL, SCAN_ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-5
-# cuDNN's backward convolutions are not bit-deterministic
+# a step's gradients with the kernels against the plain op's; both runs
+# take cuDNN's deterministic algorithms (deterministic_convolutions)
 STEP_GRAD_REL = 1e-4
 
 # window attention per launch at the bench width, Swin_3D defaults (16
@@ -275,6 +300,9 @@ BF16_ENCODER_REL = 2e-2
 BF16_LOGIT_REL = 5e-2
 BF16_BITS_AGREE = 0.99
 BF16_GRAD_REL = 5e-2
+# the MIL baselines' bf16 step gradients, kernels against the plain op, as
+# one relative L2 distance over every parameter (compare_mil_gradients)
+MIL_BF16_GRAD_L2 = BF16_GRAD_REL
 BF16 = dict(dtype="bfloat16")
 # phase results that the bf16_vs_float32 line sets side by side
 SUMMARY = {}
@@ -1164,6 +1192,21 @@ def train_config(encoder: str, d_state: int = 1, n_epochs: int = N_EPOCHS,
     return synthetic_config(**kw, **cfg_kw)
 
 
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms, for the runs a gradient comparison
+    holds against each other: its default backward convolutions sum in an
+    order that changes from run to run, noise that would stand beside the
+    kernels' own difference (seen at 1.5e-4 x max |grad| on a leaf whose
+    gradients cancel, DeepMIL over Swin_3D; PERF.md §6)."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
 def step_gradients(cfg, params, batch, plain: bool, real: bool = False,
                    loss: list = None):
     """Every parameter's gradient of one train step (synthetic, or with
@@ -1186,7 +1229,8 @@ def step_gradients(cfg, params, batch, plain: bool, real: bool = False,
         step = make_train_step(model, cfg, t0=float(TRAIN_WEEKS[0]),
                                steps_per_epoch=17)
         metrics = init_epoch_metrics((6, N_WEEKS, 200, 200), "cuda")
-    with plain_ops(cfg.encoder) if plain else contextlib.nullcontext():
+    with plain_ops(cfg.encoder) if plain else contextlib.nullcontext(), \
+            deterministic_convolutions():
         step(state, metrics, batch)
     torch.cuda.synchronize()
     if loss is not None:
@@ -1351,6 +1395,7 @@ def phase_train(cube, encoder: str, phase: str, resume: bool,
                             attribute=True)
 
     SUMMARY[phase] = dict(
+        driver_steps_per_s=history["steps_per_sec"],
         steady_train_steps_per_s=steps_per_s,
         device_ms_per_step=profile["device_ms_per_step"],
         device_busy_share=profile["device_busy_share"],
@@ -1701,15 +1746,16 @@ def baseline_train_step(family: str, which: str, cfg, history):
     return build_recon_model(cfg, which, (200, 200))[1](model, cfg, t0)
 
 
-def baseline_launches_per_step(family: str, encoder):
+def baseline_launches_per_step(family: str, encoder,
+                               dtype: str = "float32"):
     """Kernel launches per (train, eval) step: the encoder's (a MIL
     encoder trains; SimpleNet's frozen backbone runs its forward only);
     STEAL and UniAD run no kernel."""
     if family == "mil":
-        return (kernel_launches_per_step(encoder, train=True),
-                kernel_launches_per_step(encoder, train=False))
+        return (kernel_launches_per_step(encoder, train=True, dtype=dtype),
+                kernel_launches_per_step(encoder, train=False, dtype=dtype))
     if family == "oneclass":
-        fwd = kernel_launches_per_step(encoder, train=False)
+        fwd = kernel_launches_per_step(encoder, train=False, dtype=dtype)
         return fwd, fwd
     return {}, {}
 
@@ -1762,7 +1808,8 @@ def mil_step_gradients(cfg, variant, params, batch, plain: bool,
     model.to("cuda").train()
     g = torch.Generator(device="cuda").manual_seed(0)
     with plain_ops(cfg.encoder) if plain else contextlib.nullcontext(), \
-            pinned_topk(selections, pin=plain) as flips:
+            pinned_topk(selections, pin=plain) as flips, \
+            deterministic_convolutions():
         out = model(batch["x"], train=True, generator=g)
         loss = mil_total_loss(cfg, variant, out, batch["mask_extreme_loss"],
                               True, g)
@@ -1787,6 +1834,27 @@ def compare_mil_gradients(cfg, variant, params, batch, what: str):
                                              True, selections)
     zero = [k for k in want if k.startswith("agent.")
             and k.endswith("relative_position_bias_table")]
+    if cfg.dtype == "bfloat16":
+        # a kernel output one bf16 ulp off may move the bf16 network's
+        # gradients through its ReLU kinks and BatchNorms, entry by entry:
+        # held as one relative L2 distance over every parameter, as
+        # tests/test_torch_baselines_bf16.py holds the port against JAX
+        keys = [k for k in want if k not in zero]
+        g = torch.cat([got[k].reshape(-1) for k in keys])
+        w = torch.cat([want[k].reshape(-1) for k in keys])
+        dist = ((g - w).norm() / w.norm()).item()
+        if not dist <= MIL_BF16_GRAD_L2:
+            raise SystemExit(f"{what}: step gradients {dist} (relative L2) "
+                             f"from the plain op's > {MIL_BF16_GRAD_L2}")
+        emit(phase="train_gradients", path=what, encoder=cfg.encoder,
+             variant=variant, dtype=cfg.dtype, parameters=len(want),
+             loss_kernels=loss_k, loss_plain=loss_p,
+             relative_l2=dist, limit=MIL_BF16_GRAD_L2,
+             max_err_over_max_abs_grad=max(
+                 (got[k] - want[k]).abs().max().item()
+                 / max(want[k].abs().max().item(), 1e-30) for k in keys),
+             topk_calls=len(selections), topk_calls_reordered=len(flips))
+        return
     worst = hold_gradients(got, want, STEP_GRAD_REL, what, zero)
     emit(phase="train_gradients", path=what, encoder=cfg.encoder,
          variant=variant, parameters=len(want), loss_kernels=loss_k,
@@ -1796,18 +1864,21 @@ def compare_mil_gradients(cfg, variant, params, batch, what: str):
 
 
 def phase_baseline(cube, phase, family, which, encoder, test: bool,
-                   compare: bool):
+                   compare: bool, dtype: str = "float32"):
     """One baseline at the bench width: its train driver for 1 epoch with
     the launch counters zeroed around it (exact counts: the encoder's
     kernels per step, none for CNN_3D, STEAL and UniAD); losses and
     checkpoints; its test driver on the latest checkpoint, launches
     counted; the driver's train steps/s (CUDA-synchronised), peak memory
     and a profile of 3 train steps; with ``compare`` one step's gradients
-    against the plain op. Returns {path: launches}."""
+    against the plain op. At ``dtype`` "bfloat16" STEAL and UniAD, which
+    JAX builds without a dtype, must keep float32 parameters and
+    outputs. Returns {path: launches}."""
     from idee_tpu_torch.baselines import common
     from idee_tpu_torch.data.loader import DataLoader
+    from idee_tpu_torch.models.vq_model import compute_dtype
 
-    kw = {}
+    kw = {"dtype": dtype}
     if encoder:
         kw["encoder"] = encoder
     if which == "steal":
@@ -1825,7 +1896,7 @@ def phase_baseline(cube, phase, family, which, encoder, test: bool,
     n_train = TRAIN_WEEKS[1] - TRAIN_WEEKS[0] + 2 - cfg.delta_t
     n_val = VAL_WEEKS[1] - VAL_WEEKS[0] + 2 - cfg.delta_t
     n_test = N_WEEKS + 1 - cfg.delta_t
-    per_train, per_eval = baseline_launches_per_step(family, encoder)
+    per_train, per_eval = baseline_launches_per_step(family, encoder, dtype)
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1873,16 +1944,24 @@ def phase_baseline(cube, phase, family, which, encoder, test: bool,
     train_ds, _ = common.make_datasets(
         cfg, train_cube, val_cube,
         getattr(cfg, "is_replace_anomaly", False) and family != "mil")
-    batches = iter(DataLoader(train_ds, 1, device="cuda", keys=keys,
-                              shuffle=True, seed=cfg.seed))
+    batches = iter(DataLoader(
+        train_ds, 1, device="cuda", keys=keys, shuffle=True, seed=cfg.seed,
+        x_dtype=compute_dtype(cfg) if family == "mil" else torch.float32))
     step = baseline_train_step(family, which, cfg, history)
     metrics = common.init_vote_metrics(train_ds.anomaly.shape, "cuda")
     state = history["state"]
+    if family == "recon" and dtype == "bfloat16":
+        recon_float32(state.model, which, next(batches), phase)
     profile = profile_steps(lambda: step(state, metrics, next(batches)), n=3)
+    SUMMARY[phase] = dict(
+        train_steps_per_s=history["steps_per_sec"][-1],
+        device_ms_per_step=profile["device_ms_per_step"],
+        device_busy_share=profile["device_busy_share"],
+        max_memory_allocated=peak_bytes)
 
     emit(phase=phase, family=family, variant=which, encoder=cfg.encoder
-         if family != "recon" else None, shape=[1, 6, 1, cfg.delta_t, 200,
-                                                200],
+         if family != "recon" else None, dtype=cfg.dtype,
+         shape=[1, 6, 1, cfg.delta_t, 200, 200],
          epochs=cfg.n_epochs, train_steps=n_train, val_steps=n_val,
          launches=launches,
          history={k: v for k, v in history.items()
@@ -1894,18 +1973,285 @@ def phase_baseline(cube, phase, family, which, encoder, test: bool,
          checkpoints=written, test=tested)
     emit(phase="profile", path=phase, **profile)
     if compare:
-        compare_mil_gradients(cfg, which, state.model.state_dict(),
-                              next(batches), phase)
+        # at the seeded initial weights, as compare_step_gradients holds the
+        # synthetic paths: the trained ones differ from run to run in the
+        # 8th digit (cuDNN's backward convolutions in training), and at some
+        # of them one DeepMIL / Swin_3D leaf whose gradient cancels to 8e-4
+        # (encoder.stage0.downsample.proj.kernel) parted 1.2e-7-5.5e-7 in
+        # some runs (PERF.md §6), beyond 1e-4 x max |grad|
+        from idee_tpu_torch.baselines.mil.models import build_mil_model
+
+        params = build_mil_model(
+            cfg, which, torch.Generator().manual_seed(0)).state_dict()
+        compare_mil_gradients(cfg, which, params, next(batches), phase)
     del history, state, step, metrics
     shutil.rmtree(cfg.log_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return paths
 
 
+def recon_float32(model, which, batch, phase):
+    """STEAL and UniAD at dtype "bfloat16" compute in float32, as JAX
+    builds them without a dtype: float32 parameters and outputs."""
+    bad = [k for k, p in model.named_parameters()
+           if p.dtype != torch.float32]
+    with torch.inference_mode():
+        model.eval()
+        if which == "steal":
+            out = model(batch["x"][:, :, 0]).pred
+        else:
+            out = model(batch["x"][:, :, 0, 0],
+                        batch["mask_extreme_loss_t"][:, 0]).loss_map
+    if bad or out.dtype != torch.float32:
+        raise SystemExit(f"{phase}: parameters {bad} or output {out.dtype} "
+                         "not float32")
+
+
 def phase_baselines(cube):
     paths = {}
     for args in BASELINE_PHASES:
         paths.update(phase_baseline(cube, *args))
+    return paths
+
+
+# ------------------------------------------------------------------
+# data parallelism (idee_tpu_torch/parallel/mesh.py)
+
+DDP_STEPS = 3  # train steps of the two-rank runs, global batch 2
+VQ_BUFFER_RTOL = 1e-4
+WORKER = os.path.join(REPO, "tests", "torch_parallel_worker.py")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def world1_steps(cfg, state_dict, batches):
+    """The single-device train steps on the global batches: the state_dict
+    after them and each step's loss."""
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.train.state import create_train_state
+    from idee_tpu_torch.train.steps import init_epoch_metrics, make_train_step
+
+    model = build_model(cfg)
+    model.load_state_dict(state_dict)
+    state = create_train_state(cfg, model, "cuda", steps_per_epoch=3)
+    step = make_train_step(model, cfg, t0=1.0, steps_per_epoch=3)
+    losses = []
+    for b in batches:
+        metrics = init_epoch_metrics((6, 20, 200, 200), "cuda")
+        state, metrics = step(state, metrics, {
+            k: torch.from_numpy(v).cuda() for k, v in b.items()})
+        losses.append(metrics["loss_sums"]["loss"].item())
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}, \
+        losses
+
+
+def same_update(got, want, lr, what):
+    """The world-2 state against world 1's: max |difference| and the share
+    of entries beyond 2e-5 (tests/test_parallel.py's atol). An entry whose
+    gradient is a few float eps takes an Adam step of either sign (a
+    step of lr * g / (|g| + 1e-8)), so beyond 2e-5 are allowed only
+    entries within 2 lr per step, at most 0.5 % of them."""
+    worst, far, n = 0.0, 0, 0
+    for k, w in want.items():
+        d = (got[k].float() - w.float()).abs()
+        worst = max(worst, d.max().item())
+        far += int((d > 2e-5).sum())
+        n += d.numel()
+    ok = worst <= 2e-5 or (worst <= 2 * lr * DDP_STEPS and far <= 5e-3 * n)
+    if not ok:
+        raise SystemExit(f"{what}: world 2 against world 1: max |diff| "
+                         f"{worst}, {far} of {n} entries beyond 2e-5")
+    return {"max_abs_diff": worst, "entries_beyond_2e-5": far,
+            "entries": n}
+
+
+def two_ranks(jobs, what):
+    """The jobs on two processes of tests/torch_parallel_worker.py, both
+    on this card, the gloo backend named (NCCL takes one rank per
+    device); their results by rank."""
+    out = _scratch("chip_smoke_ddp_")
+    try:
+        torch.save(jobs, os.path.join(out, "jobs.pt"))
+        init = "file://" + os.path.join(out, "store")
+        procs = [subprocess.Popen(
+            [sys.executable, WORKER, os.path.join(out, "jobs.pt"), init, out,
+             "gloo"],
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE="2",
+                     LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0].decode() for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise SystemExit(f"{what}: rank {r} exited {p.returncode}:"
+                                 f"\n{log[-3000:]}")
+        return [torch.load(os.path.join(out, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_train_ddp(cube):
+    """Phase train_ddp. (a) train_synthetic under a mesh of one rank
+    (mesh_shape [1], NCCL): Mamba float32 at the bench width, 1 epoch,
+    exact launches, its steps/s beside phase train's (no mesh, epoch 1). (b) Two
+    ranks on this card (gloo): DDP_STEPS train steps of Mamba float32 on
+    global batches of 2 rows of the cube, dropout 0, each rank on its row;
+    both ranks' parameters equal, and equal to the single-device steps on
+    the global batches; each rank launches the fused scan forward and
+    backward 3 + 3 times per step. (c) The same for VQ-EMA (k-means init,
+    dead-code expiry; lambda_anomaly 0, as tests/test_torch_parallel.py
+    explains): the codebook buffers equal on both ranks and to world 1's.
+    Returns {path: launches}."""
+    import idee_tpu_torch.kernels.selective_scan as ss
+    from idee_tpu_torch.data.loader import collate
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.parallel.mesh import make_mesh
+    from idee_tpu_torch.train.driver import _make_datasets, train_synthetic
+
+    # (a) one rank under NCCL
+    cfg = train_config("Mamba", n_epochs=N_EPOCHS_SHORT).replace(
+        name="chip_smoke_train_ddp", mesh_shape=[1])
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    train_cube, val_cube = cube.time_slice(*TRAIN_WEEKS), \
+        cube.time_slice(*VAL_WEEKS)
+    n_train = (TRAIN_WEEKS[1] - TRAIN_WEEKS[0] + 1) - cfg.delta_t + 1
+    n_val = (VAL_WEEKS[1] - VAL_WEEKS[0] + 1) - cfg.delta_t + 1
+    mesh = make_mesh([1], ["data"], device="cuda:0", backend="nccl",
+                     init_method=f"tcp://localhost:{free_port()}")
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        history = train_synthetic(cfg, train_cube, val_cube, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        mesh.close()
+    trn = kernel_launches_per_step("Mamba", train=True)
+    val = kernel_launches_per_step("Mamba", train=False)
+    expect_launches(launches, {
+        k: cfg.n_epochs * (trn.get(k, 0) * n_train
+                           + val.get(k, 0) * (n_val + PANEL_STEPS))
+        for k in set(trn) | set(val)}, "train_ddp world 1")
+    curves = history["train_loss"] + history["val_loss"]
+    if not all(map(math.isfinite, curves)):
+        raise SystemExit(f"train_ddp world 1: bad losses {curves}")
+    paths = {"train_ddp_world1": launches}
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+
+    # (b), (c) two ranks on global batches of 2
+    base = train_config("Mamba")
+    vq = train_config("Mamba", **VQ_EMA).replace(lambda_anomaly=0.0)
+    train_ds, _ = _make_datasets(base, train_cube, val_cube)
+    keys = ("x", "mask_extreme", "mask_extreme_loss", "timestep")
+    batches = [{k: v for k, v in collate([train_ds.item(i, None)
+                                          for i in (2 * b, 2 * b + 1)]
+                                         ).items() if k in keys}
+               for b in range(DDP_STEPS)]
+    jobs, want = [], []
+    for c in (base, vq):
+        sd = build_model(c, torch.Generator().manual_seed(0)).state_dict()
+        jobs.append(dict(kind="steps", cfg=c.to_dict(), state_dict=sd,
+                         batches=batches, device="cuda:0"))
+        want.append(world1_steps(c, sd, batches))
+    torch.cuda.empty_cache()  # room for the two ranks on this card
+    ranks = two_ranks(jobs, "train_ddp")
+    per_step = {k: v * DDP_STEPS for k, v in trn.items()}
+    rows = {}
+    for j, name in enumerate(("mamba", "vq_ema")):
+        w_sd, w_losses = want[j]
+        got = [r[j] for r in ranks]
+        for r, g in enumerate(got):
+            expect_launches({k: g["launches"].get(k, 0)
+                             for k in ss.launches}, per_step,
+                            f"train_ddp {name} rank {r}")
+            paths[f"train_ddp_{name}_rank{r}"] = {
+                k: g["launches"].get(k, 0) for k in read_launches()}
+        for k, v in got[0]["state_dict"].items():
+            if not torch.equal(v, got[1]["state_dict"][k]):
+                raise SystemExit(f"train_ddp {name}: ranks differ at {k}")
+        params = [k for k in w_sd if not k.startswith("vq.")]
+        rows[name] = same_update({k: got[0]["state_dict"][k]
+                                  for k in params},
+                                 {k: w_sd[k] for k in params}, base.lr,
+                                 f"train_ddp {name}")
+        rows[name].update(losses_world2=got[0]["losses"],
+                          losses_world1=w_losses)
+        if not np.allclose(got[0]["losses"], w_losses, rtol=2e-4):
+            raise SystemExit(f"train_ddp {name}: losses {got[0]['losses']}"
+                             f" against world 1's {w_losses}")
+    # the codebook state: a token within float noise of two codes' boundary
+    # may take the other code on a card, whose products round by batch size
+    # (cuBLAS picks its algorithm by shape), and shifts its bin by one: so
+    # each buffer is held at VQ_BUFFER_RTOL of its largest entry
+    buffers = [k for k in want[1][0] if k.startswith("vq.")]
+    rows["vq_ema"]["buffers_rel_diff"] = {}
+    for k in buffers:
+        a, b = ranks[0][1]["state_dict"][k].float(), want[1][0][k].float()
+        rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        rows["vq_ema"]["buffers_rel_diff"][k] = rel
+        if not rel <= VQ_BUFFER_RTOL:
+            raise SystemExit(f"train_ddp vq_ema: {k} {rel} x max from "
+                             "world 1's")
+    if float(ranks[0][1]["state_dict"]["vq.initted"]) != 1.0:
+        raise SystemExit("train_ddp vq_ema: the k-means init did not run")
+    emit(phase="train_ddp", encoder="Mamba", shape=[1, 6, 1, 8, 200, 200],
+         world1=dict(backend="nccl", mesh_shape=[1], epochs=cfg.n_epochs,
+                     launches=launches,
+                     history={k: v for k, v in history.items()
+                              if k != "state"},
+                     steps_per_s=history["steps_per_sec"],
+                     no_mesh_steps_per_s=SUMMARY["train"][
+                         "driver_steps_per_s"]),
+         world2=dict(backend="gloo", global_batch=2, steps=DDP_STEPS,
+                     launches_per_rank=[g["launches"] for g in
+                                        (ranks[0][0], ranks[1][0])],
+                     vq_buffers=buffers, **rows))
+    return paths
+
+
+# the zoo at bf16 (cfg.dtype "bfloat16"): the MIL models and SimpleNet's
+# backbone compute in bf16; MGFN, SimpleNet's head, STEAL and UniAD in
+# float32, as JAX builds them
+BASELINE_BF16_PHASES = (
+    ("train_deepmil_swin_bf16", "mil", "deepmil", "Swin_3D", True, True),
+    ("train_rtfm_mamba_bf16", "mil", "rtfm", "Mamba", True, True),
+    ("train_mgfn_bf16", "mil", "mgfn", "CNN_3D", True, False),
+    ("train_simplenet_bf16", "oneclass", "simplenet", "Swin_3D", True,
+     False),
+    ("train_steal_bf16", "recon", "steal", None, True, False),
+    ("train_uniad_bf16", "recon", "uniad", None, True, False),
+)
+
+
+def phase_baselines_bf16(cube):
+    """Each bf16 baseline as phase_baseline at dtype "bfloat16" (DeepMIL
+    over Swin_3D and RTFM over Mamba also their step gradients against the
+    plain op under pinned top-k selections), then one line of each one's
+    train steps/s, device ms per step, busy share and peak memory beside
+    its float32 phase's of this run."""
+    paths = {}
+    for args in BASELINE_BF16_PHASES:
+        paths.update(phase_baseline(cube, *args, dtype="bfloat16"))
+    float32 = {"train_deepmil_swin_bf16": "train_deepmil_swin",
+               "train_rtfm_mamba_bf16": "train_rtfm_mamba",
+               "train_mgfn_bf16": "train_mgfn",
+               "train_simplenet_bf16": "train_simplenet",
+               "train_steal_bf16": "train_steal",
+               "train_uniad_bf16": "train_uniad"}
+    emit(phase="baselines_bf16_vs_float32",
+         rows={b: {"bfloat16": SUMMARY[b], "float32": SUMMARY[f]}
+               for b, f in float32.items()})
     return paths
 
 
@@ -3349,6 +3695,8 @@ def main() -> int:
         host=("train_swin_bf16", "main_swin_bf16"))
     paths["profile_hook"] = phase_profile_hook()
     paths.update(phase_baselines(cube))
+    paths.update(phase_baselines_bf16(cube))
+    paths.update(phase_train_ddp(cube))
     paths["reference_checkpoint"] = phase_reference_checkpoint(cube)
     phase_native_loader(cube)
     del cube

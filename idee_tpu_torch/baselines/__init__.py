@@ -13,7 +13,10 @@ instances on the CPU and on the card.
 
 Randomness the JAX package draws from its PRNG keys (instance drop,
 SimpleNet's noise, UniAD's jitter, every dropout and drop path) is drawn
-here from an explicit ``torch.Generator``. The baselines compute in
-float32.
+here from an explicit ``torch.Generator``. At cfg.dtype "bfloat16" the
+MIL models and SimpleNet's frozen backbone compute in bf16, as JAX builds
+them at cfg.dtype (its parameters float32); MGFN's head, SimpleNet's head,
+STEAL and UniAD, which JAX builds without a dtype, compute in float32.
+The baselines' drivers run on one device (JAX's have no mesh).
 """
 # ------------------------------------------------------------------

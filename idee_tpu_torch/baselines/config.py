@@ -130,10 +130,3 @@ def oneclass_config(**overrides) -> OneClassConfig:
 def recon_config(**overrides) -> ReconConfig:
     return ReconConfig(**_synth_base(overrides))
 
-
-def check_float32(cfg: Config) -> None:
-    """The baselines compute in float32 only."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype {cfg.dtype!r}: the port's baselines compute in float32 "
-            "(ROADMAP.md, open items)")

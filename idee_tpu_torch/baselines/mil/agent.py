@@ -20,6 +20,13 @@ tower, is [B, T, H, W, V_tower, V, C].
 Init: Dense and Conv N(0, 0.02), affine LayerNorms scale 0.02 / bias 0
 (the MIL init sweep, build_rtfm.py:283-305); the rel-pos table keeps
 trunc_normal(0.02).
+
+Compute dtype (the JAX module's ``dtype``): the Dense and Conv layers
+compute in ``dtype``; what JAX builds without one promotes as flax
+promotes. The LayerNorms (flax nn.LayerNorm, no dtype) normalise in
+float32 and return float32 with a scale and bias, the input's dtype
+without; the rel-pos table (float32) makes the logits, the softmax and
+the attention-weighted sum float32 (agent.py:84-94).
 """
 # ------------------------------------------------------------------
 
@@ -38,9 +45,19 @@ from idee_tpu_torch.nn.layers import (GroupedConv3d, GroupedDense,
 _LN_EPS = 1e-6  # flax nn.LayerNorm's
 
 
+class _FlaxLayerNorm(GroupedLayerNorm3d):
+    """flax nn.LayerNorm without a dtype over each tower's C channels: the
+    statistics and the arithmetic in float32, the result float32 with a
+    scale and bias (promoted with them), else in the input's dtype."""
+
+    def forward(self, x):
+        y = super().forward(x.float())
+        return y if self.scale is not None else y.to(x.dtype)
+
+
 def _affine_ln(V: int, C: int) -> GroupedLayerNorm3d:
     """Per-tower affine LayerNorm with the MIL sweep's init."""
-    ln = GroupedLayerNorm3d(V, C, eps=_LN_EPS)
+    ln = _FlaxLayerNorm(V, C, eps=_LN_EPS)
     with torch.no_grad():
         ln.scale.fill_(0.02)
     return ln
@@ -62,7 +79,8 @@ def _tower_drop_path(x, rate: float, train: bool, V: int, generator=None):
 
 class TowerConditioningNorm(nn.Module):
     """Each tower's affine LayerNorm of every variable's input:
-    [..., V, C] -> [..., V_tower, V, C]; scale and bias [V, C]."""
+    [..., V, C] -> [..., V_tower, V, C] in float32 (flax nn.LayerNorm
+    without a dtype); scale and bias [V, C]."""
 
     def __init__(self, V: int, C: int):
         super().__init__()
@@ -70,6 +88,7 @@ class TowerConditioningNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(V, C))
 
     def forward(self, xv):
+        xv = xv.float()
         mu = xv.mean(-1, keepdim=True)
         d = xv - mu
         y = d * torch.rsqrt((d * d).mean(-1, keepdim=True) + _LN_EPS)
@@ -84,22 +103,26 @@ class CrossVariableAttention(nn.Module):
     def __init__(self, V: int, dim: int, con_dim: int, num_heads: int,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 kernel_init: Init = normal_init(), generator=None):
+                 kernel_init: Init = normal_init(), generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.V, self.dim, self.heads = V, dim, num_heads
+        self.dtype = dtype
         hd = dim // num_heads
         self.scale = qk_scale or hd ** -0.5
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.q = GroupedDense(V, dim, dim, use_bias=qkv_bias,
-                              kernel_init=kernel_init, generator=generator)
+                              kernel_init=kernel_init, generator=generator,
+                              dtype=dtype)
         self.kv = GroupedDense(V, con_dim, 2 * dim, use_bias=qkv_bias,
-                               kernel_init=kernel_init, generator=generator)
+                               kernel_init=kernel_init, generator=generator,
+                               dtype=dtype)
         # rel-pos bias table for a (1,1,1) window: one scalar per head
         self.relative_position_bias_table = nn.Parameter(
             torch.empty(V, 1, num_heads))
         trunc_normal_init(0.02)(self.relative_position_bias_table, generator)
         self.proj = GroupedDense(V, dim, dim, kernel_init=kernel_init,
-                                 generator=generator)
+                                 generator=generator, dtype=dtype)
         # the tower's own variable leaves its conditioning set (reference:
         # agent/Swin_3D.py:671-673): [V_tower, 1, V]
         self.register_buffer("self_mask", torch.eye(V, dtype=torch.bool)
@@ -108,22 +131,26 @@ class CrossVariableAttention(nn.Module):
     def forward(self, y, con, train: bool = False, generator=None):
         """y: packed [B, T, H, W, V*dim]; con: [B, T, H, W, V_tower, V,
         C_con]."""
-        V, h = self.V, self.heads
+        V, h, dt = self.V, self.heads, self.dtype
         hd = self.dim // h
         lead = y.shape[:-1]
         q = self.q(y).reshape(*lead, V, h, hd) * self.scale
-        kv = torch.einsum("...avc,acd->...avd", con, self.kv.kernel)
+        kv = torch.einsum("...avc,acd->...avd", con.to(dt),
+                          self.kv.kernel.to(dt))
         if self.kv.bias is not None:
-            kv = kv + self.kv.bias[:, None]
+            kv = kv + self.kv.bias[:, None].to(dt)
         k = kv[..., :self.dim].reshape(*lead, V, V, h, hd)
         v = kv[..., self.dim:].reshape(*lead, V, V, h, hd)
         logits = torch.einsum("...ahd,...avhd->...ahv", q, k)
+        # the float32 table promotes the logits (and so the softmax and
+        # the weighted sum) to float32
         logits = logits + self.relative_position_bias_table[:, 0, :, None]
         logits = torch.where(self.self_mask, torch.full(
             (), -1e9, dtype=logits.dtype, device=logits.device), logits)
         attn = dropout(torch.softmax(logits, dim=-1), self.attn_drop, train,
                        generator)
-        out = torch.einsum("...ahv,...avhd->...ahd", attn, v)
+        out = torch.einsum("...ahv,...avhd->...ahd", attn,
+                           v.to(attn.dtype))
         out = self.proj(out.reshape(*lead, V * self.dim))
         return dropout(out, self.proj_drop, train, generator)
 
@@ -136,7 +163,8 @@ class AgentBlock(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
-                 kernel_init: Init = normal_init(), generator=None):
+                 kernel_init: Init = normal_init(), generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.V, self.drop, self.drop_path = V, drop, drop_path
         hidden = int(dim * mlp_ratio)
@@ -144,12 +172,13 @@ class AgentBlock(nn.Module):
         self.norm1_con = TowerConditioningNorm(V, con_dim)
         self.attn = CrossVariableAttention(V, dim, con_dim, num_heads,
                                            qkv_bias, qk_scale, attn_drop,
-                                           drop, kernel_init, generator)
+                                           drop, kernel_init, generator,
+                                           dtype)
         self.norm2 = _affine_ln(V, dim)
         self.Dense_0 = GroupedDense(V, dim, hidden, kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
         self.Dense_1 = GroupedDense(V, hidden, dim, kernel_init=kernel_init,
-                                    generator=generator)
+                                    generator=generator, dtype=dtype)
 
     def forward(self, x, x_all, train: bool = False, generator=None):
         """x: packed [B, T, H, W, V*dim]; x_all: [B, T, H, W, V, C_con]."""
@@ -185,7 +214,8 @@ class AgentTower(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, drop_rate: float = 0.1,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1,
-                 kernel_init: Init = normal_init(), generator=None):
+                 kernel_init: Init = normal_init(), generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.V, self.embed_dim, self.depths = V, embed_dim, depths
         self.in_chans = in_chans
@@ -199,8 +229,9 @@ class AgentTower(nn.Module):
             if in_dim != dim:
                 self.add_module(f"embed{i}", GroupedConv3d(
                     V, in_dim, dim, (1, 1, 1), padding=((0, 0),) * 3,
-                    kernel_init=kernel_init, generator=generator))
-                self.add_module(f"embed_norm{i}", GroupedLayerNorm3d(
+                    kernel_init=kernel_init, generator=generator,
+                    dtype=dtype))
+                self.add_module(f"embed_norm{i}", _FlaxLayerNorm(
                     V, dim, affine=False, eps=_LN_EPS))
             lo = sum(depths[:i])
             for d in range(depth):
@@ -208,12 +239,12 @@ class AgentTower(nn.Module):
                 self.add_module(f"stage{i}_block{d}", AgentBlock(
                     V, dim, in_chans, heads, mlp_ratio, qkv_bias, qk_scale,
                     drop_rate, attn_drop_rate, dpr[lo + d], kernel_init,
-                    generator))
+                    generator, dtype))
         E = embed_dim[-1]
         for j in range(2):  # Conv3d-ReLU-Conv3d-ReLU (:624-634)
             self.add_module(f"proj{j}", _ConvHead(GroupedConv3d(
                 V, E, E, (3, 3, 3), padding_mode="replicate",
-                kernel_init=kernel_init, generator=generator)))
+                kernel_init=kernel_init, generator=generator, dtype=dtype)))
 
     def forward(self, x, train: bool = False, generator=None):
         """x: packed [B, T, H, W, V*C_in] -> [B, T, H, W, V*E]."""
@@ -243,7 +274,8 @@ class AgentSwin(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, drop_rate: float = 0.1,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1,
-                 kernel_init: Init = normal_init(), generator=None):
+                 kernel_init: Init = normal_init(), generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         window_size = window_size or [(1, 1, 1)]
         if not all(tuple(w) == (1, 1, 1) for w in window_size):
@@ -255,7 +287,7 @@ class AgentSwin(nn.Module):
             in_vars, in_chans, list(embed_dim or [16]), list(depths or [1]),
             list(num_heads or [2]), mlp_ratio, qkv_bias, qk_scale,
             drop_rate, attn_drop_rate, drop_path_rate, kernel_init,
-            generator)
+            generator, dtype)
 
     def forward(self, x, train: bool = False, generator=None):
         B, V, C, T, H, W = x.shape

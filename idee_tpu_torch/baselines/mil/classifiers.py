@@ -8,6 +8,8 @@ ReLU between layers, Sigmoid on the head, dropout after every non-final
 layer. DeepMIL returns scores; ARNet (first-layer features, scores); RTFM
 (input features, scores). Every Dense starts N(0, 0.02) (the MIL init
 sweep, build_deepmil.py:90-111), passed in by ``models.build_mil_model``.
+Every Dense computes in ``dtype`` (the model's compute dtype; parameters
+float32), so the scores come out in it.
 """
 # ------------------------------------------------------------------
 
@@ -27,13 +29,14 @@ def normal_init(std: float = 0.02) -> Init:
 class _MLPStack(nn.Module):
     def __init__(self, in_features: int, dim: List[int],
                  drop_rate: float = 0.6, kernel_init: Init = normal_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n, self.drop_rate = len(dim), drop_rate
         for i, d in enumerate(dim):
             self.add_module(f"Dense_{i}", Dense(
                 in_features, d, kernel_init=kernel_init,
-                generator=generator))
+                generator=generator, dtype=dtype))
             in_features = d
 
     def forward(self, x, train: bool = False, return_first: bool = False,
@@ -54,10 +57,11 @@ class DeepMIL(nn.Module):
 
     def __init__(self, embed_dim: int = 16, dim: Optional[List[int]] = None,
                  drop_rate: float = 0.6, kernel_init: Init = normal_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.mlp = _MLPStack(embed_dim, list(dim or [512, 32, 1]),
-                             drop_rate, kernel_init, generator)
+                             drop_rate, kernel_init, generator, dtype)
 
     def forward(self, x, train: bool = False, generator=None):
         return self.mlp(x, train, generator=generator)
@@ -75,8 +79,10 @@ class RTFM(DeepMIL):
 
     def __init__(self, embed_dim: int = 16, dim: Optional[List[int]] = None,
                  drop_rate: float = 0.7, kernel_init: Init = normal_init(),
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(embed_dim, dim, drop_rate, kernel_init, generator)
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(embed_dim, dim, drop_rate, kernel_init, generator,
+                         dtype)
 
     def forward(self, x, train: bool = False, generator=None):
         return x, self.mlp(x, train, generator=generator)

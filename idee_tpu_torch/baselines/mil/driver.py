@@ -23,6 +23,7 @@ from idee_tpu_torch.baselines.mil import losses as L
 from idee_tpu_torch.baselines.mil.models import VARIANTS, build_mil_model
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.synthetic import SyntheticCube
+from idee_tpu_torch.models.vq_model import compute_dtype
 from idee_tpu_torch.train.evaluate import load_weights
 from idee_tpu_torch.train.state import count_parameters, create_train_state
 from idee_tpu_torch.utils.logging import fix_seed, get_logger, log_string
@@ -151,11 +152,11 @@ def train_mil_synthetic(cfg: MILConfig, variant: str,
     # the JAX driver draws item 0 to shape its init, which advances the
     # augmentation stream: drawn here too, both see the same batches
     train_ds[0]
-    train_loader = DataLoader(train_ds, cfg.batch_size, device=dev,
-                              keys=_KEYS, shuffle=True, drop_last=True,
-                              seed=cfg.seed)
-    val_loader = DataLoader(val_ds, cfg.batch_size, device=dev, keys=_KEYS,
-                            shuffle=True, drop_last=True, seed=cfg.seed)
+    # x in the compute dtype, cast on the host (JAX mil/driver.py:229)
+    kw = dict(device=dev, keys=_KEYS, shuffle=True, drop_last=True,
+              seed=cfg.seed, x_dtype=compute_dtype(cfg))
+    train_loader = DataLoader(train_ds, cfg.batch_size, **kw)
+    val_loader = DataLoader(val_ds, cfg.batch_size, **kw)
 
     model = build_mil_model(cfg, variant)
     if cfg.en_de_pretrained:
@@ -190,7 +191,8 @@ def test_mil_synthetic(cfg: MILConfig, variant: str,
     load_weights(model, cfg, params, logger)
     model.to(dev)
     loader = DataLoader(ds, cfg.batch_size, device=dev, keys=_KEYS,
-                        shuffle=False, drop_last=True, seed=cfg.seed)
+                        shuffle=False, drop_last=True, seed=cfg.seed,
+                        x_dtype=compute_dtype(cfg))
     return common.evaluate(cfg, logger, "Testing",
                            make_mil_eval_step(model, cfg, variant,
                                               float(ds.timestep[0])),

@@ -10,6 +10,11 @@ losses. Outputs: MILOutput(scores [N, V, T, H, W] in [0, 1], features
 [N, V, T, H, W, C'] or None); for MGFN T == 1 after the temporal mean
 (build_mgfn.py:161). Every Conv / Dense starts N(0, 0.02) and the norms
 0.02 / 0 (the MIL init sweep, build_deepmil.py:90-111).
+
+Compute dtype: the encoder, the agent, Aggregate and the DeepMIL / ARNet /
+RTFM heads compute in cfg.dtype, as JAX builds them (models.py:54-88);
+MGFN, which JAX builds without a dtype, promotes its input to float32.
+Scores and features leave in float32.
 """
 # ------------------------------------------------------------------
 
@@ -18,13 +23,13 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from idee_tpu_torch.baselines.config import MILConfig, check_float32
+from idee_tpu_torch.baselines.config import MILConfig
 from idee_tpu_torch.baselines.mil.agent import AgentSwin
 from idee_tpu_torch.baselines.mil.classifiers import (ARNet, DeepMIL, RTFM,
                                                       normal_init)
 from idee_tpu_torch.baselines.mil.mgfn import MGFN
 from idee_tpu_torch.baselines.mil.rtfm_net import Aggregate
-from idee_tpu_torch.models.vq_model import build_encoder
+from idee_tpu_torch.models.vq_model import build_encoder, compute_dtype
 
 VARIANTS = ("deepmil", "arnet", "rtfm", "mgfn")
 
@@ -49,8 +54,8 @@ class MILModel(nn.Module):
         if variant not in VARIANTS:
             raise NotImplementedError(f"MIL variant {variant!r}")
         cfg = self.config = config
-        check_float32(cfg)
         self.variant = variant
+        dtype = self.dtype = compute_dtype(cfg)
         g = generator or torch.Generator().manual_seed(cfg.seed)
         init = normal_init(0.02)  # MIL sweep: N(0, 0.02)
         self.encoder = build_encoder(cfg, init, g)
@@ -67,17 +72,17 @@ class MILModel(nn.Module):
                 qk_scale=cfg.agent_qk_scale, drop_rate=cfg.agent_drop_rate,
                 attn_drop_rate=cfg.agent_attn_drop_rate,
                 drop_path_rate=cfg.agent_drop_path_rate, kernel_init=init,
-                generator=g)
+                generator=g, dtype=dtype)
         if variant == "deepmil":
             self.classifier = DeepMIL(emb, list(cfg.cls_dim),
-                                      cfg.cls_drop_rate, init, g)
+                                      cfg.cls_drop_rate, init, g, dtype)
         elif variant == "arnet":
             self.classifier = ARNet(emb, list(cfg.cls_dim),
-                                    cfg.cls_drop_rate, init, g)
+                                    cfg.cls_drop_rate, init, g, dtype)
         elif variant == "rtfm":
-            self.Aggregate = Aggregate(emb, cfg.dim_mtn_rtfm, init, g)
+            self.Aggregate = Aggregate(emb, cfg.dim_mtn_rtfm, init, g, dtype)
             self.classifier = RTFM(emb, list(cfg.cls_dim), cfg.cls_drop_rate,
-                                   init, g)
+                                   init, g, dtype)
         else:
             self.classifier = MGFN(
                 embed_dim=cfg.agent_embed_dim[-1], drop_rate=0.0,
@@ -89,26 +94,27 @@ class MILModel(nn.Module):
     def forward(self, x_d, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> MILOutput:
         """``generator`` draws the dropout and drop-path masks."""
-        z = self.encoder(x_d, train=train, generator=generator)
+        z = self.encoder(x_d.to(self.dtype), train=train,
+                         generator=generator)
 
         if self.variant == "deepmil":
             s = self.classifier(_instances(z), train, generator)
-            return MILOutput(s[..., 0], None)
+            return MILOutput(s[..., 0].float(), None)
         if self.variant == "arnet":
             feat, s = self.classifier(_instances(z), train, generator)
-            return MILOutput(s[..., 0], feat)
+            return MILOutput(s[..., 0].float(), feat.float())
         z = self.agent(z, train, generator)
         if self.variant == "rtfm":
             z = self.Aggregate(z, train)
             feat, s = self.classifier(_instances(z), train, generator)
-            return MILOutput(s[..., 0], feat)
+            return MILOutput(s[..., 0].float(), feat.float())
 
         # mgfn: temporal mean -> per-pixel T=1 sequences
-        # (build_mgfn.py:155-161)
+        # (build_mgfn.py:155-161); MGFN promotes them to float32
         inst = _instances(z.mean(3, keepdim=True))   # [N, V, 1, H, W, C]
         N, V, T, H, W, C = inst.shape
         flat = inst.permute(0, 3, 4, 1, 2, 5).reshape(N * H * W, V, T, C)
-        feat, s = self.classifier(flat, train, generator)
+        feat, s = self.classifier(flat.float(), train, generator)
         feat = feat.reshape(N, H, W, V, T, -1).permute(0, 3, 4, 1, 2, 5)
         s = s.reshape(N, H, W, V, T).permute(0, 3, 4, 1, 2)
         return MILOutput(s, feat)

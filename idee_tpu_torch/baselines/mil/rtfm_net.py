@@ -10,6 +10,9 @@ reference it is not wired into Aggregate. Channels-last; every BatchNorm
 has flax's semantics (``nn/layers.py::BatchNorm``): momentum 0.9 (torch
 0.1), eps 1e-5, the biased variance in the running statistics, scale
 initialised 0.02 (the MIL init sweep) and, in NonLocalBlock1D's W_bn, 0.
+The convolutions compute in ``dtype``; the BatchNorms, which flax builds
+without one, promote to float32 (their statistics are float32), so at
+bf16 Aggregate returns float32.
 """
 # ------------------------------------------------------------------
 
@@ -28,7 +31,8 @@ class Aggregate(nn.Module):
 
     def __init__(self, len_feature: int = 16, dim: int = 32,
                  kernel_init: Init = normal_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         C = len_feature
 
@@ -36,7 +40,8 @@ class Aggregate(nn.Module):
             pad = dil * (k - 1) // 2
             return Conv(cin, feat, (k, k), padding=((pad, pad), (pad, pad)),
                         kernel_dilation=(dil, dil), use_bias=use_bias,
-                        kernel_init=kernel_init, generator=generator)
+                        kernel_init=kernel_init, generator=generator,
+                        dtype=dtype)
 
         self.conv_1 = conv(C, dim, 3, 1)
         self.conv_2 = conv(C, dim, 3, 2)
@@ -54,7 +59,8 @@ class Aggregate(nn.Module):
         out2 = self.bn2(F.relu(self.conv_2(out)), train)
         out3 = self.bn3(F.relu(self.conv_3(out)), train)
         out4 = F.relu(self.conv_4(out))
-        fused = torch.cat([out1, out2, out3, out4], dim=-1)
+        # the concatenation promotes the unnormalised branch to float32
+        fused = torch.cat([out1, out2, out3, out4.to(out1.dtype)], dim=-1)
         fused = self.bn5(F.relu(self.conv_5(fused)), train) + out
         return fused.reshape(B, V, T, H, W, C).permute(0, 1, 5, 2, 3, 4)
 
@@ -66,18 +72,20 @@ class NonLocalBlock1D(nn.Module):
     def __init__(self, in_channels: int, inter_channels: Optional[int] = None,
                  sub_sample: bool = True, bn_layer: bool = True,
                  kernel_init: Init = normal_init(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         inter = inter_channels or max(in_channels // 2, 1)
         self.sub_sample = sub_sample
         for name in ("g", "theta", "phi"):
             self.add_module(name, Conv(in_channels, inter, (1,),
                                        kernel_init=kernel_init,
-                                       generator=generator))
+                                       generator=generator, dtype=dtype))
         # W starts at zero so the block starts as the identity
         # (reference: build_rtfm.py:63-69)
         self.W = Conv(inter, in_channels, (1,),
-                      kernel_init=lambda t, g=None: nn.init.zeros_(t))
+                      kernel_init=lambda t, g=None: nn.init.zeros_(t),
+                      dtype=dtype)
         self.W_bn = (BatchNorm(in_channels, scale_init=0.0) if bn_layer
                      else None)
 

@@ -9,7 +9,8 @@ N(0, noise_std) noise (:243-253); a Dense-BatchNorm-LeakyReLU
 discriminator scores both (:31-52). In training the discriminator runs on
 the noisy copy first and then on the clean one, as in the JAX package:
 each call moves the BatchNorm statistics, so the order matters. The
-frozen backbone is not part of this module (``oneclass/driver.py``).
+frozen backbone is not part of this module (``oneclass/driver.py``; it
+computes in cfg.dtype, this head in float32, as JAX builds them).
 Dense kernels start xavier_normal (:23-27).
 """
 # ------------------------------------------------------------------
@@ -20,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from idee_tpu_torch.baselines.config import OneClassConfig, check_float32
+from idee_tpu_torch.baselines.config import OneClassConfig
 from idee_tpu_torch.nn.layers import BatchNorm, Dense, xavier_init
 
 
@@ -91,7 +92,6 @@ class SimpleNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = self.config = config
-        check_float32(cfg)
         g = generator or torch.Generator().manual_seed(cfg.seed)
         self.pre_projection = Projection(in_planes, cfg.dim, cfg.pre_proj,
                                          cfg.proj_layer_type, g)

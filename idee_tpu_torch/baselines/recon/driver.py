@@ -16,7 +16,7 @@ import torch
 
 from idee_tpu_torch import resolve_device
 from idee_tpu_torch.baselines import common
-from idee_tpu_torch.baselines.config import ReconConfig, check_float32
+from idee_tpu_torch.baselines.config import ReconConfig
 from idee_tpu_torch.baselines.recon.steal import RecModel, steal_loss
 from idee_tpu_torch.baselines.recon.uniad import UniAD
 from idee_tpu_torch.data.loader import DataLoader
@@ -117,7 +117,6 @@ def make_uniad_eval_step(model, cfg: ReconConfig, t0: float):
 def build_recon_model(cfg: ReconConfig, which: str, grid):
     """(model, make_train_step, make_eval_step) of ``which``; ``grid`` is
     the input's (H, W), which fixes UniAD's token grid."""
-    check_float32(cfg)
     g = torch.Generator().manual_seed(cfg.seed)
     if which == "steal":
         model = RecModel(cfg.in_channels_dynamic,

@@ -16,6 +16,8 @@ one attention's scores are [B, nhead, 10^4, 10^4].
 
 Init: xavier_uniform Dense kernels (:71-97); the decoder's learned
 queries N(0, 1); the learned position embeddings U[0, 1) (:576-578).
+It computes in float32 whatever cfg.dtype says, as JAX builds it without
+a dtype.
 """
 # ------------------------------------------------------------------
 
@@ -27,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from idee_tpu_torch.baselines.config import ReconConfig, check_float32
+from idee_tpu_torch.baselines.config import ReconConfig
 from idee_tpu_torch.nn.layers import (Dense, LayerNorm, dropout,
                                       reference_init, uniform_init,
                                       xavier_init)
@@ -207,7 +209,6 @@ class UniAD(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = self.config = config
-        check_float32(cfg)
         g = generator or torch.Generator().manual_seed(cfg.seed)
         fh, fw = grid[0] // cfg.instrides, grid[1] // cfg.instrides
         self.feat = (fh, fw)

@@ -7,8 +7,9 @@ JSON snapshots written by either package load unchanged in the other.
 ``read_arguments`` provides the same CLI shim including the ``config.txt``
 / ``config.pkl`` / ``config.json`` experiment snapshot.
 
-Fields that only the TPU programs read (mesh, fused_chunk) are kept so
-snapshots round-trip; the port ignores them.
+The port reads the mesh fields as data parallelism over the ``data``
+axis (parallel/mesh.py); fused_chunk, which only the TPU programs read,
+is kept so snapshots round-trip.
 """
 # ------------------------------------------------------------------
 
@@ -168,11 +169,12 @@ class Config:
     phase: str = "train"
 
     # --- additions of the JAX package (not in the reference) ---
-    # Their meaning is documented in idee_tpu/config.py. The port refuses a
-    # mesh (mesh_shape, mesh_axes) and leaves fused_chunk unread: JAX cuts a
-    # fused epoch into dispatches of fused_chunk steps for the TPU worker's
-    # watchdog, which has no counterpart here (a fused epoch is one replay
-    # of its CUDA graph per step, train/steps.py::FusedEpoch).
+    # Their meaning is documented in idee_tpu/config.py. The port takes a
+    # mesh of the "data" axis (mesh_shape [N] under torchrun,
+    # parallel/mesh.py; "space" raises) and leaves fused_chunk unread: JAX
+    # cuts a fused epoch into dispatches of fused_chunk steps for the TPU
+    # worker's watchdog, which has no counterpart here (a fused epoch is
+    # one replay of its CUDA graph per step, train/steps.py::FusedEpoch).
     grid_override: Optional[Tuple[int, int]] = None
     # compute dtype: "float32", or "bfloat16" (parameters, the quantizer,
     # the scans and the losses stay float32; models/vq_model.py)

@@ -22,6 +22,8 @@ host's composite (rot90 k=2 == flip H and W, then one random-axis flip):
 flip H by r0 ^ (r1 & ~r2), flip W by r0 ^ (r1 & r2); in the host
 datasets' terms (``draw_aug``), rotate = r0 and flip axis -1 with
 r1 & r2, -2 with r1 & ~r2. Epochs take full batches only (drop_last).
+Under data parallelism (``mesh``, parallel/mesh.py) every rank draws the
+global order and flip bits and its batches hold the rank's rows of each.
 """
 # ------------------------------------------------------------------
 
@@ -59,7 +61,10 @@ class _EpochLoader:
     epoch count, len and iteration over device batches."""
 
     def __init__(self, n: int, batch_size: int, seed: int, is_aug: bool,
-                 device):
+                 device, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.rows(batch_size)  # raises unless the ranks split it
         self.n = n
         self.batch_size = batch_size
         self.seed = seed
@@ -101,8 +106,11 @@ class _EpochLoader:
         order = torch.from_numpy(order).to(self.device)
         if flips is not None:
             flips = torch.from_numpy(flips).to(self.device)
+        rows = (slice(None) if self.mesh is None
+                else self.mesh.rows(self.batch_size))
         for b in range(order.shape[0]):
-            yield self.batch(order[b], None if flips is None else flips[b])
+            yield self.batch(order[b, rows],
+                             None if flips is None else flips[b, rows])
 
     def close(self):  # the host DataLoader's interface
         pass
@@ -123,8 +131,9 @@ class DeviceLoader(_EpochLoader):
 
     def __init__(self, ds, batch_size: int, seed: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 with_anomaly: bool = False, device=None):
-        super().__init__(len(ds), batch_size, seed, bool(ds.is_aug), device)
+                 with_anomaly: bool = False, device=None, mesh=None):
+        super().__init__(len(ds), batch_size, seed, bool(ds.is_aug), device,
+                         mesh)
         self.ds = ds
         self.dt = ds.delta_t
         self.t0 = float(ds.timestep[0])
@@ -184,8 +193,9 @@ class RealDeviceLoader(_EpochLoader):
 
     def __init__(self, ds, batch_size: int, seed: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 with_eval_masks: bool = False, device=None):
-        super().__init__(len(ds), batch_size, seed, bool(ds.is_aug), device)
+                 with_eval_masks: bool = False, device=None, mesh=None):
+        super().__init__(len(ds), batch_size, seed, bool(ds.is_aug), device,
+                         mesh)
         self.ds = ds
         dt = ds.delta_t
         main_slot, noaa_slot = {}, {}

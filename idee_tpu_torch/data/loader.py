@@ -23,6 +23,11 @@ dtype, which halves its bytes at bfloat16. A dataset with ``get_batch``
 (the synthetic one) builds a whole batch in one call of the host engine,
 as the JAX loader does (idee_tpu/data/loader.py:86-88); others are
 collated item by item.
+
+Under data parallelism (``mesh``, parallel/mesh.py) every rank draws the
+same order and, in index order, the augmentations of the whole global
+batch, then builds only its own rows: the ranks' rows together are the
+single-device batch.
 """
 # ------------------------------------------------------------------
 
@@ -60,13 +65,19 @@ class DataLoader:
         pool; at most prefetch + workers are staged ahead.
       x_dtype: the dtype x is converted to on the host before the copy
         (the model's compute dtype; float32 leaves it as built).
+      mesh: a data-parallel mesh (parallel/mesh.py): batches hold the
+        rank's rows of each global batch of ``batch_size``.
     """
 
     def __init__(self, dataset, batch_size: int = 1, device=None,
                  keys: Optional[Sequence[str]] = None, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 2,
-                 workers: int = 0, x_dtype: torch.dtype = torch.float32):
+                 workers: int = 0, x_dtype: torch.dtype = torch.float32,
+                 mesh=None):
         self.dataset = dataset
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.rows(batch_size)  # raises unless the ranks split it
         self.x_dtype = x_dtype
         self.batch_size = batch_size
         self.device = resolve_device(device)
@@ -91,6 +102,15 @@ class DataLoader:
             yield idx[b * self.batch_size:(b + 1) * self.batch_size]
 
     def _make_batch(self, indices, augs=None) -> Dict[str, torch.Tensor]:
+        if self.mesh is not None:
+            # the whole global batch's draws, in index order, then the
+            # rank's rows
+            draw = getattr(self.dataset, "draw_aug", None)
+            if augs is None and draw is not None:
+                augs = [draw() for _ in indices]
+            rows = self.mesh.rows(len(indices))
+            indices = indices[rows]
+            augs = None if augs is None else augs[rows]
         if hasattr(self.dataset, "get_batch"):
             # the host engine's one call per batch (idee_tpu_torch/native)
             batch = self.dataset.get_batch(indices, augs)

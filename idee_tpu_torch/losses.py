@@ -6,10 +6,17 @@ The inverse-frequency weighting is the reference's
   w = log((hist / sum(hist)) ** -0.5 + 1.1) indexed by the target class
 (reference: models/losses.py:82-87,115-120). The anomaly L1 constrains the
 quantized features to the 'normal' code vq_0 outside extreme regions.
+
+Under data parallelism (parallel/mesh.py) the class histograms and the
+masked denominators are the global batch's: a rank's loss is its share
+of the global loss scaled by the world size. Without a mesh the
+collectives are the identity.
 """
 # ------------------------------------------------------------------
 
 import torch
+
+from idee_tpu_torch.parallel.mesh import mean_over_ranks, sum_over_ranks
 
 
 def bce_with_logits(logits, targets):
@@ -36,13 +43,27 @@ def _capped_inv_freq_weights(hist, cap):
     return torch.where(pos, w, torch.zeros_like(w))
 
 
+def class_histogram(target, mask=None):
+    """[count of 0s, count of 1s] of ``target`` (over ``mask`` when given)
+    in the global batch."""
+    if mask is None:
+        hist = torch.stack([(target == 0).sum(), (target == 1).sum()])
+    else:
+        hist = torch.stack([((target == 0) * mask).sum(),
+                            ((target == 1) * mask).sum()])
+    return sum_over_ranks(hist.float())
+
+
 def bce_loss_synthetic(pred, target, weighting: str = "reference",
-                       weight_cap: float = 100.0, focal_gamma: float = 2.0):
+                       weight_cap: float = 100.0, focal_gamma: float = 2.0,
+                       hist=None):
     """Frequency-weighted BCE, mean-reduced (reference: losses.py:98-124).
     pred: logits [N, C, H, W]; target: {0,1} [N, C, H, W]. ``weighting``:
-    "reference", "capped" or "focal" (see idee_tpu/losses.py)."""
+    "reference", "capped" or "focal" (see idee_tpu/losses.py). ``hist``:
+    ``class_histogram(target)``, when the caller has it."""
     target = target.float()
-    hist = torch.stack([(target == 0).sum(), (target == 1).sum()]).float()
+    if hist is None:
+        hist = class_histogram(target)
     if weighting in ("capped", "focal"):
         w = _capped_inv_freq_weights(hist, weight_cap)
     else:
@@ -62,17 +83,18 @@ def bce_loss(pred, target, mask_valid):
     divided by sum(mask_valid)."""
     target = target.float()
     mask = mask_valid.float()
-    hist = torch.stack([((target == 0) * mask).sum(),
-                        ((target == 1) * mask).sum()])
+    hist = class_histogram(target, mask)
     weights = _inv_freq_weights(hist).detach()[target.long()] * mask
-    return (bce_with_logits(pred, target) * weights).sum() / mask.sum()
+    return ((bce_with_logits(pred, target) * weights).sum()
+            / mean_over_ranks(mask.sum()))
 
 
 def _anomaly_l1(z_q, mask, vq0):
     weights = 1.0 - torch.clamp(mask.float(), 0.0, 1.0)[:, None, None, None]
     target = vq0.detach()[None, None, :, None, None, None]
     l1 = (z_q.float() - target).abs() * weights
-    return l1.sum() / torch.broadcast_to(weights, z_q.shape).sum()
+    return l1.sum() / mean_over_ranks(
+        torch.broadcast_to(weights, z_q.shape).sum())
 
 
 def anomaly_l1_loss_synthetic(z_q, mask_extreme_loss, vq0):
@@ -105,7 +127,7 @@ class _AnomalyL1LFQ(torch.autograd.Function):
         pos = (s_q > 0).float()
         # sum over tokens of w_m * [s_q_m = +1]
         sp = torch.einsum("nthwv,nhw->", pos, w_pix)
-        den = C * T * V * w_pix.sum()
+        den = C * T * V * mean_over_ranks(w_pix.sum())
         ctx.save_for_backward(pos, w_pix, w_out, sp, abs_w, den)
         return 2.0 * sp * abs_w / den
 
@@ -138,8 +160,9 @@ def total_loss_synthetic(out, mask_extreme, mask_extreme_loss,
     loss_z_q (reference: train_synthetic.py:182-201).
     Returns (loss, dict of components)."""
     target = mask_extreme.float()[:, None]  # [N, 1, H, W]
+    hist = class_histogram(target)  # the joint's and every head's
     loss_bce = bce_loss_synthetic(out.z, target, weighting, weight_cap,
-                                  focal_gamma)
+                                  focal_gamma, hist)
     if out.loss_anomaly is not None:
         loss_anom = out.loss_anomaly
     else:
@@ -147,7 +170,7 @@ def total_loss_synthetic(out, mask_extreme, mask_extreme_loss,
                                               out.vq0)
     loss_var = torch.stack([
         bce_loss_synthetic(out.y[:, v], target, weighting, weight_cap,
-                           focal_gamma)
+                           focal_gamma, hist)
         for v in range(out.y.shape[1])]).sum()
     loss = loss_bce + lambda_anomaly * loss_anom + loss_var + out.loss_z_q
     return loss, {"loss": loss, "loss_bce": loss_bce,

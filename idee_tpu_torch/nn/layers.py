@@ -272,12 +272,16 @@ def uniform_init(low: float, high: float) -> Init:
 
 class Dense(nn.Module):
     """flax nn.Dense: y = x @ kernel + bias, kernel [in, out] (the JAX
-    layout, no transpose across)."""
+    layout, no transpose across). With a ``dtype`` x, kernel and bias are
+    cast to it (flax's ``dtype=``); without one the float32 parameters
+    meet x as it comes (the caller promotes a bf16 x, as flax does)."""
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True, kernel_init: Optional[Init] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         (kernel_init or flax_default_init(in_features))(self.kernel,
                                                         generator)
@@ -285,8 +289,12 @@ class Dense(nn.Module):
                      else None)
 
     def forward(self, x):
-        y = x @ self.kernel
-        return y + self.bias if self.bias is not None else y
+        dt = self.dtype
+        if dt is None:
+            y = x @ self.kernel
+            return y + self.bias if self.bias is not None else y
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y + self.bias.to(dt) if self.bias is not None else y
 
 
 def same_padding(size: int, k: int, stride: int, dilation: int = 1):

@@ -1,0 +1,261 @@
+# ------------------------------------------------------------------
+"""Data parallelism over several GPUs (counterpart of
+idee_tpu/parallel/mesh.py:19-38, the ``data`` axis).
+
+JAX shards the global batch over the mesh's ``data`` axis and lets GSPMD
+insert the collectives, so its sharded step computes the update of the
+single-device step on the same global batch. Here one process runs per
+rank (``torchrun --nproc_per_node N``), each on ``cfg.batch_size / N``
+rows of every global batch, and the step is made to compute that same
+update:
+
+* the loaders draw the epoch's order and every augmentation for the
+  whole global batch, in the single-device order, and build only the
+  rank's rows (``Mesh.rows``), so the ranks' rows together are the
+  world-1 batch;
+* every batch-wide normaliser of the losses (a class histogram, a
+  valid-pixel count, the codebook entropy's batch means) is taken over
+  the global batch. A rank's loss is its share of the global loss scaled
+  by the world size, so that the mean of the ranks' gradients, which
+  ``average_gradients`` takes after the backward, is the global gradient;
+* the codebook statistics (k-means bins and sums, the EMA's counts and
+  sums) are summed over the ranks, and rows sampled from the batch
+  (k-means seeds, dead-code replacements) are drawn once, by rank 0, over
+  the global batch;
+* the evaluator counters and the vote buffers are summed over the ranks
+  at each epoch's end (``reduce_metrics``), the loss sums averaged.
+
+The gradients are all-reduced explicitly after the backward rather than
+by ``DistributedDataParallel``'s hooks during it: the losses' own
+all-reduces (the codebook entropy's, in its backward) then never
+interleave with the gradient buckets, parameters that get no gradient
+(a frozen LFQ projection) and block recompute (``en_use_checkpoint``)
+need no special mode, and the model stays the unwrapped module whose
+state_dict the checkpoints and the interop read.
+
+Randomness: each rank draws dropout, drop-path and codebook noise from
+its own generator, seeded from (cfg.seed, rank) (``seed``); rank 0 keeps
+cfg.seed, so a world of one draws what the single-device path draws. No
+two ranks share bits, so with dropout on the ranks' rows see other masks
+than the world-1 batch's: the equality with world 1 holds with dropout
+at 0, as in JAX's own test (tests/test_parallel.py:40-65).
+
+Without a mesh nothing here runs: every module-level helper returns its
+input, so the single-device path starts no process group and makes no
+collective call. The ``space`` axis (spatial sharding) is not ported.
+"""
+# ------------------------------------------------------------------
+
+import math
+import os
+from dataclasses import dataclass
+from typing import Iterable, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from idee_tpu_torch import resolve_device
+
+# the mesh of this process, set by make_mesh and cleared by Mesh.close
+_ACTIVE: Optional["Mesh"] = None
+
+
+@dataclass
+class Mesh:
+    """This process's place on the ``data`` axis: its rank, the world
+    size and its device."""
+
+    rank: int
+    world: int
+    device: torch.device
+    started: bool = False  # make_mesh started the process group
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0, the one rank that writes files."""
+        return self.rank == 0
+
+    def rows(self, n: int) -> slice:
+        """The rank's rows of a global batch of ``n``."""
+        if n % self.world:
+            raise ValueError(f"a global batch of {n} does not split over "
+                             f"{self.world} ranks")
+        b = n // self.world
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+    def seed(self, seed: int, step: int = 0) -> int:
+        """The seed of the rank's generator: ``seed`` itself on rank 0 at
+        step 0, else a draw of numpy's SeedSequence over (seed, rank,
+        step)."""
+        if self.rank == 0 and step == 0:
+            return seed
+        return int(np.random.SeedSequence(
+            [seed, self.rank, step]).generate_state(1)[0])
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks, in place (no gradient)."""
+        dist.all_reduce(t)
+        return t
+
+    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """``t`` replaced by rank ``src``'s, in place."""
+        dist.broadcast(t, src)
+        return t
+
+    def broadcast_module(self, module: torch.nn.Module) -> None:
+        """Every parameter and buffer of ``module`` from rank 0."""
+        with torch.no_grad():
+            for t in list(module.parameters()) + list(module.buffers()):
+                self.broadcast_(t.data)
+
+    def average_gradients(self, params: Iterable[torch.nn.Parameter]):
+        """Each gradient replaced by its mean over the ranks, in one
+        all-reduce of the flattened gradients. A parameter without a
+        gradient is left without one (the ranks run the same graph, so
+        they agree on which)."""
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        flat /= self.world
+        offset = 0
+        for g in grads:
+            n = g.numel()
+            g.copy_(flat[offset:offset + n].view_as(g))
+            offset += n
+
+    def reduce_metrics(self, metrics):
+        """An epoch metrics tree (train/steps.py, steps_real.py) made
+        global, in place: counters and vote buffers summed over the ranks,
+        loss sums averaged (each rank's loss already is its share of the
+        global loss, scaled by the world size), the step count kept."""
+        for k, v in metrics.items():
+            if isinstance(v, dict):
+                for t in v.values():
+                    self._reduce(t, average=(k == "loss_sums"))
+            elif k != "n_steps":
+                self._reduce(v, average=False)
+        return metrics
+
+    def _reduce(self, t: torch.Tensor, average: bool):
+        # the vote sums are uint8: summed in int32, which every backend
+        # reduces
+        w = t if t.dtype in (torch.float32, torch.int64, torch.int32) \
+            else t.to(torch.int32)
+        dist.all_reduce(w)
+        if average:
+            w /= self.world
+        if w is not t:
+            t.copy_(w)
+
+    def close(self) -> None:
+        """Destroy the process group; the helpers turn back into the
+        identity."""
+        global _ACTIVE
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if _ACTIVE is self:
+            _ACTIVE = None
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, default))
+
+
+def make_mesh(mesh_shape: Sequence[int], mesh_axes: Sequence[str] = ("data",),
+              device=None, backend: Optional[str] = None,
+              init_method: str = "env://") -> Mesh:
+    """The data-parallel mesh of this process, from the torchrun
+    environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; a process
+    started without torchrun is rank 0 of 1). Starts the process group
+    once (a started one is kept): ``backend`` ``nccl`` on a card, ``gloo``
+    on the CPU, unless named. ``device``: ``cuda:LOCAL_RANK`` unless given
+    (a bare ``cuda`` also takes the local rank's card). Raises when
+    ``mesh_axes`` holds ``space`` or when ``mesh_shape`` is not the world
+    size."""
+    global _ACTIVE
+    axes = list(mesh_axes)
+    if "space" in axes:
+        raise NotImplementedError(
+            "mesh_axes 'space': spatial sharding is not ported to the "
+            "PyTorch port (ROADMAP.md, queue 1); the 'data' axis is")
+    if axes != ["data"] or len(mesh_shape) != 1:
+        raise ValueError(f"mesh_shape {list(mesh_shape)} over axes {axes}: "
+                         "the port shards one 'data' axis")
+    rank = _env_int("RANK", 0)
+    world = _env_int("WORLD_SIZE", 1)
+    local = _env_int("LOCAL_RANK", rank)
+    if math.prod(mesh_shape) != world:
+        raise ValueError(
+            f"mesh_shape {list(mesh_shape)} needs {math.prod(mesh_shape)} "
+            f"processes, this run has WORLD_SIZE {world} (start it with "
+            f"torchrun --nproc_per_node {math.prod(mesh_shape)})")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local)
+    dev = resolve_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group(backend, init_method=init_method,
+                                rank=rank, world_size=world)
+    _ACTIVE = Mesh(rank, world, dev, started)
+    return _ACTIVE
+
+
+# -- the losses' and codebooks' collectives: the identity without a mesh
+
+
+def world_size() -> int:
+    return 1 if _ACTIVE is None else _ACTIVE.world
+
+
+def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks, without gradient (a copy)."""
+    if _ACTIVE is None:
+        return t
+    return _ACTIVE.sum_(t.detach().clone())
+
+
+def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    """``t`` averaged over the ranks, without gradient: a batch-wide
+    normaliser (a count) of the global batch, per rank. A rank's loss
+    divided by it is its share of the global loss scaled by the world
+    size."""
+    if _ACTIVE is None:
+        return t
+    return sum_over_ranks(t) / _ACTIVE.world
+
+
+def grad_mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    """``t`` averaged over the ranks, differentiably (the backward sums
+    the ranks' gradients): a batch mean of the global batch from the
+    ranks' means of equal-sized row sets, for a term that is not linear
+    in it (the codebook entropy)."""
+    if _ACTIVE is None:
+        return t
+    from torch.distributed.nn.functional import all_reduce
+    return all_reduce(t) / _ACTIVE.world
+
+
+def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``t`` (a copy)."""
+    if _ACTIVE is None:
+        return t
+    return _ACTIVE.broadcast_(t.clone(), src)
+
+
+def rank_offset(n_local: int) -> int:
+    """The global index of the rank's first row when each rank holds
+    ``n_local`` rows in rank order."""
+    return 0 if _ACTIVE is None else _ACTIVE.rank * n_local
+
+
+def average_gradients(params: Iterable[torch.nn.Parameter]) -> None:
+    """Each gradient averaged over the ranks (after the backward)."""
+    if _ACTIVE is not None:
+        _ACTIVE.average_gradients(params)

@@ -7,7 +7,8 @@ straight-through estimator; the bit-packed sign pattern (MSB first) is the
 code index. With the default codebook_size=2 the 16-dim feature of each
 (variable, time, pixel) is projected to one scalar s, and sign(s) is the
 code: the index in {0, 1} is the anomaly bit. The quantizer runs in
-float32.
+float32. Under data parallelism (parallel/mesh.py) the codebook
+entropy is the global batch's.
 
 Two paths: ``forward`` over tokens [B, N, dim] for any power-of-two
 codebook_size (the generic VQModel path), and ``quantize_packed``, the
@@ -27,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from idee_tpu_torch.nn.layers import Init, flax_default_init
+from idee_tpu_torch.parallel.mesh import grad_mean_over_ranks
 
 
 class LFQReturn(NamedTuple):
@@ -163,7 +165,9 @@ class LFQ(nn.Module):
             prob = torch.softmax(logits * self.inv_temperature, dim=-1)
             flat = prob.reshape(-1, c, self.codebook_size)
             per_sample_entropy = _entropy(flat).mean()
-            codebook_entropy = _entropy(flat.mean(0)).mean()
+            # the batch mean over the global batch under data parallelism
+            codebook_entropy = _entropy(grad_mean_over_ranks(
+                flat.mean(0))).mean()
             commit = torch.mean((original - quantized.detach()) ** 2)
             aux = (commit * self.commitment_loss_weight
                    + self.entropy_loss_weight * per_sample_entropy
@@ -219,7 +223,9 @@ class LFQ(nn.Module):
             p1 = torch.sigmoid(4.0 * scale * self.inv_temperature * s)
             p0 = 1.0 - p1
             per_sample_entropy = torch.mean(-p0 * _log(p0) - p1 * _log(p1))
-            q0, q1 = p0.mean(), p1.mean()
+            # the global batch's means under data parallelism
+            q0, q1 = grad_mean_over_ranks(
+                torch.stack([p0.mean(), p1.mean()])).unbind()
             codebook_entropy = -q0 * _log(q0) - q1 * _log(q1)
             entropy_aux = (self.entropy_loss_weight * per_sample_entropy
                            - self.diversity_gamma * codebook_entropy)

@@ -31,10 +31,15 @@ Whether the k-means init has run is the ``initted`` buffer; the module
 also keeps it as a host flag, read when it is built or loaded, so that a
 training step never waits on the device to decide.
 
-``sync_axis`` names the mesh axis the JAX package all-reduces the k-means
-and EMA statistics over; ``_all_reduce`` is where the multi-GPU sum goes.
-The port runs one device (its drivers refuse ``mesh_shape``), where the
-sum is the identity.
+Data parallelism (parallel/mesh.py): the JAX package's step sees the
+global batch (GSPMD), or sums over its ``sync_axis`` with ``psum``. Here
+each rank holds its rows of the global batch, so ``_all_reduce`` sums the
+k-means bins and sums, the EMA's counts and sums and the active-code
+mask over the ranks, and rows sampled from the batch (the k-means seeds,
+the dead-code replacements) are drawn by rank 0 over the global batch's
+tokens, broadcast, and gathered from the rank that holds each
+(``_sample_rows``): every rank ends the step with the world-1 codebook
+state. Without a mesh the sum is the identity.
 
 Not carried over, as in the JAX package: the cross-entropy-on-passed-
 indices path (VQ.py:994-1013) and in-place codebook optimizers.
@@ -48,6 +53,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from idee_tpu_torch.nn.layers import reference_init
+from idee_tpu_torch.parallel.mesh import (broadcast, rank_offset,
+                                          sum_over_ranks, world_size)
 from idee_tpu_torch.quant.lfq import LFQReturn, zero_loss, projection
 
 
@@ -175,15 +182,28 @@ class VQ(nn.Module):
             self._initted = bool(float(state_dict[key]) > 0)
 
     def _all_reduce(self, t):
-        """Sum over the ``sync_axis`` replicas: the identity on one
+        """Sum over the data-parallel ranks: the identity on one
         device."""
-        return t
+        return sum_over_ranks(t)
+
+    def _sample_rows(self, z, idx):
+        """z[h, idx[h, k]] of the global batch's tokens, ``idx`` [H, K]
+        global token indices (each rank holds z [H, M, D], its M tokens in
+        rank order): the rank that holds a row gives it, the others 0."""
+        if world_size() == 1:
+            return gather_rows(z, idx)
+        M = z.shape[1]
+        local = idx - rank_offset(M)
+        own = (local >= 0) & (local < M)
+        rows = gather_rows(z, local.clamp(0, M - 1)) * own[..., None]
+        return sum_over_ranks(rows)
 
     def draw(self, generator: Optional[torch.Generator], M: int,
              dist_shape, device, train: bool) -> Dict[str, torch.Tensor]:
         """This step's random draws: ``kmeans`` [H, K] seed rows (when the
         init is due), ``gumbel`` uniforms in [1e-20, 1) of the distance
-        shape, ``expire`` [H, K] replacement rows."""
+        shape, ``expire`` [H, K] replacement rows. ``M``: the tokens of
+        the global batch, from which the rows are drawn."""
         H, K = self.num_codebooks, self.codebook_size
         out = {}
         if not train:
@@ -218,7 +238,7 @@ class VQ(nn.Module):
         seed rows z[h, idx[h]]: z [H, M, D], idx [H, K] -> (means [H, K, D],
         bins [H, K]) (reference: VQ.py:213-253)."""
         K = self.codebook_size
-        means = gather_rows(z, idx)
+        means = self._sample_rows(z, idx)
         for _ in range(self.kmeans_iters):
             onehot = F.one_hot(self._assign(z, means), K).float()
             bins = self._all_reduce(onehot.sum(1))                   # [H, K]
@@ -260,7 +280,12 @@ class VQ(nn.Module):
         M = z.shape[1]
         zd = z.detach()
         if draws is None:
-            draws = self.draw(generator, M, (H, M, K), z.device, train)
+            draws = self.draw(generator, M * world_size(), (H, M, K),
+                              z.device, train)
+            # rank 0's rows of the global batch (parallel/mesh.py)
+            draws.update({k: broadcast(draws[k]) for k in ("kmeans",
+                                                            "expire")
+                          if k in draws})
         updatable = self._updatable(train)
 
         embed, cluster_size = self.embed, self.cluster_size
@@ -311,7 +336,7 @@ class VQ(nn.Module):
                 # dead-code expiry (reference: VQ.py:451-475)
                 if self.threshold_ema_dead_code > 0:
                     expired = new_cs < self.threshold_ema_dead_code  # [H, K]
-                    samples = gather_rows(zd, draws["expire"])
+                    samples = self._sample_rows(zd, draws["expire"])
                     reset = self.reset_cluster_size
                     new_embed = torch.where(expired[..., None], samples,
                                             new_embed)
@@ -326,7 +351,7 @@ class VQ(nn.Module):
             target = quantize if trainable else quantize.detach()
             loss = self.commitment_weight * torch.mean((target - zq_in) ** 2)
             if self.orthogonal_reg_weight > 0:
-                mask = ((onehot.sum(1) > 0).float()
+                mask = ((self._all_reduce(onehot.sum(1)) > 0).float()
                         if self.orthogonal_reg_active_codes_only else None)
                 loss = loss + self.orthogonal_reg_weight \
                     * orthogonal_loss_fn(embed, mask)

@@ -22,10 +22,21 @@ Each epoch the TensorBoard image panels (utils/vis.py) are made from the
 last val batch, which the val loaders carry with its anomaly bits, through
 an eval step that returns the predictions, outside any captured graph.
 
-Not ported yet (ROADMAP.md): meshes (``mesh_shape``).
+Data parallelism (``mesh_shape=[N]`` under ``torchrun --nproc_per_node
+N``, or a ``mesh`` from parallel/mesh.py::make_mesh): each rank trains on
+its rows of every global batch of ``batch_size`` with the per-step loop
+(host or device loader), the gradients averaged over the ranks, and the
+epoch's counters and vote buffers summed over them before the evaluators
+read them; rank 0 alone writes the log, config snapshot, checkpoints,
+history.json and TensorBoard, and every rank reads ``latest`` on resume.
+Not ported (ROADMAP.md): the fused epochs under a mesh and the ``space``
+axis.
 """
 # ------------------------------------------------------------------
 
+import contextlib
+import os
+import sys
 import time
 from typing import Dict, Optional
 
@@ -38,13 +49,15 @@ from idee_tpu_torch.data.device import DeviceLoader
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.synthetic import SyntheticCube, SyntheticDataset
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
+from idee_tpu_torch.parallel.mesh import make_mesh
 from idee_tpu_torch.train.checkpoint import (CheckpointManager,
                                              load_pretrained_weights)
 from idee_tpu_torch.train.history import flush_history, seed_history
 from idee_tpu_torch.train.metrics import (EvaluatorAnomalySynthetic,
                                           EvaluatorSynthetic,
                                           majority_vote_from_device)
-from idee_tpu_torch.train.state import count_parameters, create_train_state
+from idee_tpu_torch.train.state import (TrainState, count_parameters,
+                                        create_train_state)
 from idee_tpu_torch.train.steps import (init_epoch_metrics, make_eval_epoch,
                                         make_eval_step, make_train_epoch,
                                         make_train_step, metrics_to_host)
@@ -84,9 +97,6 @@ def _make_datasets(cfg: Config, train_cube=None, val_cube=None):
 
 
 def _check_supported(cfg: Config):
-    if cfg.mesh_shape:
-        raise NotImplementedError("mesh_shape: multi-GPU is not ported yet "
-                                  "(ROADMAP.md, open items)")
     if cfg.debug_nans and use_fused(cfg):
         # anomaly detection reads every gradient on the host, which a CUDA
         # graph cannot capture
@@ -101,11 +111,61 @@ def use_fused(cfg: Config) -> bool:
     return bool(cfg.device_data and cfg.fused_epoch and not cfg.profile_dir)
 
 
+def data_parallel(cfg: Config, device, mesh):
+    """(mesh, device) of a train driver: the caller's ``mesh``, else one
+    made from cfg.mesh_shape (parallel/mesh.py::make_mesh, on ``device``
+    or the local rank's card), else None; the device is the mesh's."""
+    if mesh is None and cfg.mesh_shape:
+        mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device=device)
+    if mesh is None:
+        return None, resolve_device(device)
+    if use_fused(cfg):
+        # a captured step would hold the losses' and the gradients'
+        # collectives
+        raise NotImplementedError(
+            "the fused epochs under a mesh are not ported (ROADMAP.md, "
+            "queue 1): set fused_epoch=False for the per-step loop")
+    return mesh, mesh.device
+
+
+@contextlib.contextmanager
+def rank_output(mesh):
+    """Rank 0 prints; under a mesh the other ranks' stdout is
+    discarded."""
+    if mesh is None or mesh.is_main:
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+        sys.stdout.flush()
+
+
+def join_ranks(mesh, state: TrainState, cfg: Config) -> None:
+    """Under a mesh, after any restore: every rank takes rank 0's
+    parameters and buffers, and the ranks other than 0 reseed their
+    generators from (cfg.seed, rank, step) (parallel/mesh.py::Mesh.seed),
+    so no two draw the same dropout bits."""
+    if mesh is None:
+        return
+    mesh.broadcast_module(state.model)
+    if not mesh.is_main:
+        state.generator.manual_seed(mesh.seed(cfg.seed, state.step))
+
+
+def epoch_metrics(mesh, metrics):
+    """The epoch metrics on the host, summed over the ranks under a
+    mesh."""
+    return metrics_to_host(metrics if mesh is None
+                           else mesh.reduce_metrics(metrics))
+
+
 def traced(loader, cfg: Config, epoch: int, start_epoch: int, device,
            logger):
     """``loader``'s batches; in the first epoch with ``profile_dir`` the
-    ``profile_dir`` hook traces steps 2-7 (utils/logging.py::StepTrace)."""
-    if not cfg.profile_dir or epoch != start_epoch:
+    ``profile_dir`` hook traces steps 2-7 (utils/logging.py::StepTrace);
+    under a mesh on rank 0 only (the caller passes logger None on the
+    others)."""
+    if not cfg.profile_dir or epoch != start_epoch or logger is None:
         return loader
     return StepTrace(cfg.profile_dir, f"{cfg.name}_train", device,
                      logger).steps(loader)
@@ -150,13 +210,27 @@ def _panels(writer, eval_step_preds, batch, metrics, variables, step: int):
 def train_synthetic(cfg: Config,
                     train_cube: Optional[SyntheticCube] = None,
                     val_cube: Optional[SyntheticCube] = None,
-                    device=None) -> Dict:
+                    device=None, mesh=None) -> Dict:
     """Train on the synthetic benchmark; returns the history dict (plus the
-    final TrainState under "state"). ``device``: cuda unless given."""
+    final TrainState under "state"). ``device``: cuda unless given.
+    ``mesh``: a data-parallel mesh (parallel/mesh.py), by default made from
+    cfg.mesh_shape."""
     _check_supported(cfg)
-    dev = resolve_device(device)
-    logger = get_logger(cfg)
-    save_options(cfg)
+    given = mesh
+    mesh, dev = data_parallel(cfg, device, mesh)
+    try:
+        with rank_output(mesh):
+            return _train_synthetic(cfg, train_cube, val_cube, dev, mesh)
+    finally:
+        if mesh is not None and given is None and mesh.started:
+            mesh.close()  # the process group this driver started
+
+
+def _train_synthetic(cfg, train_cube, val_cube, dev, mesh) -> Dict:
+    main = mesh is None or mesh.is_main
+    logger = get_logger(cfg) if main else None
+    if main:
+        save_options(cfg)
     fix_seed(cfg.seed)
 
     log_string(logger, "loading training dataset ...")
@@ -171,20 +245,21 @@ def train_synthetic(cfg: Config,
     if cfg.device_data:
         # the cube lives on the card; a step sends the host nothing
         train_loader = DeviceLoader(train_ds, cfg.batch_size, seed=cfg.seed,
-                                    dtype=compute_dtype(cfg), device=dev)
+                                    dtype=compute_dtype(cfg), device=dev,
+                                    mesh=mesh)
         # the anomaly bits feed the image panels only
         val_loader = DeviceLoader(val_ds, cfg.batch_size, seed=cfg.seed,
                                   dtype=compute_dtype(cfg),
-                                  with_anomaly=True, device=dev)
+                                  with_anomaly=True, device=dev, mesh=mesh)
     else:
         train_loader = DataLoader(train_ds, cfg.batch_size, device=dev,
                                   keys=_KEYS, shuffle=True,
                                   drop_last=True, seed=cfg.seed,
-                                  x_dtype=compute_dtype(cfg))
+                                  x_dtype=compute_dtype(cfg), mesh=mesh)
         val_loader = DataLoader(val_ds, cfg.batch_size, device=dev,
                                 keys=_KEYS + ["mask_anomaly"], shuffle=True,
                                 drop_last=True, seed=cfg.seed,
-                                x_dtype=compute_dtype(cfg))
+                                x_dtype=compute_dtype(cfg), mesh=mesh)
 
     log_string(logger, "\nloading the model ...")
     model = build_model(cfg)
@@ -203,6 +278,7 @@ def train_synthetic(cfg: Config,
     if restored is not None:
         start_epoch = int(restored["meta"]["epoch"]) + 1
         log_string(logger, f"auto-resumed from epoch {start_epoch}")
+    join_ranks(mesh, state, cfg)
 
     t0_train, t0_val = float(train_ds.timestep[0]), float(val_ds.timestep[0])
     if use_fused(cfg):
@@ -218,7 +294,7 @@ def train_synthetic(cfg: Config,
     eval_step = make_eval_step(model, cfg, t0=t0_val)
     eval_step_preds = make_eval_step(model, cfg, t0=t0_val,
                                      return_preds=True)
-    writer = SummaryWriter(cfg.log_dir)
+    writer = SummaryWriter(cfg.log_dir if main else None)
 
     eval_train = EvaluatorSynthetic(logger, "Training")
     eval_val = EvaluatorSynthetic(logger, "Validation")
@@ -253,7 +329,7 @@ def train_synthetic(cfg: Config,
                     state, metrics = train_step(state, metrics, batch)
                     timer.tick()
                 sps = timer.steps_per_sec
-                m = metrics_to_host(metrics)
+                m = epoch_metrics(mesh, metrics)
             mean_loss_train = _epoch_results(m, eval_train, eval_train_anom,
                                              train_ds.anomaly)
             eval_train_anom.get_results()
@@ -270,23 +346,25 @@ def train_synthetic(cfg: Config,
                 for batch in val_loader:
                     metrics = eval_step(metrics, batch)
                     last_batch = batch
-                m = metrics_to_host(metrics)
+                m = epoch_metrics(mesh, metrics)
             mean_loss_val = _epoch_results(m, eval_val, eval_val_anom,
                                            val_ds.anomaly)
             eval_val_anom.get_results()
             eval_val.get_results(mean_loss_val, best_loss_val)
 
             # -- checkpoints (reference policy: train_synthetic.py:302-308)
+            aliases = []
             if mean_loss_val <= best_loss_val:
                 best_loss_val = mean_loss_val
-                ckpt.save("best_loss_model", state, epoch, mean_loss_train,
-                          mean_loss_val)
+                aliases.append("best_loss_model")
             f1_val = _nanmean(eval_val.F1)
             if f1_val >= best_f1_val:
                 best_f1_val = f1_val
-                ckpt.save("best_F1_model", state, epoch, mean_loss_train,
-                          mean_loss_val)
-            ckpt.save("latest", state, epoch, mean_loss_train, mean_loss_val)
+                aliases.append("best_F1_model")
+            for alias in aliases + ["latest"]:
+                if main:
+                    ckpt.save(alias, state, epoch, mean_loss_train,
+                              mean_loss_val)
 
             history["train_loss"].append(mean_loss_train)
             history["val_loss"].append(mean_loss_val)
@@ -297,7 +375,8 @@ def train_synthetic(cfg: Config,
             history["val_anom_f1"].append(_nanmean(eval_val_anom.F1_pos))
             history["steps_per_sec"].append(sps)
             log_string(logger, "steps/sec: %.3f" % sps)
-            flush_history(cfg.log_dir, history)
+            if main:
+                flush_history(cfg.log_dir, history)
 
             # -- TensorBoard scalars (reference: train_synthetic.py:310-319)
             writer.add_scalars("Loss", {"train": mean_loss_train,

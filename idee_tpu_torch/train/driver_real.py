@@ -16,9 +16,9 @@ run fused (on a card as CUDA graph replays) or, with
 ``profile_dir`` hook and the image panels (probability, prediction and
 target with the sea, no-vegetation and cold overlays, and the drivers)
 are train/driver.py's; the val loaders carry the sea and no-vegetation
-masks for the panels.
-
-Not ported yet (ROADMAP.md): meshes.
+masks for the panels. Data parallelism (``mesh_shape`` under torchrun)
+is train/driver.py's: each rank on its rows of every global batch, the
+masked losses normalised over the global batch, rank 0 writing.
 """
 # ------------------------------------------------------------------
 
@@ -37,8 +37,10 @@ from idee_tpu_torch.data.reanalysis import (ReanalysisDataset, cerra_spec,
                                             era5_land_spec)
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
 from idee_tpu_torch.train.checkpoint import CheckpointManager
-from idee_tpu_torch.train.driver import (_check_supported, last_val_batch,
-                                         traced, use_fused)
+from idee_tpu_torch.train.driver import (_check_supported, data_parallel,
+                                         epoch_metrics, join_ranks,
+                                         last_val_batch, rank_output, traced,
+                                         use_fused)
 from idee_tpu_torch.train.evaluate import load_weights
 from idee_tpu_torch.train.history import flush_history, seed_history
 from idee_tpu_torch.train.metrics import Evaluator
@@ -121,13 +123,27 @@ def _panels_real(writer, eval_step_preds, batch, metrics, variables,
 def train_real(cfg: Config, family: str,
                train_ds: Optional[ReanalysisDataset] = None,
                val_ds: Optional[ReanalysisDataset] = None,
-               device=None) -> Dict:
+               device=None, mesh=None) -> Dict:
     """Train on ``family``; returns the history dict (plus the final
-    TrainState under "state"). ``device``: cuda unless given."""
+    TrainState under "state"). ``device``: cuda unless given. ``mesh``: a
+    data-parallel mesh (parallel/mesh.py), by default made from
+    cfg.mesh_shape."""
     _check_supported(cfg)
-    dev = resolve_device(device)
-    logger = get_logger(cfg)
-    save_options(cfg)
+    given = mesh
+    mesh, dev = data_parallel(cfg, device, mesh)
+    try:
+        with rank_output(mesh):
+            return _train_real(cfg, family, train_ds, val_ds, dev, mesh)
+    finally:
+        if mesh is not None and given is None and mesh.started:
+            mesh.close()  # the process group this driver started
+
+
+def _train_real(cfg, family, train_ds, val_ds, dev, mesh) -> Dict:
+    main = mesh is None or mesh.is_main
+    logger = get_logger(cfg) if main else None
+    if main:
+        save_options(cfg)
     fix_seed(cfg.seed)
 
     log_string(logger, f"loading {family} training dataset ...")
@@ -145,7 +161,8 @@ def train_real(cfg: Config, family: str,
     # x in the compute dtype (idee_tpu/train/driver_real.py:115-130)
     if cfg.device_data:
         # one normalised slab and mask triple per unique week on the card
-        loader_kw = dict(seed=cfg.seed, dtype=compute_dtype(cfg), device=dev)
+        loader_kw = dict(seed=cfg.seed, dtype=compute_dtype(cfg), device=dev,
+                         mesh=mesh)
         train_loader = RealDeviceLoader(train_ds, cfg.batch_size, **loader_kw)
         val_loader = RealDeviceLoader(val_ds, cfg.batch_size,
                                       with_eval_masks=True, **loader_kw)
@@ -154,7 +171,7 @@ def train_real(cfg: Config, family: str,
         # image panels (JAX idee_tpu/train/driver_real.py:111-114)
         loader_kw = dict(device=dev, shuffle=True, drop_last=True,
                          seed=cfg.seed, workers=cfg.loader_workers,
-                         x_dtype=compute_dtype(cfg))
+                         x_dtype=compute_dtype(cfg), mesh=mesh)
         train_loader = DataLoader(train_ds, cfg.batch_size, keys=TRAIN_KEYS,
                                   **loader_kw)
         val_loader = DataLoader(val_ds, cfg.batch_size, keys=TEST_KEYS,
@@ -176,6 +193,7 @@ def train_real(cfg: Config, family: str,
     if restored is not None:
         start_epoch = int(restored["meta"]["epoch"]) + 1
         log_string(logger, f"auto-resumed from epoch {start_epoch}")
+    join_ranks(mesh, state, cfg)
 
     if use_fused(cfg):  # after the restore, as in train/driver.py
         train_epoch = make_train_epoch_real(model, cfg, train_loader)
@@ -183,7 +201,7 @@ def train_real(cfg: Config, family: str,
     train_step = make_train_step_real(model, cfg)
     eval_step = make_eval_step_real(model, cfg)
     eval_step_preds = make_eval_step_real(model, cfg, return_preds=True)
-    writer = SummaryWriter(cfg.log_dir)
+    writer = SummaryWriter(cfg.log_dir if main else None)
     eval_train = Evaluator(logger, "Training")
     eval_val = Evaluator(logger, "Validation")
 
@@ -210,7 +228,7 @@ def train_real(cfg: Config, family: str,
                     state, metrics = train_step(state, metrics, batch)
                     timer.tick()
                 sps = timer.steps_per_sec
-                m = metrics_to_host(metrics)
+                m = epoch_metrics(mesh, metrics)
             eval_train.update_counts(m["counts"])
             mean_loss_train = _mean_loss(m)
             eval_train.get_results(mean_loss_train, best_loss_train)
@@ -225,23 +243,25 @@ def train_real(cfg: Config, family: str,
                 for batch in val_loader:
                     metrics = eval_step(metrics, batch)
                     last_batch = batch
-                m = metrics_to_host(metrics)
+                m = epoch_metrics(mesh, metrics)
             eval_val.update_counts(m["counts"])
             mean_loss_val = _mean_loss(m)
             eval_val.get_results(mean_loss_val, best_loss_val)
 
+            aliases = []
             if mean_loss_val <= best_loss_val:
                 best_loss_val = mean_loss_val
-                ckpt.save("best_loss_model", state, epoch, mean_loss_train,
-                          mean_loss_val)
+                aliases.append("best_loss_model")
             # best F1 on the drought class (train_CERRA.py:303-305)
             f1_val = (float(eval_val.F1[1]) if np.isfinite(eval_val.F1[1])
                       else 0.0)
             if f1_val >= best_f1_val:
                 best_f1_val = f1_val
-                ckpt.save("best_F1_model", state, epoch, mean_loss_train,
-                          mean_loss_val)
-            ckpt.save("latest", state, epoch, mean_loss_train, mean_loss_val)
+                aliases.append("best_F1_model")
+            for alias in aliases + ["latest"]:
+                if main:
+                    ckpt.save(alias, state, epoch, mean_loss_train,
+                              mean_loss_val)
 
             # TensorBoard scalars (reference: train_CERRA.py:313-315)
             writer.add_scalars("Loss", {"train": mean_loss_train,
@@ -263,7 +283,8 @@ def train_real(cfg: Config, family: str,
             history["val_f1"].append(f1_val)
             history["steps_per_sec"].append(sps)
             log_string(logger, "steps/sec: %.3f" % sps)
-            flush_history(cfg.log_dir, history)
+            if main:
+                flush_history(cfg.log_dir, history)
 
             eval_train.reset()
             eval_val.reset()

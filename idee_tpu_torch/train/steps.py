@@ -21,6 +21,7 @@ import torch
 
 from idee_tpu_torch import losses
 from idee_tpu_torch.config import Config
+from idee_tpu_torch.parallel.mesh import average_gradients
 from idee_tpu_torch.kernels import selective_scan, window_attention
 
 _LOSS_KEYS = ("loss", "loss_bce", "loss_anomaly", "loss_var", "loss_z_q")
@@ -116,10 +117,11 @@ def _lambda_schedule(cfg: Config, steps_per_epoch: int):
 def _train_body(model, cfg: Config, t0: float):
     """body(state, metrics, batch, lam): forward with train=True and the
     mask, total_loss_synthetic at lambda_anomaly ``lam`` (a float or a
-    device scalar), backward, ``state.update()`` (the optimizer step at the
-    lr already set), then the metric updates on detached outputs. No host
-    state moves and nothing waits for the device, so a CUDA graph can
-    capture it."""
+    device scalar), backward, under a data-parallel mesh the gradients
+    averaged over the ranks (parallel/mesh.py), ``state.update()`` (the
+    optimizer step at the lr already set), then the metric updates on
+    detached outputs. No host state moves and nothing waits for the
+    device, so a CUDA graph can capture it (without a mesh)."""
     bce = _bce_kwargs(cfg)
 
     def body(state, metrics, batch, lam):
@@ -133,6 +135,7 @@ def _train_body(model, cfg: Config, t0: float):
             **bce)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        average_gradients(model.parameters())  # under a mesh
         state.update()
         with torch.no_grad():
             _accumulate(metrics, {k: v.detach() for k, v in comps.items()},

@@ -24,6 +24,7 @@ import torch
 
 from idee_tpu_torch import losses
 from idee_tpu_torch.config import Config
+from idee_tpu_torch.parallel.mesh import average_gradients
 from idee_tpu_torch.train.steps import _LOSS_KEYS, FusedEpoch
 
 THRESHOLD = 0.35  # train_CERRA.py:212-213
@@ -106,7 +107,8 @@ def _accumulate_real(metrics, comps, out, batch, mask_valid):
 
 def _train_body_real(model, cfg: Config):
     """body(state, metrics, batch): forward with the extreme-loss and
-    cold-surface masks, total_loss_real, backward, ``state.update()`` (the
+    cold-surface masks, total_loss_real, backward, under a mesh the
+    gradients averaged over the ranks, ``state.update()`` (the
     optimizer step at the lr already set), then the counters on detached
     outputs; no host state moves (steps.py::_train_body)."""
 
@@ -117,6 +119,7 @@ def _train_body_real(model, cfg: Config):
                                                   cfg.lambda_anomaly)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        average_gradients(model.parameters())  # under a mesh
         state.update()
         with torch.no_grad():
             _accumulate_real(metrics, {k: v.detach()

@@ -54,10 +54,13 @@ class SummaryWriter:
     """TensorBoard writer (reference: train_synthetic.py:37,310-319 uses
     torch.utils.tensorboard). Wraps torch's writer when the tensorboard
     package is installed and is a no-op otherwise, so training never
-    depends on it."""
+    depends on it; a ``log_dir`` of None (a data-parallel rank other than
+    0) makes the no-op writer too."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: Optional[str]):
         self._w = None
+        if log_dir is None:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter as TBWriter
         except ImportError:  # tensorboard is optional
