@@ -25,7 +25,8 @@ Phases, each printing one JSON line:
                  per SM, and PyTorch's scaled_dot_product_attention timed on
                  the same inputs as the yardstick; the dbias sum also by its
                  profiler device time and host us per launch, beside
-                 torch.sum's
+                 torch.sum's; the attention kernels also at Swin_3D's
+                 delta_t 4 shapes (phase 15d)
   3. main        synthetic evaluation (train.evaluate.test_synthetic) with
                  the Mamba encoder at the bench width: 6 variables x 1
                  channel, delta_t=8, 200x200, batch 1, random weights from
@@ -33,8 +34,9 @@ Phases, each printing one JSON line:
                  just after; then steady-state steps/s, a profile, and one
                  forward of the same weights and batch with the plain scan
   4. train       synthetic training (train.driver.train_synthetic) with
-                 Mamba at the same width for 2 epochs, counters zeroed
-                 around it; checkpoints, history and a resumed third epoch;
+                 Mamba at the same width for N_EPOCHS (1) epoch, counters
+                 zeroed around it; checkpoints, history and a resumed
+                 second epoch;
                  steady train steps/s, peak memory, a profile of one train
                  step, and one train step's gradients with the kernels
                  against the plain scans
@@ -72,9 +74,10 @@ Phases, each printing one JSON line:
                  end; its seconds and bytes
  12. train_cerra train.driver_real.train_real on it with the config
                  defaults (Mamba, in_channels=2, the 200x200 crop, weekly
-                 climatology normalisation), batch 1, 2 epochs of 9 train
-                 and 9 val steps, counters zeroed around it; checkpoints,
-                 history and a resumed third epoch; steady train steps/s,
+                 climatology normalisation), batch 1, N_EPOCHS (1) epoch of
+                 9 train and 9 val steps, counters zeroed around it;
+                 checkpoints, history and a resumed second epoch; steady
+                 train steps/s,
                  peak memory, a profile, one step's gradients against the
                  plain scan
  13. test_cerra  train.driver_real.test_real at the full 512x832 crop on
@@ -112,7 +115,8 @@ Phases, each printing one JSON line:
                  (test_<name>, launches counted; not for the two encoder
                  variants); train steps/s, peak memory, a profile of 3
                  train steps; RTFM over Mamba and DeepMIL over Swin_3D
-                 also one step's gradients against the plain op
+                 also one step's gradients against the plain op, at the
+                 seeded and at the trained weights
  15b. train_deepmil_swin_bf16, train_rtfm_mamba_bf16, train_mgfn_bf16,
      train_simplenet_bf16, train_steal_bf16, train_uniad_bf16
                  phase 15 at cfg.dtype "bfloat16": the MIL models and
@@ -137,6 +141,27 @@ Phases, each printing one JSON line:
                  single-device steps', 3 + 3 fused-scan launches per step
                  on each rank; (c) the same for VQ-EMA, its codebook
                  buffers equal to the single-device run's
+ 15d. train_swin_dt4, main_swin_dt4, train_swin_dt4_bf16,
+     main_swin_dt4_bf16
+                 Swin_3D at delta_t 4 (6 x 1 x 4 x 200 x 200), whose
+                 stage-1 window (8,1,1) shrinks to (4,1,1): DeepMIL over
+                 Swin_3D (the composite model's classifier collapses
+                 T = 8 only) as phase 15 runs it, float32 and bf16, 1 train
+                 epoch and the test driver over the cube, launches exact;
+                 the eval scores and the step gradients at the seeded
+                 weights against the plain op's. The kernel phase holds
+                 and times the attention kernels at these shapes too
+                 (5,000 windows of 32, unshifted and shifted; 40,000 of 4)
+ 15e. train_ddp_fused
+                 train_synthetic with device_data and the fused epochs
+                 under a mesh of one NCCL rank, Mamba float32,
+                 DDP_FUSED_EPOCHS (2) epochs,
+                 launches exact (credited per replay), the first epoch
+                 against the per-step device loop under the same mesh;
+                 the fused rates and capture seconds on train_device's cut
+                 beside train_device's (no mesh), the collectives each
+                 graph captured, and a replay of each graph profiled: its
+                 NCCL kernels (NCCL's one-rank AVG reduction), none failing
  16. synthetic_netcdf
                  the reference's synthetic directory schema: a
                  make_fake_cube at the bench width over 104 weeks (two
@@ -161,11 +186,12 @@ Phases, each printing one JSON line:
                  the device-resident epoch (device_data, fused_epoch): the
                  data on the card (data/device.py), each step one replay of
                  a CUDA graph (train/steps.py::FusedEpoch). Mamba float32
-                 at the bench width for 2 epochs and a resumed third (a new
-                 capture after the restore); Swin_3D bf16 for 1 epoch
-                 (the bf16 attention kernels and the dbias sum inside the
-                 graph); train_real on the CERRA fixture at the 200x200
-                 crop for 2 epochs (RealDeviceLoader); the accuracy
+                 at the bench width for N_EPOCHS (1) epoch and a resumed
+                 second (a new capture after the restore); Swin_3D bf16 for
+                 1 epoch (the bf16 attention kernels and the dbias sum
+                 inside the graph); train_real on the CERRA fixture at the
+                 200x200 crop for N_EPOCHS epochs (RealDeviceLoader); the
+                 accuracy
                  geometry (48x48, batch 8, bf16) with CNN_3D for 3 epochs.
                  Each: launches exact (credited per replay), the first
                  epoch's mean train and val loss against the per-step loop
@@ -274,6 +300,13 @@ ATTN_SHAPES = {"stage0": (10_000, 32, None),
                "stage0_shifted": (10_000, 32,
                                   (8, 200, 200, (2, 4, 4), (1, 2, 2))),
                "stage1": (40_000, 8, None)}
+# Swin_3D at delta_t 4 (6 x 1 x 4 x 200 x 200, the DeepMIL path): stage
+# 0, 5,000 windows of 32, unshifted and shifted; stage 1's window shrunk to
+# (4,1,1), 40,000 windows of 4, unshifted
+ATTN_SHAPES_DT4 = {"stage0": (5_000, 32, None),
+                   "stage0_shifted": (5_000, 32,
+                                      (4, 200, 200, (2, 4, 4), (1, 2, 2))),
+                   "stage1": (40_000, 4, None)}
 ATTN_RTOL, ATTN_ATOL = 1e-5, 1e-5
 ATTN_GRAD_RTOL, ATTN_GRAD_ATOL = 1e-4, 1e-5
 # the bf16 instantiations against the plain bf16 versions: both round
@@ -313,8 +346,12 @@ N_WEEKS = 40  # fake cube length: 33 eval samples at delta_t=8
 # are exactly 0
 IS_CLIMA_SCALE = False
 TRAIN_WEEKS, VAL_WEEKS = (1, 24), (25, 40)  # 17 train, 9 val samples
-N_EPOCHS = 2
+# epochs of the train phases with a resume (train, train_swin,
+# train_device, the CERRA paths; one, to keep the script's time), then the
+# resumed one
+N_EPOCHS = 1
 N_EPOCHS_SHORT = 1  # the d_state=2 and CNN_3D training paths
+DDP_FUSED_EPOCHS = 2  # train_ddp_fused: a capture, then an epoch of replays
 # train_synthetic and train_real end each epoch with the TensorBoard image
 # panels: one more eval forward, of the last val batch
 PANEL_STEPS = 1
@@ -630,12 +667,12 @@ def dbias_sum_costs(wa, part):
         library_host_us_per_call=host_us_per_call(library))
 
 
-def check_attention(bounds):
+def check_attention(bounds, shapes=ATTN_SHAPES):
     """Forward, backward and dbias sum against their plain versions, timed,
     at each stage shape; the backward twice, bit for bit."""
     wa = kernel_modules()[1]
     per_shape = {}
-    for i, (stage, (BW, n, geom)) in enumerate(ATTN_SHAPES.items()):
+    for i, (stage, (BW, n, geom)) in enumerate(shapes.items()):
         q, k, v, go, bias, mask = attention_inputs(BW, n, geom, seed=30 + i)
         scale = ATTN_HD ** -0.5
         # forward, no gradient
@@ -742,7 +779,7 @@ def max_err_bf16(got, want, name, atol) -> float:
     return err.max().item()
 
 
-def check_attention_bf16(bounds, f32_rows):
+def check_attention_bf16(bounds, f32_rows, shapes=ATTN_SHAPES):
     """The bf16 forward and backward kernels against their plain bf16
     versions at each stage shape (q, k, v and the output gradient rounded
     to bf16; bias and mask float32), each run twice and compared bit for
@@ -753,7 +790,7 @@ def check_attention_bf16(bounds, f32_rows):
     wa = kernel_modules()[1]
     bf16 = torch.bfloat16
     per_shape = {}
-    for i, (stage, (BW, n, geom)) in enumerate(ATTN_SHAPES.items()):
+    for i, (stage, (BW, n, geom)) in enumerate(shapes.items()):
         q, k, v, go, bias, mask = attention_inputs(BW, n, geom, seed=60 + i)
         q, k, v, go = (t.to(bf16) for t in (q, k, v, go))
         scale = ATTN_HD ** -0.5
@@ -840,6 +877,10 @@ def phase_kernel():
     backward = check_fused_backward(ss, bounds)
     attention = check_attention(bounds)
     attention_bf16 = check_attention_bf16(bounds, attention)
+    # the same at Swin_3D's delta_t 4 shapes (phase swin_dt4)
+    attention_dt4 = check_attention(bounds, ATTN_SHAPES_DT4)
+    attention_bf16_dt4 = check_attention_bf16(bounds, attention_dt4,
+                                              ATTN_SHAPES_DT4)
     emit(phase="kernel", rtol=SCAN_RTOL, atol=SCAN_ATOL,
          grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL,
          attention_rtol=ATTN_RTOL, attention_atol=ATTN_ATOL,
@@ -849,8 +890,11 @@ def phase_kernel():
          attention_bf16_ulps=ATTN_BF16_ULPS,
          **{ss.FUSED_FWD: fused, ss.LINEAR_SCAN: scan,
             "fused_scan_backward": backward, "window_attention": attention,
-            "window_attention_bf16": attention_bf16})
-    return fused, scan, backward, attention, attention_bf16
+            "window_attention_bf16": attention_bf16,
+            "window_attention_delta_t_4": attention_dt4,
+            "window_attention_bf16_delta_t_4": attention_bf16_dt4})
+    return (fused, scan, backward, attention, attention_bf16,
+            {"float32": attention_dt4, "bfloat16": attention_bf16_dt4})
 
 
 def zero_launches():
@@ -1863,8 +1907,33 @@ def compare_mil_gradients(cfg, variant, params, batch, what: str):
          topk_calls=len(selections), topk_calls_reordered=len(flips))
 
 
+def compare_mil_scores(cfg, variant, params, batch, what: str):
+    """The eval forward's scores with the kernels against the plain op's
+    from ``params``: within 1e-4 at float32 (the logits' gate of PERF.md
+    §2), BF16_LOGIT_REL x max |score| at bf16. Emits a forward line."""
+    from idee_tpu_torch.baselines.mil.models import build_mil_model
+
+    model = build_mil_model(cfg, variant)
+    model.load_state_dict(params)
+    model.to("cuda").eval()
+    with torch.inference_mode():
+        got = model(batch["x"]).scores.float()
+        with plain_ops(cfg.encoder):
+            want = model(batch["x"]).scores.float()
+    err = (got - want).abs().max().item()
+    limit = (BF16_LOGIT_REL * want.abs().max().item()
+             if cfg.dtype == "bfloat16" else 1e-4)
+    if not (math.isfinite(err) and err <= limit):
+        raise SystemExit(f"{what}: scores with the kernels {err} from the "
+                         f"plain op's > {limit}")
+    emit(phase="forward_vs_plain", path=what, encoder=cfg.encoder,
+         variant=variant, dtype=cfg.dtype, delta_t=cfg.delta_t,
+         scores_shape=list(got.shape), max_abs_err=err, limit=limit)
+
+
 def phase_baseline(cube, phase, family, which, encoder, test: bool,
-                   compare: bool, dtype: str = "float32"):
+                   compare: bool, dtype: str = "float32",
+                   test_phase: str = None, **cfg_kw):
     """One baseline at the bench width: its train driver for 1 epoch with
     the launch counters zeroed around it (exact counts: the encoder's
     kernels per step, none for CNN_3D, STEAL and UniAD); losses and
@@ -1873,12 +1942,14 @@ def phase_baseline(cube, phase, family, which, encoder, test: bool,
     and a profile of 3 train steps; with ``compare`` one step's gradients
     against the plain op. At ``dtype`` "bfloat16" STEAL and UniAD, which
     JAX builds without a dtype, must keep float32 parameters and
-    outputs. Returns {path: launches}."""
+    outputs. ``test_phase`` names the test driver's path (default
+    test_<name>); ``cfg_kw`` overrides the config (delta_t). Returns
+    {path: launches}."""
     from idee_tpu_torch.baselines import common
     from idee_tpu_torch.data.loader import DataLoader
     from idee_tpu_torch.models.vq_model import compute_dtype
 
-    kw = {"dtype": dtype}
+    kw = {"dtype": dtype, **cfg_kw}
     if encoder:
         kw["encoder"] = encoder
     if which == "steal":
@@ -1938,7 +2009,8 @@ def phase_baseline(cube, phase, family, which, encoder, test: bool,
         tested.update(wall_s_with_setup=test_s, steps=n_test,
                       launches=test_launches,
                       anomaly_share=float(np.nanmean(votes)))
-        paths[phase.replace("train_", "test_")] = test_launches
+        paths[test_phase or phase.replace("train_", "test_")] = \
+            test_launches
 
     # profile: 3 steps of the trained state (host batch assembly included)
     train_ds, _ = common.make_datasets(
@@ -1974,16 +2046,26 @@ def phase_baseline(cube, phase, family, which, encoder, test: bool,
     emit(phase="profile", path=phase, **profile)
     if compare:
         # at the seeded initial weights, as compare_step_gradients holds the
-        # synthetic paths: the trained ones differ from run to run in the
-        # 8th digit (cuDNN's backward convolutions in training), and at some
-        # of them one DeepMIL / Swin_3D leaf whose gradient cancels to 8e-4
-        # (encoder.stage0.downsample.proj.kernel) parted 1.2e-7-5.5e-7 in
-        # some runs (PERF.md §6), beyond 1e-4 x max |grad|
+        # synthetic paths, and at float32 also at the trained ones (the
+        # state after the epoch and the profile's steps), which differ from
+        # run to run in the 8th digit (cuDNN's backward convolutions in
+        # training). Both gradient runs take cuDNN's deterministic
+        # algorithms: without them one DeepMIL / Swin_3D leaf whose
+        # gradient cancels to 8e-4 (encoder.stage0.downsample.proj.kernel)
+        # parted 1.2e-7-5.5e-7 at trained weights in some runs, beyond
+        # 1e-4 x max |grad|; with them, and the training deterministic too,
+        # 9.8e-8 x max (mil_gradient_drift.py; PERF.md §6)
         from idee_tpu_torch.baselines.mil.models import build_mil_model
 
         params = build_mil_model(
             cfg, which, torch.Generator().manual_seed(0)).state_dict()
-        compare_mil_gradients(cfg, which, params, next(batches), phase)
+        batch = next(batches)
+        if test_phase:
+            compare_mil_scores(cfg, which, params, batch, test_phase)
+        compare_mil_gradients(cfg, which, params, batch, phase)
+        if dtype == "float32":
+            compare_mil_gradients(cfg, which, state.model.state_dict(),
+                                  batch, f"{phase}_trained")
     del history, state, step, metrics
     shutil.rmtree(cfg.log_dir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2005,6 +2087,29 @@ def recon_float32(model, which, batch, phase):
     if bad or out.dtype != torch.float32:
         raise SystemExit(f"{phase}: parameters {bad} or output {out.dtype} "
                          "not float32")
+
+
+# Swin_3D at delta_t 4: stage 1's (8, 1, 1) window shrinks to (4, 1, 1).
+# The composite VQModel runs at delta_t 8 only (its classifier's three
+# stride-2 convolutions collapse T = 8 to 1, in JAX and the reference),
+# so the path is DeepMIL over Swin_3D, whose scores keep T
+SWIN_DT4 = 4
+
+
+def phase_swin_dt4(cube):
+    """Phases train_swin_dt4 and main_swin_dt4 at float32 and bf16:
+    DeepMIL over Swin_3D at delta_t 4 as phase_baseline runs it, 1 train
+    epoch and the test driver over the cube, launches exact (3 per
+    forward, 3 + 3 per train step); the scores against the plain op's and
+    the step gradients at the seeded weights against the plain op's.
+    Returns {path: launches}."""
+    paths = {}
+    for dtype, tail in (("float32", ""), ("bfloat16", "_bf16")):
+        paths.update(phase_baseline(
+            cube, f"train_swin_dt4{tail}", "mil", "deepmil", "Swin_3D",
+            True, True, dtype=dtype, test_phase=f"main_swin_dt4{tail}",
+            delta_t=SWIN_DT4))
+    return paths
 
 
 def phase_baselines(cube):
@@ -2218,6 +2323,154 @@ def phase_train_ddp(cube):
                                         (ranks[0][0], ranks[1][0])],
                      vq_buffers=buffers, **rows))
     return paths
+
+
+def replay_kernels(epoch) -> dict:
+    """The device kernels of one more replay of a FusedEpoch's graph (its
+    device position set back to the epoch's first batch: after an epoch
+    it points past the last), by the profiler: every kernel's count and
+    NCCL's among them (a name holding "nccl", or NCCL's one-rank reduction
+    "oneRankReduce": at one rank NCCL launches a kernel for an AVG
+    all-reduce, none for an in-place SUM)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    epoch.pos.zero_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        epoch.graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    nccl = [n for n in names if "nccl" in n.lower()
+            or "onerank" in n.lower()]
+    return {"kernels": len(names), "nccl_kernels": len(nccl),
+            "nccl_names": sorted({n[:120] for n in nccl})}
+
+
+@contextlib.contextmanager
+def captured_collectives():
+    """Counts the collective calls made while a CUDA graph captures (by
+    name), over the block."""
+    import torch.distributed as dist
+
+    counts = {}
+    saved = {name: getattr(dist, name) for name in ("all_reduce",
+                                                    "broadcast")}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def phase_train_ddp_fused(cube):
+    """Phase train_ddp_fused: train_synthetic with device_data and the
+    fused epochs (the defaults) under a mesh of one NCCL rank, Mamba
+    float32 at the bench width, DDP_FUSED_EPOCHS epochs (a capture, then
+    an epoch of replays), launches exact (credited
+    per replay); its first epoch against the per-step device loop under
+    the same mesh (hold_first_epoch); then on the rate cut of
+    train_device the fused epochs under the mesh: their steady train and
+    val steps/s and capture seconds beside train_device's fused numbers
+    (no mesh), the collectives each graph captured, and each graph's
+    replay profiled: its NCCL kernels (a capture that dropped them fails).
+    Returns {path: launches}."""
+    from idee_tpu_torch.data.device import DeviceLoader
+    from idee_tpu_torch.models.vq_model import build_model
+    from idee_tpu_torch.parallel.mesh import make_mesh
+    from idee_tpu_torch.train.driver import _make_datasets, train_synthetic
+    from idee_tpu_torch.train.state import create_train_state
+    from idee_tpu_torch.train.steps import make_eval_epoch, make_train_epoch
+
+    phase = "train_ddp_fused"
+    cfg = train_config("Mamba", n_epochs=DDP_FUSED_EPOCHS,
+                       device_data=True).replace(
+        name=f"chip_smoke_{phase}", mesh_shape=[1])
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    train_cube, val_cube = cube.time_slice(*TRAIN_WEEKS), \
+        cube.time_slice(*VAL_WEEKS)
+    n_train = (TRAIN_WEEKS[1] - TRAIN_WEEKS[0] + 1) - cfg.delta_t + 1
+    n_val = (VAL_WEEKS[1] - VAL_WEEKS[0] + 1) - cfg.delta_t + 1
+    trn = kernel_launches_per_step("Mamba", train=True)
+    val = kernel_launches_per_step("Mamba", train=False)
+    mesh = make_mesh([1], ["data"], device="cuda:0", backend="nccl",
+                     init_method=f"tcp://localhost:{free_port()}")
+    try:
+        def run(c):
+            return train_synthetic(c, train_cube, val_cube, mesh=mesh)
+
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        history = run(cfg)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        expect_launches(launches, {
+            k: cfg.n_epochs * (val.get(k, 0) * (n_val + PANEL_STEPS)
+                               + trn.get(k, 0) * n_train)
+            for k in set(val) | set(trn)}, phase)
+        curves = history["train_loss"] + history["val_loss"]
+        if not all(map(math.isfinite, curves)):
+            raise SystemExit(f"{phase}: bad losses {curves}")
+        eager = eager_first_epoch(run, cfg, phase, n_train, n_val, trn, val)
+        diff = hold_first_epoch(history, eager, phase)
+
+        # the fused epochs under the mesh on train_device's rate cut
+        rtrain, rval = _make_datasets(cfg, cube.time_slice(*RATE_TRAIN_WEEKS),
+                                      cube.time_slice(*RATE_VAL_WEEKS))
+        tl = DeviceLoader(rtrain, 1, seed=cfg.seed, device="cuda",
+                          mesh=mesh)
+        vl = DeviceLoader(rval, 1, seed=cfg.seed, device="cuda", mesh=mesh)
+        model = build_model(cfg)
+        state = create_train_state(cfg, model, "cuda",
+                                   steps_per_epoch=len(tl))
+        train_epoch = make_train_epoch(model, cfg, tl, rtrain.anomaly.shape,
+                                       t0=float(rtrain.timestep[0]),
+                                       steps_per_epoch=len(tl))
+        eval_epoch = make_eval_epoch(model, cfg, vl, rval.anomaly.shape,
+                                     t0=float(rval.timestep[0]))
+        with captured_collectives() as collectives:
+            rates = measure_fused(train_epoch, eval_epoch, state, len(tl),
+                                  len(vl))
+        replays = {"train": replay_kernels(train_epoch),
+                   "val": replay_kernels(eval_epoch)}
+        if not (replays["train"]["nccl_kernels"] > 0
+                and replays["val"]["nccl_kernels"] > 0):
+            raise SystemExit(f"{phase}: a replay holds no NCCL kernel: "
+                             f"{replays}")
+    finally:
+        mesh.close()
+    no_mesh = SUMMARY["train_device_fused"]
+    emit(phase=phase, encoder="Mamba", dtype="float32",
+         shape=[1, 6, 1, 8, 200, 200], backend="nccl", mesh_shape=[1],
+         epochs=cfg.n_epochs, train_steps=n_train, val_steps=n_val,
+         launches=launches, wall_s_with_setup=wall_s,
+         history={k: v for k, v in history.items() if k != "state"},
+         per_step_device_loop={k: eager[k] for k in
+                               ("train_loss", "val_loss", "steps_per_sec")},
+         first_epoch_rel_diff=diff, loss_rtol=DEVICE_LOSS_RTOL,
+         collectives_captured=collectives, replays=replays,
+         fused=rates,
+         no_mesh_fused={k: no_mesh[k] for k in (
+             "train_steps_per_s", "eval_steps_per_s", "capture_s",
+             "device_busy_share")})
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    shutil.rmtree(cfg.replace(name=cfg.name + "_eager").log_dir,
+                  ignore_errors=True)
+    return {phase: launches}
 
 
 # the zoo at bf16 (cfg.dtype "bfloat16"): the MIL models and SimpleNet's
@@ -2768,6 +3021,7 @@ def phase_train_device(cube, phase: str, encoder: str, dtype: str,
                         t0=float(rval.timestep[0])),
         state, len(tl), len(vl))
     dropout = dropout_replays_differ(tl)
+    SUMMARY[f"{phase}_fused"] = rates
     host_train, host_eval = SUMMARY[host[0]], SUMMARY[host[1]]
     emit(phase=phase, encoder=encoder, dtype=dtype,
          shape=[1, 6, 1, 8, 200, 200], epochs=n_epochs, train_steps=n_train,
@@ -2797,7 +3051,8 @@ def phase_train_device(cube, phase: str, encoder: str, dtype: str,
 
 def phase_train_cerra_device(root: str):
     """train_real with device_data on the CERRA fixture at the 200x200
-    crop, 2 epochs, fused, launches exact; the first epoch against the
+    crop, N_EPOCHS epochs, fused, launches exact; the first epoch against
+    the
     per-step device loop; the sample order against the host loader's;
     host precompute and upload seconds of the RealDeviceLoader, steady
     fused rates, busy share and peak memory beside train_cerra's host
@@ -2999,8 +3254,9 @@ def phase_cerra_fixture(root: str):
 
 
 def phase_train_cerra(root: str):
-    """train_real on the CERRA tree at the 200x200 crop for 2 epochs,
-    launches counted; checkpoints, history, a resumed third epoch; steady
+    """train_real on the CERRA tree at the 200x200 crop for N_EPOCHS
+    epochs, launches counted; checkpoints, history, a resumed one more;
+    steady
     train steps/s, a profile and one step's gradients against the plain
     scan. Returns (launches, path of the latest checkpoint)."""
     from idee_tpu_torch.data.loader import DataLoader
@@ -3252,7 +3508,7 @@ MEMORY_TRAIN_PHASES = {"Mamba": "train", "Swin_3D": "train_swin",
                        "CNN_3D": "train_cnn"}
 MEMORY_REL = 0.10
 # profile_step's full step against the profile phase's device ms per step
-PROFILE_STEP_ITERS = 10
+PROFILE_STEP_ITERS = 5  # five keep the script's time
 PROFILE_STEP_REL = 0.10
 PROFILE_TRAIN_PHASES = {("Mamba", "float32"): "train",
                         ("Swin_3D", "float32"): "train_swin",
@@ -3667,7 +3923,7 @@ def main() -> int:
     print(card, flush=True)
 
     phase_build()
-    fused, scan, backward, attn, attn_bf16 = phase_kernel()
+    fused, scan, backward, attn, attn_bf16, attn_dt4 = phase_kernel()
     cube = make_fake_cube(n_vars=6, n_time=N_WEEKS, height=200, width=200,
                           seed=0)
     paths = {
@@ -3696,7 +3952,9 @@ def main() -> int:
     paths["profile_hook"] = phase_profile_hook()
     paths.update(phase_baselines(cube))
     paths.update(phase_baselines_bf16(cube))
+    paths.update(phase_swin_dt4(cube))
     paths.update(phase_train_ddp(cube))
+    paths.update(phase_train_ddp_fused(cube))
     paths["reference_checkpoint"] = phase_reference_checkpoint(cube)
     phase_native_loader(cube)
     del cube
@@ -3726,9 +3984,10 @@ def main() -> int:
         # the stage-1 shape
         return sum(key(rows[s]) * n for s, n in LAUNCHES_PER_STEP.items())
 
-    def attn_row(name, key, source_line, path, rows=attn):
+    def attn_row(name, key, source_line, path, rows=attn,
+                 rows_dt4=attn_dt4["float32"]):
         # times per step: one launch at each of the three stage shapes
-        def total(field):
+        def total(field, rows=rows):
             return sum(r[key][field] for r in rows.values())
 
         row = {
@@ -3741,6 +4000,13 @@ def main() -> int:
             "bound_ms": total("bound_ms"),
             "bound_by": rows["stage0"][key]["bound_by"],
             "library_ms": total("library_ms"),
+            # per step of Swin_3D at delta_t 4 (5,000 windows of 32, 40,000
+            # of 4; phase swin_dt4's launches)
+            "delta_t_4": {
+                "max_abs_err": max(r[key]["max_abs_err"]
+                                   for r in rows_dt4.values()),
+                **{f: total(f, rows_dt4) for f in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")}},
         }
         if "registers" in rows["stage0"][key]:
             # by stage shape: registers per thread, shared memory per block,
@@ -3812,9 +4078,9 @@ def main() -> int:
         # the bf16 kernels on the tensor cores (compute dtype "bfloat16");
         # library: SDPA on the same bf16 inputs
         attn_row(wa.ATTN_FWD_BF16, "forward", 192, "train_swin_bf16",
-                 attn_bf16),
+                 attn_bf16, attn_dt4["bfloat16"]),
         attn_row(wa.ATTN_BWD_BF16, "backward", 240, "train_swin_bf16",
-                 attn_bf16),
+                 attn_bf16, attn_dt4["bfloat16"]),
     ], card=card)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

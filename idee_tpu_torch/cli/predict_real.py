@@ -62,7 +62,7 @@ def predict_real(cfg: Config, family: str, ckpt_path: str, out_path: str,
         test_ds = make_reanalysis_dataset(cfg, family, cfg.years_test, False)
     log_string(logger, "# prediction samples: %d" % len(test_ds))
 
-    model = build_model(cfg)
+    model = build_model(cfg, input_size=test_ds.input_size)
     model.load_state_dict(load_pretrained_weights(cfg, ckpt_path))
     model.to(dev)
     step = make_eval_step_real(model, cfg, test_mode=True, return_preds=True)

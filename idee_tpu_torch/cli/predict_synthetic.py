@@ -79,7 +79,7 @@ def predict_synthetic(cfg: Config, ckpt_path: str, out_path: str,
         y_min=cfg.y_min, y_max=cfg.y_max)
     log_string(logger, "# prediction samples: %d" % len(ds))
 
-    model = build_model(cfg)
+    model = build_model(cfg, input_size=ds.input_size)
     model.load_state_dict(load_pretrained_weights(cfg, ckpt_path))
     model.to(dev)
 

@@ -417,6 +417,11 @@ class ReanalysisDataset:
         cube = np.stack(per_week, axis=2)  # [V, 2, dt, y, x]
         return np.flip(cube, -2).astype(np.float32)
 
+    @property
+    def input_size(self):
+        """(T, H, W) of an item's x: the model's input geometry."""
+        return (self.delta_t, self.n_lat_window, self.n_lon_window)
+
     def __len__(self):
         return len(self.files)
 

@@ -331,6 +331,11 @@ class SyntheticDataset:
     def datacube_dynamic(self):
         return self._dynamic
 
+    @property
+    def input_size(self):
+        """(T, H, W) of an item's x: the model's input geometry."""
+        return (self.delta_t,) + tuple(self._dynamic.shape[-2:])
+
     def __len__(self):
         return self._dynamic.shape[1] - self.delta_t + 1
 

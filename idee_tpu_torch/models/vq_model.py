@@ -31,7 +31,7 @@ as float32.
 """
 # ------------------------------------------------------------------
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -58,9 +58,22 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
-def build_encoder(cfg: Config, kernel_init, generator=None) -> nn.Module:
+def model_input_size(cfg: Config) -> Tuple[int, int, int]:
+    """(T, H, W) of the model's input under cfg: delta_t weeks of the
+    [y_min, y_max) x [x_min, x_max) crop reduced by cfg.window_size. A
+    dataset's own ``input_size`` is exact where its grid is smaller than
+    the crop."""
+    return (cfg.delta_t, (cfg.y_max - cfg.y_min) // cfg.window_size,
+            (cfg.x_max - cfg.x_min) // cfg.window_size)
+
+
+def build_encoder(cfg: Config, kernel_init, generator=None,
+                  input_size: Optional[Tuple[int, int, int]] = None
+                  ) -> nn.Module:
     """Construct the configured backbone (reference: models/build.py:34-84),
-    computing in cfg.dtype."""
+    computing in cfg.dtype. ``input_size``: the input's (T, H, W), default
+    ``model_input_size(cfg)``; Swin_3D shrinks its windows to it, as JAX
+    does at init."""
     dtype = compute_dtype(cfg)
     if cfg.encoder == "CNN_3D":
         return CNN_3D(in_vars=cfg.in_channels_dynamic,
@@ -85,7 +98,8 @@ def build_encoder(cfg: Config, kernel_init, generator=None) -> nn.Module:
                        patch_size=tuple(cfg.en_patch_size),
                        use_checkpoint=cfg.en_use_checkpoint,
                        kernel_init=kernel_init, generator=generator,
-                       dtype=dtype)
+                       dtype=dtype,
+                       input_size=input_size or model_input_size(cfg))
     if cfg.encoder == "Mamba":
         return Mamba(in_vars=cfg.in_channels_dynamic,
                      in_chans=cfg.in_channels,
@@ -163,7 +177,8 @@ class VQModel(nn.Module):
     seeded with cfg.seed)."""
 
     def __init__(self, config: Config,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 input_size: Optional[Tuple[int, int, int]] = None):
         super().__init__()
         cfg = self.config = config
         self.dtype = compute_dtype(cfg)
@@ -176,7 +191,7 @@ class VQModel(nn.Module):
             init = None  # per-module fan-in scaled defaults
         else:
             init = reference_init()
-        self.encoder = build_encoder(cfg, init, generator)
+        self.encoder = build_encoder(cfg, init, generator, input_size)
         self.cls = CNN_3D_Classifier(in_var=cfg.in_channels_dynamic,
                                      embed_dim=cfg.codebook_dim,
                                      dim=cfg.cls_dim,
@@ -268,5 +283,9 @@ class VQModel(nn.Module):
 
 
 def build_model(config: Config,
-                generator: Optional[torch.Generator] = None) -> VQModel:
-    return VQModel(config, generator)
+                generator: Optional[torch.Generator] = None,
+                input_size: Optional[Tuple[int, int, int]] = None
+                ) -> VQModel:
+    """The VQModel of ``config`` for inputs of (T, H, W) ``input_size``
+    (default ``model_input_size(config)``)."""
+    return VQModel(config, generator, input_size)

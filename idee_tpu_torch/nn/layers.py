@@ -403,21 +403,28 @@ def _fast_moments(x, dims):
 
 
 class LayerNorm(nn.Module):
-    """flax nn.LayerNorm over the last axis (epsilon 1e-6, the moments as
-    flax takes them); parameters ``scale`` and ``bias``."""
+    """flax nn.LayerNorm over the last axis (epsilon 1e-6 unless given, the
+    moments as flax takes them); parameters ``scale`` and ``bias``, none
+    without ``affine``."""
 
     EPS = 1e-6
 
-    def __init__(self, features: int, scale_init: float = 1.0):
+    def __init__(self, features: int, scale_init: float = 1.0,
+                 eps: float = EPS, affine: bool = True):
         super().__init__()
-        self.scale = nn.Parameter(torch.full((features,), scale_init))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.eps = eps
+        if affine:
+            self.scale = nn.Parameter(torch.full((features,), scale_init))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.scale = self.bias = None
 
     def forward(self, x):
         mean, var = _fast_moments(x, -1)
-        return ((x - mean[..., None])
-                * (torch.rsqrt(var + self.EPS)[..., None] * self.scale)
-                + self.bias)
+        mul = torch.rsqrt(var + self.eps)[..., None]
+        if self.scale is None:
+            return (x - mean[..., None]) * mul
+        return (x - mean[..., None]) * (mul * self.scale) + self.bias
 
 
 class BatchNorm(nn.Module):

@@ -12,6 +12,14 @@ geometry and moved to each device once (the reference rebuilds the mask on
 every forward, Swin_3D.py:438). ``dtype`` is the compute dtype of every
 projection and norm (nn/layers.py); the attention's q, k, v come out of
 the qkv projection in it, its bias stays float32.
+
+Geometry: JAX builds each block's attention inside the block's call, at
+the window shrunk to the input (``get_window_size``), so an input no
+larger than a window gets a smaller bias table. Here the blocks, stages
+and Swin_3D take that input geometry ``input_size`` (D, H, W) when they
+are built and make the table at the shrunk window; without one they
+build at the configured window. A forward whose shrunk window differs
+from the built one raises, as JAX's apply would on the parameter shapes.
 """
 # ------------------------------------------------------------------
 
@@ -27,10 +35,10 @@ import torch.nn.functional as F
 from idee_tpu_torch.kernels.window_attention import window_attention
 from idee_tpu_torch.nn.cnn3d import (GroupedProjHead, pack_variables,
                                      unpack_variables)
-from idee_tpu_torch.nn.layers import (GroupedConv3d, GroupedDense,
-                                      GroupedLayerNorm3d, Init, checkpointed,
-                                      drop_path, dropout, reference_init,
-                                      trunc_normal_init)
+from idee_tpu_torch.nn.layers import (Conv, GroupedConv3d, GroupedDense,
+                                      GroupedLayerNorm3d, Init, LayerNorm,
+                                      checkpointed, drop_path, dropout,
+                                      reference_init, trunc_normal_init)
 
 
 def get_window_size(x_size, window_size, shift_size=None):
@@ -143,6 +151,49 @@ def relative_position_index_on(ws, n: int, device: str) -> torch.Tensor:
         return torch.from_numpy(rpi.astype(np.int64)).to(device)
 
 
+def _pad_to_patches(x, p):
+    """[N, D, H, W, C] zero-padded at the end of D, H and W to multiples of
+    the patch ``p``."""
+    _, D, H, W, _ = x.shape
+    hi = [(p[i] - s % p[i]) % p[i] for i, s in enumerate((D, H, W))]
+    if any(hi):
+        x = F.pad(x, (0, 0, 0, hi[2], 0, hi[1], 0, hi[0]))
+    return x
+
+
+def patched_size(size, patch_size) -> Tuple[int, int, int]:
+    """The (D, H, W) after a pad-to-multiple patchify of ``size``."""
+    return tuple(-(-s // p) for s, p in zip(size, patch_size))
+
+
+class PatchEmbed3D(nn.Module):
+    """One tower's Conv3d patchify with pad-to-multiple (reference:
+    Swin_3D.py:449-491; JAX idee_tpu/nn/swin3d.py:282-308) on
+    [N, D, H, W, C]: the flax ``Conv_0`` (weight in torch's layout, as
+    nn/layers.py::Conv keeps it) and, with ``patch_norm``, the non-affine
+    flax LayerNorm (epsilon 1e-5, flax's moments). The packed Swin path
+    uses PackedPatchEmbed3D; nothing calls this module, in JAX either."""
+
+    def __init__(self, in_features: int,
+                 patch_size: Tuple[int, int, int] = (2, 4, 4),
+                 embed_dim: int = 64, patch_norm: bool = False,
+                 kernel_init: Optional[Init] = reference_init(),
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.add_module("Conv_0", Conv(
+            in_features, embed_dim, self.patch_size, strides=self.patch_size,
+            padding=((0, 0),) * 3, kernel_init=kernel_init,
+            generator=generator, dtype=dtype))
+        self.norm = (LayerNorm(embed_dim, eps=1e-5, affine=False)
+                     if patch_norm else None)
+
+    def forward(self, x):
+        x = getattr(self, "Conv_0")(_pad_to_patches(x, self.patch_size))
+        return self.norm(x).to(x.dtype) if self.norm is not None else x
+
+
 class PackedPatchEmbed3D(nn.Module):
     """Per-variable Conv3d patchify with pad-to-multiple
     (reference: Swin_3D.py:449-491) on [N, D, H, W, V*Cin]."""
@@ -166,13 +217,48 @@ class PackedPatchEmbed3D(nn.Module):
                      if patch_norm else None)
 
     def forward(self, x):
-        _, D, H, W, _ = x.shape
-        p = self.patch_size
-        hi = [(p[i] - s % p[i]) % p[i] for i, s in enumerate((D, H, W))]
-        if any(hi):
-            x = F.pad(x, (0, 0, 0, hi[2], 0, hi[1], 0, hi[0]))
-        x = self.proj(x)
+        x = self.proj(_pad_to_patches(x, self.patch_size))
         return self.norm(x) if self.norm is not None else x
+
+
+class PackedPatchMerging(nn.Module):
+    """2x spatial (and 2x temporal when D > 1) patch merging per variable
+    on [N, D, H, W, V*C] (reference: Swin_3D.py:290-335; JAX
+    idee_tpu/nn/swin3d.py:342-378): H and W padded to even (and D when
+    D > 1), the 2x2 (D == 1) or the reference's four (D > 1) neighbours
+    concatenated per variable, then the affine GroupedLayerNorm3d(4C) and
+    GroupedDense(4C -> 2C, no bias). Nothing calls it, in JAX either."""
+
+    def __init__(self, n_groups: int, dim: int,
+                 kernel_init: Optional[Init] = reference_init(),
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_groups, self.dim = n_groups, dim
+        self.norm = GroupedLayerNorm3d(n_groups, 4 * dim, affine=True,
+                                       dtype=dtype)
+        self.reduction = GroupedDense(n_groups, 4 * dim, 2 * dim,
+                                      use_bias=False, kernel_init=kernel_init,
+                                      generator=generator, dtype=dtype)
+
+    def forward(self, x):
+        _, D, H, W, _ = x.shape
+        V, C = self.n_groups, self.dim
+        if H % 2 or W % 2:
+            x = F.pad(x, (0, 0, 0, W % 2, 0, H % 2))
+        if D % 2 and D != 1:
+            x = F.pad(x, (0, 0, 0, 0, 0, 0, 0, D % 2))
+        if D == 1:
+            parts = [x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2],
+                     x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]]
+        else:
+            parts = [x[:, 0::2, 0::2, 0::2], x[:, 1::2, 1::2, 0::2],
+                     x[:, 0::2, 0::2, 1::2], x[:, 1::2, 1::2, 1::2]]
+        # the four parts side by side within each variable: [..., V, 4C]
+        y = torch.stack(parts, dim=-1)                    # [..., V*C, 4]
+        lead = y.shape[:-2]
+        y = y.reshape(*lead, V, C, 4).transpose(-1, -2)
+        return self.reduction(self.norm(y.reshape(*lead, V * 4 * C)))
 
 
 class PackedWindowAttention3D(nn.Module):
@@ -254,15 +340,19 @@ class PackedSwinBlock3D(nn.Module):
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  kernel_init: Optional[Init] = reference_init(),
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 input_size: Optional[Tuple[int, int, int]] = None):
         super().__init__()
         V = n_groups
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.drop, self.drop_path = drop, drop_path
         self.norm1 = GroupedLayerNorm3d(V, dim, affine=False, dtype=dtype)
+        # the attention at the window shrunk to the input, as JAX builds it
+        ws = (self.window_size if input_size is None
+              else get_window_size(tuple(input_size), self.window_size))
         self.attn = PackedWindowAttention3D(
-            V, dim, self.window_size, num_heads, qkv_bias=qkv_bias,
+            V, dim, ws, num_heads, qkv_bias=qkv_bias,
             qk_scale=qk_scale, attn_drop=attn_drop, proj_drop=drop,
             kernel_init=kernel_init, generator=generator, dtype=dtype)
         self.norm2 = GroupedLayerNorm3d(V, dim, affine=False, dtype=dtype)
@@ -277,11 +367,12 @@ class PackedSwinBlock3D(nn.Module):
         B, D, H, W, _ = x.shape
         ws, ss = get_window_size((D, H, W), self.window_size,
                                  self.shift_size)
-        if ws != self.window_size:
-            # the JAX package then builds a smaller bias table
-            raise NotImplementedError(
-                f"input {(D, H, W)} is smaller than the window "
-                f"{self.window_size}")
+        if ws != self.attn.window_size:
+            raise ValueError(
+                f"input {(D, H, W)} shrinks the window {self.window_size} "
+                f"to {ws}, but the block was built for "
+                f"{self.attn.window_size}: build it with input_size="
+                f"{(D, H, W)}")
 
         shortcut = x
         y = self.norm1(x)
@@ -326,8 +417,12 @@ class PackedSwinStage(nn.Module):
                  use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 input_size: Optional[Tuple[int, int, int]] = None):
         super().__init__()
+        # the blocks' geometry: the stage's input after the patchify
+        self.output_size = (None if input_size is None
+                            else patched_size(input_size, patch_size))
         if in_dim != dim or tuple(patch_size) != (1, 1, 1):
             self.downsample = PackedPatchEmbed3D(
                 n_groups, in_dim, patch_size=tuple(patch_size),
@@ -344,7 +439,8 @@ class PackedSwinStage(nn.Module):
                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
                 drop=drop, attn_drop=attn_drop,
                 drop_path=drop_path[i] if i < len(drop_path) else 0.0,
-                kernel_init=kernel_init, generator=generator, dtype=dtype))
+                kernel_init=kernel_init, generator=generator, dtype=dtype,
+                input_size=self.output_size))
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -362,7 +458,9 @@ class PackedSwinStage(nn.Module):
 class Swin_3D(nn.Module):
     """Multi-variable Video Swin-3D encoder (reference: Swin_3D.py:494-636).
     [N, V, C, T, H, W] -> [N, V, E, T, H, W] (``packed_out=True`` returns
-    [N, T, H, W, V*E])."""
+    [N, T, H, W, V*E]). ``input_size``: the input's (T, H, W), from which
+    each stage's windows shrink as JAX shrinks them at init; None builds
+    the configured windows."""
 
     supports_packed_out = True
 
@@ -378,7 +476,8 @@ class Swin_3D(nn.Module):
                  use_checkpoint: bool = False,
                  kernel_init: Optional[Init] = reference_init(),
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 input_size: Optional[Tuple[int, int, int]] = None):
         super().__init__()
         V = self.in_vars = in_vars
         embed_dim = embed_dim or [16, 16]
@@ -387,9 +486,10 @@ class Swin_3D(nn.Module):
         num_heads = num_heads or [2, 2]
         self.n_layers = len(embed_dim)
         dpr = [float(v) for v in np.linspace(0, drop_path_rate, sum(depths))]
+        size = None if input_size is None else tuple(input_size)
         for i in range(self.n_layers):
             lo = sum(depths[:i])
-            self.add_module(f"stage{i}", PackedSwinStage(
+            stage = PackedSwinStage(
                 V, in_dim=embed_dim[i - 1] if i > 0 else in_chans,
                 dim=embed_dim[i], depth=depths[i], num_heads=num_heads[i],
                 patch_size=tuple(patch_size) if i == 0 else (1, 1, 1),
@@ -397,7 +497,9 @@ class Swin_3D(nn.Module):
                 qkv_bias=qkv_bias, qk_scale=qk_scale, drop=drop_rate,
                 attn_drop=attn_drop_rate, drop_path=dpr[lo:lo + depths[i]],
                 use_checkpoint=use_checkpoint, kernel_init=kernel_init,
-                generator=generator, dtype=dtype))
+                generator=generator, dtype=dtype, input_size=size)
+            self.add_module(f"stage{i}", stage)
+            size = stage.output_size
         self.proj = GroupedProjHead(V, embed_dim[-1], kernel_init=kernel_init,
                                     generator=generator, dtype=dtype)
 

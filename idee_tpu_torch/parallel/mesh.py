@@ -40,6 +40,12 @@ two ranks share bits, so with dropout on the ranks' rows see other masks
 than the world-1 batch's: the equality with world 1 holds with dropout
 at 0, as in JAX's own test (tests/test_parallel.py:40-65).
 
+The fused epochs (train/steps.py::FusedEpoch) run under a mesh too: on a
+card their captured step holds these collectives, which NCCL can capture
+in a CUDA graph and gloo cannot (``check_fused_epochs``). None of the
+helpers reads a value back to the host or sizes a tensor from one, so a
+replay repeats exactly the collectives of its capture.
+
 Without a mesh nothing here runs: every module-level helper returns its
 input, so the single-device path starts no process group and makes no
 collective call. The ``space`` axis (spatial sharding) is not ported.
@@ -70,6 +76,7 @@ class Mesh:
     world: int
     device: torch.device
     started: bool = False  # make_mesh started the process group
+    backend: str = "gloo"
 
     @property
     def is_main(self) -> bool:
@@ -98,6 +105,17 @@ class Mesh:
         dist.all_reduce(t)
         return t
 
+    def mean_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` averaged over the ranks, in place (no gradient): one AVG
+        all-reduce under NCCL, a sum then a division under gloo (which has
+        no AVG)."""
+        if self.backend == "nccl":
+            dist.all_reduce(t, op=dist.ReduceOp.AVG)
+        else:
+            dist.all_reduce(t)
+            t /= self.world
+        return t
+
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """``t`` replaced by rank ``src``'s, in place."""
         dist.broadcast(t, src)
@@ -117,9 +135,7 @@ class Mesh:
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        flat /= self.world
+        flat = self.mean_(torch.cat([g.reshape(-1) for g in grads]))
         offset = 0
         for g in grads:
             n = g.numel()
@@ -203,8 +219,22 @@ def make_mesh(mesh_shape: Sequence[int], mesh_axes: Sequence[str] = ("data",),
     if started:
         dist.init_process_group(backend, init_method=init_method,
                                 rank=rank, world_size=world)
-    _ACTIVE = Mesh(rank, world, dev, started)
+    _ACTIVE = Mesh(rank, world, dev, started, str(dist.get_backend()))
     return _ACTIVE
+
+
+def check_fused_epochs(mesh: Optional[Mesh]) -> None:
+    """Raises unless the fused epochs can run under ``mesh``. On a card
+    their step is captured as a CUDA graph with the step's collectives
+    inside: NCCL's can be captured, gloo's (which stage CUDA tensors
+    through the host) cannot. On the CPU the fused step runs eagerly, so
+    any backend serves. There is no fallback to eager steps on a card."""
+    if mesh is None or mesh.device.type != "cuda" or mesh.backend == "nccl":
+        return
+    raise ValueError(
+        f"the fused epochs under a {mesh.backend} mesh on {mesh.device}: a "
+        f"CUDA graph cannot capture {mesh.backend}'s collectives; use the "
+        "nccl backend, or set fused_epoch=False for the per-step loop")
 
 
 # -- the losses' and codebooks' collectives: the identity without a mesh
@@ -228,17 +258,20 @@ def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
     size."""
     if _ACTIVE is None:
         return t
-    return sum_over_ranks(t) / _ACTIVE.world
+    return _ACTIVE.mean_(t.detach().clone())
 
 
 def grad_mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
     """``t`` averaged over the ranks, differentiably (the backward sums
     the ranks' gradients): a batch mean of the global batch from the
     ranks' means of equal-sized row sets, for a term that is not linear
-    in it (the codebook entropy)."""
+    in it (the codebook entropy). Under NCCL one AVG all-reduce, whose
+    backward is an AVG all-reduce too."""
     if _ACTIVE is None:
         return t
     from torch.distributed.nn.functional import all_reduce
+    if _ACTIVE.backend == "nccl":
+        return all_reduce(t, op=dist.ReduceOp.AVG)
     return all_reduce(t) / _ACTIVE.world
 
 

@@ -24,12 +24,14 @@ an eval step that returns the predictions, outside any captured graph.
 
 Data parallelism (``mesh_shape=[N]`` under ``torchrun --nproc_per_node
 N``, or a ``mesh`` from parallel/mesh.py::make_mesh): each rank trains on
-its rows of every global batch of ``batch_size`` with the per-step loop
-(host or device loader), the gradients averaged over the ranks, and the
-epoch's counters and vote buffers summed over them before the evaluators
-read them; rank 0 alone writes the log, config snapshot, checkpoints,
-history.json and TensorBoard, and every rank reads ``latest`` on resume.
-Not ported (ROADMAP.md): the fused epochs under a mesh and the ``space``
+its rows of every global batch of ``batch_size`` with any of the three
+loops, the gradients averaged over the ranks, and the epoch's counters and
+vote buffers summed over them before the evaluators read them; rank 0
+alone writes the log, config snapshot, checkpoints, history.json and
+TensorBoard, and every rank reads ``latest`` on resume. The fused epochs
+under a mesh capture the step's collectives in the CUDA graph, which
+needs the NCCL backend on a card (parallel/mesh.py::check_fused_epochs:
+a gloo mesh on a card raises). Not ported (ROADMAP.md): the ``space``
 axis.
 """
 # ------------------------------------------------------------------
@@ -49,7 +51,7 @@ from idee_tpu_torch.data.device import DeviceLoader
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.synthetic import SyntheticCube, SyntheticDataset
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
-from idee_tpu_torch.parallel.mesh import make_mesh
+from idee_tpu_torch.parallel.mesh import check_fused_epochs, make_mesh
 from idee_tpu_torch.train.checkpoint import (CheckpointManager,
                                              load_pretrained_weights)
 from idee_tpu_torch.train.history import flush_history, seed_history
@@ -114,17 +116,14 @@ def use_fused(cfg: Config) -> bool:
 def data_parallel(cfg: Config, device, mesh):
     """(mesh, device) of a train driver: the caller's ``mesh``, else one
     made from cfg.mesh_shape (parallel/mesh.py::make_mesh, on ``device``
-    or the local rank's card), else None; the device is the mesh's."""
+    or the local rank's card), else None; the device is the mesh's. With
+    the fused epochs the mesh's collectives must be capturable."""
     if mesh is None and cfg.mesh_shape:
         mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device=device)
     if mesh is None:
         return None, resolve_device(device)
     if use_fused(cfg):
-        # a captured step would hold the losses' and the gradients'
-        # collectives
-        raise NotImplementedError(
-            "the fused epochs under a mesh are not ported (ROADMAP.md, "
-            "queue 1): set fused_epoch=False for the per-step loop")
+        check_fused_epochs(mesh)
     return mesh, mesh.device
 
 
@@ -169,14 +168,6 @@ def traced(loader, cfg: Config, epoch: int, start_epoch: int, device,
         return loader
     return StepTrace(cfg.profile_dir, f"{cfg.name}_train", device,
                      logger).steps(loader)
-
-
-def last_val_batch(fused, loader) -> Dict[str, torch.Tensor]:
-    """The last batch of the fused val epoch just run (JAX's one extra
-    fetch, idee_tpu/train/driver.py:269-271), built eagerly from the
-    epoch's order and flip bits."""
-    flips = None if fused.flips is None else fused.flips[-1]
-    return loader.batch(fused.order[-1], flips)
 
 
 def _epoch_results(m, evaluator, eval_anom, gt_anomaly) -> float:
@@ -262,7 +253,7 @@ def _train_synthetic(cfg, train_cube, val_cube, dev, mesh) -> Dict:
                                 x_dtype=compute_dtype(cfg), mesh=mesh)
 
     log_string(logger, "\nloading the model ...")
-    model = build_model(cfg)
+    model = build_model(cfg, input_size=train_ds.input_size)
     if cfg.en_de_pretrained:
         log_string(logger,
                    f"initialize weights from {cfg.en_de_pretrained} ...")
@@ -320,7 +311,7 @@ def _train_synthetic(cfg, train_cube, val_cube, dev, mesh) -> Dict:
             if use_fused(cfg):
                 t_ep = time.perf_counter()
                 # the epoch's one device sync ends its time
-                m = metrics_to_host(train_epoch(state))
+                m = epoch_metrics(mesh, train_epoch(state))
                 sps = len(train_loader) / (time.perf_counter() - t_ep)
             else:
                 metrics = init_epoch_metrics(train_ds.anomaly.shape, dev)
@@ -339,8 +330,10 @@ def _train_synthetic(cfg, train_cube, val_cube, dev, mesh) -> Dict:
             # -- validation --
             last_batch = None
             if use_fused(cfg):
-                m = metrics_to_host(eval_epoch())
-                last_batch = last_val_batch(eval_epoch, val_loader)
+                m = epoch_metrics(mesh, eval_epoch())
+                # the epoch's last batch (JAX's one extra fetch,
+                # idee_tpu/train/driver.py:269-271)
+                last_batch = eval_epoch.batch_at(-1)
             else:
                 metrics = init_epoch_metrics(val_ds.anomaly.shape, dev)
                 for batch in val_loader:

@@ -17,8 +17,9 @@ run fused (on a card as CUDA graph replays) or, with
 target with the sea, no-vegetation and cold overlays, and the drivers)
 are train/driver.py's; the val loaders carry the sea and no-vegetation
 masks for the panels. Data parallelism (``mesh_shape`` under torchrun)
-is train/driver.py's: each rank on its rows of every global batch, the
-masked losses normalised over the global batch, rank 0 writing.
+is train/driver.py's, with any of the three loops: each rank on its rows
+of every global batch, the masked losses normalised over the global
+batch, rank 0 writing.
 """
 # ------------------------------------------------------------------
 
@@ -39,8 +40,7 @@ from idee_tpu_torch.models.vq_model import build_model, compute_dtype
 from idee_tpu_torch.train.checkpoint import CheckpointManager
 from idee_tpu_torch.train.driver import (_check_supported, data_parallel,
                                          epoch_metrics, join_ranks,
-                                         last_val_batch, rank_output, traced,
-                                         use_fused)
+                                         rank_output, traced, use_fused)
 from idee_tpu_torch.train.evaluate import load_weights
 from idee_tpu_torch.train.history import flush_history, seed_history
 from idee_tpu_torch.train.metrics import Evaluator
@@ -178,7 +178,7 @@ def _train_real(cfg, family, train_ds, val_ds, dev, mesh) -> Dict:
                                 **loader_kw)
 
     log_string(logger, "\nloading the model ...")
-    model = build_model(cfg)
+    model = build_model(cfg, input_size=train_ds.input_size)
     if cfg.en_de_pretrained:
         log_string(logger,
                    f"initialize weights from {cfg.en_de_pretrained} ...")
@@ -219,7 +219,7 @@ def _train_real(cfg, family, train_ds, val_ds, dev, mesh) -> Dict:
             if use_fused(cfg):
                 t_ep = time.perf_counter()
                 # the epoch's one device sync ends its time
-                m = metrics_to_host(train_epoch(state))
+                m = epoch_metrics(mesh, train_epoch(state))
                 sps = len(train_loader) / (time.perf_counter() - t_ep)
             else:
                 metrics = init_epoch_metrics_real(dev)
@@ -236,8 +236,8 @@ def _train_real(cfg, family, train_ds, val_ds, dev, mesh) -> Dict:
 
             last_batch = None
             if use_fused(cfg):
-                m = metrics_to_host(eval_epoch())
-                last_batch = last_val_batch(eval_epoch, val_loader)
+                m = epoch_metrics(mesh, eval_epoch())
+                last_batch = eval_epoch.batch_at(-1)
             else:
                 metrics = init_epoch_metrics_real(dev)
                 for batch in val_loader:
@@ -311,7 +311,7 @@ def test_real(cfg: Config, family: str, params: Optional[Mapping] = None,
         test_ds = make_reanalysis_dataset(cfg, family, cfg.years_test, False)
     log_string(logger, "# testing samples: %d" % len(test_ds))
 
-    model = build_model(cfg)
+    model = build_model(cfg, input_size=test_ds.input_size)
     load_weights(model, cfg, params, logger)
     model.to(dev)
 

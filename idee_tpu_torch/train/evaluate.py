@@ -75,7 +75,7 @@ def test_synthetic(cfg: Config, cube: Optional[SyntheticCube] = None,
     )
     log_string(logger, "# testing samples: %d" % len(ds))
 
-    model = build_model(cfg)
+    model = build_model(cfg, input_size=ds.input_size)
     load_weights(model, cfg, params, logger)
     model.to(dev)
 

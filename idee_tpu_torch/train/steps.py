@@ -121,7 +121,8 @@ def _train_body(model, cfg: Config, t0: float):
     averaged over the ranks (parallel/mesh.py), ``state.update()`` (the
     optimizer step at the lr already set), then the metric updates on
     detached outputs. No host state moves and nothing waits for the
-    device, so a CUDA graph can capture it (without a mesh)."""
+    device, so a CUDA graph can capture it, under an NCCL mesh with its
+    collectives."""
     bce = _bce_kwargs(cfg)
 
     def body(state, metrics, batch, lam):
@@ -262,6 +263,14 @@ class FusedEpoch:
     after any checkpoint restore: a restore replaces the optimizer's state
     tensors that the graph reads.
 
+    Under a data-parallel mesh (parallel/mesh.py) the order and flip
+    buffers hold the global batches, as the loader draws them, and each
+    rank's step builds its rows of them (``rows``); the step's collectives
+    (the losses' normalisers, the codebooks' statistics, the gradient
+    average) are captured with it and run at every replay, on every rank
+    in the same sequence. The warm-up steps run each of them first, so
+    NCCL's communicator exists before the capture.
+
     On the CPU the same body runs eagerly, step after step.
     """
 
@@ -282,17 +291,26 @@ class FusedEpoch:
         self.values = (torch.zeros(nb, dtype=torch.float32, device=dev)
                        if per_step is not None else None)
         self.pos = torch.zeros(1, dtype=torch.int64, device=dev)
+        mesh = getattr(loader, "mesh", None)
+        self.rows = slice(None) if mesh is None else mesh.rows(B)
         self.graph = None
         self.per_replay: Tuple[Dict[str, int], ...] = ()
         self.warm_steps = 0
         self.capture_s = 0.0
 
     def batch(self) -> Dict[str, torch.Tensor]:
-        """The batch at the device position (no host read)."""
+        """The rank's rows of the batch at the device position (no host
+        read)."""
         idx = self.order.index_select(0, self.pos)[0]
         flips = (None if self.flips is None
-                 else self.flips.index_select(0, self.pos)[0])
-        return self.loader.batch(idx, flips)
+                 else self.flips.index_select(0, self.pos)[0][self.rows])
+        return self.loader.batch(idx[self.rows], flips)
+
+    def batch_at(self, b: int) -> Dict[str, torch.Tensor]:
+        """The rank's rows of the last epoch's batch ``b`` (-1: its last),
+        built eagerly from its order and flip bits."""
+        flips = None if self.flips is None else self.flips[b, self.rows]
+        return self.loader.batch(self.order[b, self.rows], flips)
 
     def step_value(self) -> torch.Tensor:
         """``per_step`` at the device position, a device scalar."""

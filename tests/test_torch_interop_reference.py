@@ -13,7 +13,11 @@ codebook and the CNN_3D classifier:
     latent |s| > 1e-4: the port-against-JAX forward tolerance of
     tests/test_torch_slice.py);
   * the port's ``export_torch_state_dict`` equals JAX's key for key, in
-    the same order, bit for bit;
+    the same order, bit for bit; also for Swin_3D at delta_t 4, whose
+    stage-1 bias table is the shrunk (4, 1, 1) window's while both write
+    ``relative_position_index`` from cfg.en_window_size (the composite
+    model runs at delta_t 8 only, so that tree's encoder comes from the
+    encoder's own init and no forward is compared);
   * a ``.pth`` crosses both ways: JAX's ``export_checkpoint_file`` through
     the port's import CLI into ``test_synthetic --en_de_pretrained``, and
     the port's export CLI (from a run directory) through JAX's
@@ -46,7 +50,11 @@ N_TIME = 16
 CASES = {"Mamba": {"encoder": "Mamba"},
          "Mamba_dstate2": {"encoder": "Mamba", "d_state": [2, 2]},
          "Swin_3D": {"encoder": "Swin_3D"},
-         "CNN_3D": {"encoder": "CNN_3D"}}
+         "CNN_3D": {"encoder": "CNN_3D"},
+         # stage 1's (8, 1, 1) window shrunk to (4, 1, 1): a smaller bias
+         # table, relative_position_index still from cfg.en_window_size
+         "Swin_3D_dt4": {"encoder": "Swin_3D", "delta_t": 4}}
+FORWARD_CASES = [c for c in CASES if c != "Swin_3D_dt4"]
 
 
 def _config(case="Mamba", **kw):
@@ -84,6 +92,18 @@ def jx():
         shapes = jax.eval_shape(
             lambda a: model.init(jax.random.PRNGKey(0), a, train=False),
             jnp.zeros((1, 3, 1, 8, 16, 16), jnp.float32))
+        if cfg.delta_t != 8:
+            # the composite model runs at delta_t 8 only (its classifier
+            # collapses T = 8 to 1): the encoder's shapes from its own
+            # init at delta_t, as a JAX checkpoint of that encoder holds
+            from idee_tpu.models.vq_model import build_encoder
+
+            enc = build_encoder(jcfg, None, None)
+            shapes = dict(shapes, params=dict(
+                shapes["params"], encoder=jax.eval_shape(
+                    lambda a: enc.init(jax.random.PRNGKey(0), a),
+                    jnp.zeros((1, 3, 1, cfg.delta_t, 16, 16),
+                              jnp.float32))["params"]))
         rng = np.random.default_rng(seed)
         tree = jax.tree_util.tree_map(
             lambda s: (0.1 * rng.normal(size=s.shape)).astype(np.float32),
@@ -98,7 +118,7 @@ def _plain(tree):
             for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", FORWARD_CASES)
 def test_jax_export_imports_and_the_forward_matches_jax(jx, case):
     cfg = _config(case)
     jcfg, jmodel, params = jx.params(cfg)

@@ -24,6 +24,10 @@ batch. Checked, with dropout at 0 as there:
     from world 1's, Adam moves those entries 2 lr apart and the second
     step's dead-code expiry differs; without it every gradient lies
     within 6e-6 x max;
+  * VQ-EMA past the k-means step, at the config's lambda_anomaly (100):
+    2 steps from the world-1 state after one step (codebook initialised),
+    so the anomaly L1's global-batch normaliser runs under two ranks;
+    parameters atol 2e-5, codebook buffers rtol 1e-5 against world 1;
   * the epoch counters and vote buffers, summed over the ranks, equal the
     world-1 step's;
   * train_synthetic under mesh_shape [2]: rank 0 alone writes the
@@ -154,8 +158,16 @@ def step_runs(jx, tmp_path_factory):
     want["vq"] = dict(world1=_world1_steps(cfg, sd, batches))
     jobs.append(dict(kind="steps", cfg=cfg.to_dict(), state_dict=sd,
                      batches=batches))
+    # past the k-means step: the world-1 state after one step, initted
+    cfg = _tiny_config(**VQ_EMA, name="vq_past")
+    _, _, sd = _world1_steps(cfg, build_model(cfg).state_dict(),
+                             _batches(1, seed=6))
+    batches = _batches(2, seed=7)
+    want["vq_past"] = dict(world1=_world1_steps(cfg, sd, batches), start=sd)
+    jobs.append(dict(kind="steps", cfg=cfg.to_dict(), state_dict=sd,
+                     batches=batches))
     got = run_ranks(tmp_path_factory.mktemp("steps"), jobs)
-    names = list(ENCODER_SEEDS) + ["real", "vq"]
+    names = list(ENCODER_SEEDS) + ["real", "vq", "vq_past"]
     return {n: ([r[i] for r in got], want[n]) for i, n in enumerate(names)}
 
 
@@ -199,15 +211,21 @@ def test_real_masked_step_matches_world_1(step_runs):
         _close(got["state_dict"], w1_sd, f"rank {r}")
 
 
-def test_vq_ema_codebook_state_matches_world_1(step_runs):
-    ranks, want = step_runs["vq"]
-    _, _, w1_sd = want["world1"]
-    buffers = [k for k in w1_sd if k.split(".")[-1] in (
+def _codebook_buffers(sd):
+    buffers = [k for k in sd if k.split(".")[-1] in (
         "embed", "cluster_size", "embed_avg", "initted")]
     assert len(buffers) == 4, buffers
-    # the codebook moved: k-means ran and the EMA stepped
-    assert float(w1_sd[[k for k in buffers if k.endswith("initted")][0]]) \
-        == 1.0
+    return buffers
+
+
+def _initted(sd, buffers) -> float:
+    return float(sd[[k for k in buffers if k.endswith("initted")][0]])
+
+
+def _hold_vq(ranks, w1_sd, buffers):
+    """Both ranks' parameters atol 2e-5 and codebook buffers rtol 1e-5
+    from world 1's, the ranks' buffers equal. Returns rank 0's largest
+    parameter difference and each buffer's largest relative one."""
     for r, got in enumerate(ranks):
         _close({k: v for k, v in got["state_dict"].items()
                 if k not in buffers},
@@ -218,6 +236,36 @@ def test_vq_ema_codebook_state_matches_world_1(step_runs):
         for k in buffers:
             assert torch.equal(got["state_dict"][k],
                                ranks[0]["state_dict"][k]), k
+    got = {k: v.float() for k, v in ranks[0]["state_dict"].items()}
+    return (max((got[k] - w1_sd[k].float()).abs().max().item()
+                for k in w1_sd if k not in buffers),
+            {k: ((got[k] - w1_sd[k].float()).abs()
+                 / w1_sd[k].float().abs().clamp(min=1e-30)).max().item()
+             for k in buffers})
+
+
+def test_vq_ema_codebook_state_matches_world_1(step_runs):
+    ranks, want = step_runs["vq"]
+    _, _, w1_sd = want["world1"]
+    buffers = _codebook_buffers(w1_sd)
+    # the codebook moved: k-means ran and the EMA stepped
+    assert _initted(w1_sd, buffers) == 1.0
+    _hold_vq(ranks, w1_sd, buffers)
+
+
+def test_vq_ema_past_kmeans_with_the_anomaly_term_matches_world_1(
+        step_runs):
+    ranks, want = step_runs["vq_past"]
+    _, _, w1_sd = want["world1"]
+    buffers = _codebook_buffers(w1_sd)
+    assert _tiny_config(**VQ_EMA).lambda_anomaly > 0
+    # started past the k-means step, which therefore ran in no step here
+    assert _initted(want["start"], buffers) == 1.0
+    for r, got in enumerate(ranks):
+        assert all(np.isfinite(got["losses"])), r
+    params, rel = _hold_vq(ranks, w1_sd, buffers)
+    print(f"VQ-EMA past k-means, world 2 against world 1: parameters "
+          f"{params:.3g} max abs, buffers {rel} max rel")  # -s shows it
 
 
 def test_counts_and_votes_are_global(step_runs):

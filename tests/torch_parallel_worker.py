@@ -20,7 +20,12 @@ is a dict:
   state_dict after the steps and the kernel launches of its steps;
 * ``driver``: ``cfg`` (with ``mesh_shape``) for ``train_synthetic``;
   returns the history and the calls each rank made to the functions that
-  write files.
+  write files;
+* ``train_real``: ``cfg`` (with ``mesh_shape``) for ``train_real`` on
+  ``family``'s tree; returns the history.
+
+Both driver kinds also return the final step count and state_dict; with
+``device_data`` and ``fused_epoch`` in ``cfg`` they run the fused epochs.
 
 Imports torch, numpy and the port only (no JAX).
 """
@@ -38,7 +43,7 @@ from idee_tpu_torch.config import Config  # noqa: E402
 from idee_tpu_torch.kernels import selective_scan, window_attention  # noqa
 from idee_tpu_torch.models.vq_model import build_model  # noqa: E402
 from idee_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
-from idee_tpu_torch.train import driver  # noqa: E402
+from idee_tpu_torch.train import driver, driver_real  # noqa: E402
 from idee_tpu_torch.train.state import create_train_state  # noqa: E402
 from idee_tpu_torch.train.steps import (init_epoch_metrics,  # noqa: E402
                                         make_train_step)
@@ -108,10 +113,24 @@ def run_driver(job, mesh):
     finally:
         driver.CheckpointManager.save = save
         driver.flush_history, driver.save_options = flush, options
+    return dict(_finished(hist), calls=calls)
+
+
+def run_train_real(job, mesh):
+    cfg = Config.from_dict(job["cfg"])
+    return _finished(driver_real.train_real(cfg, job.get("family", "CERRA"),
+                                            device=str(mesh.device)))
+
+
+def _finished(hist):
     state = hist.pop("state")
-    return {"history": hist, "calls": calls, "step": state.step,
+    return {"history": hist, "step": state.step,
             "state_dict": {k: v.detach().cpu()
                            for k, v in state.model.state_dict().items()}}
+
+
+RUNS = {"steps": run_steps, "driver": run_driver,
+        "train_real": run_train_real}
 
 
 def main(argv):
@@ -125,8 +144,7 @@ def main(argv):
     results = []
     try:
         for job in jobs:
-            run = run_driver if job["kind"] == "driver" else run_steps
-            results.append(run(job, mesh))
+            results.append(RUNS[job["kind"]](job, mesh))
         torch.save(results, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
     finally:
         mesh.close()
