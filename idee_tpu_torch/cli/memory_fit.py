@@ -1,7 +1,6 @@
 # ------------------------------------------------------------------
 """CLI: does this encoder fit at this geometry? (counterpart of
-scripts/memory_fit.py, without its --topology / --mesh, which probe TPU
-slices.)
+scripts/memory_fit.py, without its --topology, which probes TPU slices.)
 
 JAX compiles the train step ahead of time and reads XLA's memory
 analysis. Here one full train step (forward, losses, backward, Adam, the
@@ -25,6 +24,17 @@ what the process held when it began). ``--family real`` is the reference
 CERRA configuration (6 variables x (mean, std) channels, delta_t 8);
 ``--remat`` sets ``en_use_checkpoint``. With ``--device cpu`` the step
 runs on the CPU and no memory is measured (the sizes are null).
+
+``--mesh DxS`` probes a rank of a data x space mesh (parallel/mesh.py,
+the counterpart of scripts/memory_fit.py's ``--mesh``): started under
+``torchrun --nproc_per_node D*S``, each rank trains on its rows of the
+global batch of ``--batch`` and its H rows (parallel/spatial.py), and
+prints its own row with its rank and rows. Two ranks on one card need
+``--backend gloo`` and ``--device cuda:0``:
+
+    torchrun --nproc_per_node 2 -m idee_tpu_torch.cli.memory_fit \
+        --family real --encoder CNN_3D --hw 512x832 --mesh 1x2 \
+        --backend gloo --device cuda:0
 """
 # ------------------------------------------------------------------
 
@@ -39,6 +49,8 @@ import torch
 from idee_tpu_torch import resolve_device
 from idee_tpu_torch.config import Config, synthetic_config
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
+from idee_tpu_torch.parallel import spatial
+from idee_tpu_torch.parallel.mesh import make_mesh
 from idee_tpu_torch.train.state import create_train_state
 
 GB = 1e9
@@ -61,9 +73,11 @@ def probe_config(family: str, encoder: str, batch: int, H: int, W: int,
 
 
 def random_batch(cfg: Config, family: str, H: int, W: int, device,
-                 seed: int = 0) -> Dict[str, torch.Tensor]:
+                 seed: int = 0, mesh=None) -> Dict[str, torch.Tensor]:
     """A batch of the geometry from a seeded generator: x normal in the
-    compute dtype, {0, 1} masks, and (synthetic) the target weeks."""
+    compute dtype, {0, 1} masks, and (synthetic) the target weeks. Under
+    a ``mesh`` the rank's rows of it (and its H rows under the active
+    spatial context)."""
     g = torch.Generator().manual_seed(seed)
     B, C = cfg.batch_size, cfg.in_channels
     x = torch.randn((B, cfg.in_channels_dynamic, C, cfg.delta_t, H, W),
@@ -77,7 +91,11 @@ def random_batch(cfg: Config, family: str, H: int, W: int, device,
     if family == "synthetic":
         batch["timestep"] = torch.randint(
             cfg.delta_t, N_WEEKS + 1, (B, 1), generator=g).float()
-    return {k: v.to(device) for k, v in batch.items()}
+    if mesh is not None:
+        rows = mesh.rows(B)
+        batch = spatial.shard_rows({k: v[rows] for k, v in batch.items()},
+                                   spatial.active())
+    return {k: v.contiguous().to(device) for k, v in batch.items()}
 
 
 def _step_and_metrics(model, cfg: Config, family: str, device):
@@ -96,13 +114,23 @@ def _step_and_metrics(model, cfg: Config, family: str, device):
 
 def probe(family: str, encoder: str, batch: int, H: int, W: int,
           dtype: str = "float32", remat: bool = False,
-          device=None) -> dict:
-    """One probe's row: the train step's peak memory at the geometry."""
-    dev = resolve_device(device)
+          device=None, mesh=None) -> dict:
+    """One probe's row: the train step's peak memory at the geometry (on
+    ``mesh``'s rank, of its share of it, under a ``mesh``)."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     row = {"family": family, "encoder": encoder, "batch": batch,
            "hw": f"{H}x{W}", "dtype": dtype, "remat": remat,
            "device": dev.type}
     cfg = probe_config(family, encoder, batch, H, W, dtype, remat)
+    with spatial.activate(mesh, H, spatial.model_row_align(cfg)) as ctx:
+        if mesh is not None:
+            row.update(mesh=f"{mesh.data}x{mesh.space}", rank=mesh.rank,
+                       rows=None if ctx is None else [ctx.lo, ctx.hi])
+        return _probe(cfg, family, H, W, dev, row, mesh)
+
+
+def _probe(cfg: Config, family: str, H: int, W: int, dev, row: dict,
+           mesh) -> dict:
     on_card = dev.type == "cuda"
     if on_card:
         gc.collect()
@@ -114,7 +142,7 @@ def probe(family: str, encoder: str, batch: int, H: int, W: int,
         model = build_model(cfg, torch.Generator().manual_seed(0))
         state = create_train_state(cfg, model, dev, steps_per_epoch=100)
         step, metrics = _step_and_metrics(model, cfg, family, dev)
-        data = random_batch(cfg, family, H, W, dev)
+        data = random_batch(cfg, family, H, W, dev, mesh=mesh)
         state, metrics = step(state, metrics, data)
         loss = float(metrics["loss_sums"]["loss"])  # waits for the card
         row["loss_finite"] = math.isfinite(loss)
@@ -162,10 +190,25 @@ def main(argv=None):
                     help="recompute the encoder blocks in the backward "
                     "(en_use_checkpoint)")
     ap.add_argument("--device", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="DxS: probe this rank of a data x space mesh "
+                    "(under torchrun --nproc_per_node D*S)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="the mesh's backend (default nccl on a card); "
+                    "gloo for several ranks on one card")
     args = ap.parse_args(argv)
     H, W = parse_hw(args.hw)
-    row = probe(args.family, args.encoder, args.batch, H, W, args.dtype,
-                args.remat, args.device)
+    mesh = None
+    if args.mesh:
+        mesh = make_mesh([int(v) for v in args.mesh.split("x")],
+                         ["data", "space"], device=args.device,
+                         backend=args.backend)
+    try:
+        row = probe(args.family, args.encoder, args.batch, H, W, args.dtype,
+                    args.remat, args.device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
     print(json.dumps(row), flush=True)
     return row
 

@@ -8,8 +8,9 @@ JSON snapshots written by either package load unchanged in the other.
 / ``config.pkl`` / ``config.json`` experiment snapshot.
 
 The port reads the mesh fields as data parallelism over the ``data``
-axis (parallel/mesh.py); fused_chunk, which only the TPU programs read,
-is kept so snapshots round-trip.
+axis and H sharded over the ``space`` axis (parallel/mesh.py,
+parallel/spatial.py); fused_chunk, which only the TPU programs read, is
+kept so snapshots round-trip.
 """
 # ------------------------------------------------------------------
 
@@ -170,8 +171,9 @@ class Config:
 
     # --- additions of the JAX package (not in the reference) ---
     # Their meaning is documented in idee_tpu/config.py. The port takes a
-    # mesh of the "data" axis (mesh_shape [N] under torchrun,
-    # parallel/mesh.py; "space" raises) and leaves fused_chunk unread: JAX
+    # mesh of the "data" axis, or "data" x "space" (mesh_shape [N] or
+    # [D, S] under torchrun, parallel/mesh.py; the space axis with the
+    # host loader only) and leaves fused_chunk unread: JAX
     # cuts a fused epoch into dispatches of fused_chunk steps for the TPU
     # worker's watchdog, which has no counterpart here (a fused epoch is
     # one replay of its CUDA graph per step, train/steps.py::FusedEpoch).

@@ -65,6 +65,12 @@ class _EpochLoader:
         self.mesh = mesh
         if mesh is not None:
             mesh.rows(batch_size)  # raises unless the ranks split it
+            if mesh.space > 1:
+                raise ValueError(
+                    f"device_data under a space axis of {mesh.space} ranks "
+                    "is not ported (ROADMAP.md, queue 1): each rank would "
+                    "hold the whole cube; set device_data=False for the "
+                    "host loader")
         self.n = n
         self.batch_size = batch_size
         self.seed = seed

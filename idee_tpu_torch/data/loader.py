@@ -27,7 +27,10 @@ collated item by item.
 Under data parallelism (``mesh``, parallel/mesh.py) every rank draws the
 same order and, in index order, the augmentations of the whole global
 batch, then builds only its own rows: the ranks' rows together are the
-single-device batch.
+single-device batch. Under a ``space`` axis (the spatial context active
+when the loader is made, parallel/spatial.py) a rank then keeps its H
+rows of every leaf of ndim >= 3 (``spatial.shard_rows``); the items are
+built whole first, augmentation included.
 """
 # ------------------------------------------------------------------
 
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from idee_tpu_torch import resolve_device
+from idee_tpu_torch.parallel import spatial
 
 
 def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -66,7 +70,9 @@ class DataLoader:
       x_dtype: the dtype x is converted to on the host before the copy
         (the model's compute dtype; float32 leaves it as built).
       mesh: a data-parallel mesh (parallel/mesh.py): batches hold the
-        rank's rows of each global batch of ``batch_size``.
+        rank's rows of each global batch of ``batch_size`` (and, under
+        the spatial context active when the loader is made, the rank's H
+        rows of them).
     """
 
     def __init__(self, dataset, batch_size: int = 1, device=None,
@@ -76,6 +82,7 @@ class DataLoader:
                  mesh=None):
         self.dataset = dataset
         self.mesh = mesh
+        self.space = spatial.active()
         if mesh is not None:
             mesh.rows(batch_size)  # raises unless the ranks split it
         self.x_dtype = x_dtype
@@ -121,6 +128,7 @@ class DataLoader:
                              for i, a in zip(indices, augs)])
         if self.keys is not None:
             batch = {k: batch[k] for k in self.keys}
+        batch = spatial.shard_rows(batch, self.space)
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))

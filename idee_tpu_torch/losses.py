@@ -7,16 +7,18 @@ The inverse-frequency weighting is the reference's
 (reference: models/losses.py:82-87,115-120). The anomaly L1 constrains the
 quantized features to the 'normal' code vq_0 outside extreme regions.
 
-Under data parallelism (parallel/mesh.py) the class histograms and the
-masked denominators are the global batch's: a rank's loss is its share
-of the global loss scaled by the world size. Without a mesh the
+Under data and spatial parallelism (parallel/mesh.py) the class
+histograms, the masked denominators and the means' counts are the global
+batch's: a rank's loss is its share of the global loss scaled by the
+world size, whatever the size of its share. Without a mesh the
 collectives are the identity.
 """
 # ------------------------------------------------------------------
 
 import torch
 
-from idee_tpu_torch.parallel.mesh import mean_over_ranks, sum_over_ranks
+from idee_tpu_torch.parallel.mesh import (batch_mean, mean_over_ranks,
+                                          sum_over_ranks)
 
 
 def bce_with_logits(logits, targets):
@@ -73,7 +75,7 @@ def bce_loss_synthetic(pred, target, weighting: str = "reference",
         p = torch.sigmoid(pred)
         p_t = p * target + (1.0 - p) * (1.0 - target)
         weights = weights * (1.0 - p_t) ** focal_gamma
-    return torch.mean(bce_with_logits(pred, target) * weights)
+    return batch_mean(bce_with_logits(pred, target) * weights)
 
 
 def bce_loss(pred, target, mask_valid):

@@ -231,8 +231,10 @@ class VQModel(nn.Module):
         C = VC // V
         tokens = zp.reshape(N, T, H, W, V, C).permute(0, 4, 1, 2, 3, 5) \
             .reshape(N, V * T * H * W, C)
+        # VQ samples rows of the global batch: the tokens' layout around H
+        # (the other codebooks read no rows)
         z_q, indices, loss_z_q = self.vq(tokens, train=train,
-                                         generator=generator)
+                                         generator=generator, grid=(V * T, W))
         z_q = z_q.reshape(N, V, T, H, W, C).permute(0, 1, 5, 2, 3, 4)
         anomaly = indices.reshape(N, V, T, H, W)
         # classify on the quantized codes only (build.py:157)

@@ -8,6 +8,8 @@ padding (0,1,1) that collapse the temporal axis delta_t=8 -> 1. The V
 per-variable heads run as one grouped-convolution program on the packed
 [N, T, H, W, V*C] layout; the joint head is a plain conv over all V*C
 channels. ``dtype`` is the compute dtype of every conv (nn/layers.py).
+Under the ``space`` axis the convs pad H with the neighbours' rows and
+the dropout keeps the rank's rows of the global draw (nn/layers.py).
 """
 # ------------------------------------------------------------------
 
@@ -18,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from idee_tpu_torch.nn.layers import (Conv, GroupedConv3d, Init, dropout,
-                                      reference_init)
+                                      rank_rows, reference_init)
 
 _KSIZE = (2, 3, 3)
 _STRIDE = (2, 1, 1)
@@ -42,7 +44,8 @@ class ClassifierHead(nn.Module):
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        x = dropout(F.relu(self.conv1(x)), self.drop_rate, train, generator)
+        x = dropout(F.relu(self.conv1(x)), self.drop_rate, train, generator,
+                    rank_rows(2))
         x = F.relu(self.conv2(x))
         return self.conv3(x).squeeze(1)  # T collapsed to 1
 
@@ -68,7 +71,8 @@ class GroupedClassifierHead(nn.Module):
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        x = dropout(F.relu(self.conv1(x)), self.drop_rate, train, generator)
+        x = dropout(F.relu(self.conv1(x)), self.drop_rate, train, generator,
+                    rank_rows(2))
         x = F.relu(self.conv2(x))
         return self.conv3(x).squeeze(1)  # T collapsed to 1
 

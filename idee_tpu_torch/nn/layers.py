@@ -23,6 +23,12 @@ float32 and are cast to the compute dtype where they are used. A module
 computes in its ``dtype``, float32 unless the model passes
 ``compute_dtype(cfg)`` (models/vq_model.py), which it always does.
 ``GroupedLayerNorm3d`` keeps the JAX package's bf16 roundings.
+
+Under the ``space`` axis (parallel/spatial.py) the convolutions pad H
+with the neighbouring ranks' rows (``halo_pad_h``: zeros or replicated
+rows at the global edges only; D and W pad locally), and dropout draws
+its mask at the global shape and keeps the rank's rows (``rows``), so a
+rank draws what the single-device run draws there.
 """
 # ------------------------------------------------------------------
 
@@ -33,6 +39,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from idee_tpu_torch.parallel import spatial
 
 Init = Callable[[torch.Tensor, Optional[torch.Generator]], None]
 
@@ -75,13 +83,30 @@ def flax_default_init(fan_in: int) -> Init:
     return trunc_normal_init(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
 
+def rank_rows(dim: int) -> Optional[Tuple[int, int, int]]:
+    """``dropout``'s ``rows`` for a tensor whose ``dim`` is the rank's H
+    rows under the space axis: (dim, global H, first row); None without
+    one."""
+    ctx = spatial.active()
+    return None if ctx is None else (dim, ctx.H, ctx.lo)
+
+
 def dropout(x, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None):
-    """Elementwise dropout drawing its mask from ``generator``."""
+            generator: Optional[torch.Generator] = None,
+            rows: Optional[Tuple[int, int, int]] = None):
+    """Elementwise dropout drawing its mask from ``generator``. ``rows``
+    (dim, total, lo): ``x`` holds rows [lo, lo + x.shape[dim]) of an axis
+    of ``total``; the mask is drawn at that global shape and cut to them
+    (the space axis: the single-device draws)."""
     if rate == 0.0 or not train:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if rows is not None:
+        shape[rows[0]] = rows[1]
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if rows is not None:
+        mask = mask.narrow(rows[0], rows[2], x.shape[rows[0]])
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -124,9 +149,24 @@ def checkpointed(block, x, train: bool = False,
     return checkpoint(run, x, use_reentrant=False)
 
 
+def check_h_conv(k: int, stride: int, lo: int, hi: int, what: str) -> None:
+    """Under the space axis a convolution keeps H row for row: stride 1
+    and ``lo + hi`` halo rows for a kernel of ``k`` rows (dilated)."""
+    if spatial.active() is not None and (stride != 1 or lo + hi != k - 1):
+        raise ValueError(
+            f"{what}: kernel {k} rows, stride {stride}, H padding "
+            f"({lo}, {hi}) under the space axis: only an H that keeps its "
+            "rows (stride 1, 'same' padding) splits over ranks")
+
+
 def _pad_channels_first(x, padding, mode: str):
-    """x [N, C, D, H, W]; padding ((dlo, dhi), (hlo, hhi), (wlo, whi))."""
+    """x [N, C, D, H, W]; padding ((dlo, dhi), (hlo, hhi), (wlo, whi)).
+    Under the space axis H takes the neighbours' rows (halo_pad_h)."""
     (dl, dh), (hl, hh), (wl, wh) = (tuple(p) for p in padding)
+    mode = "replicate" if mode == "replicate" else "zeros"
+    if spatial.active() is not None:
+        x = spatial.halo_pad_h(x, 3, hl, hh, mode)
+        hl = hh = 0
     pad = (wl, wh, hl, hh, dl, dh)
     if not any(pad):
         return x
@@ -165,6 +205,7 @@ class GroupedConv3d(nn.Module):
     def forward(self, x):
         V, kd, kh, kw, cin, cout = self.kernel.shape
         dt = self.dtype
+        check_h_conv(kh, self.strides[1], *self.padding[1], "GroupedConv3d")
         xc = _pad_channels_first(x.to(dt).permute(0, 4, 1, 2, 3),
                                  self.padding, self.padding_mode)
         # [V, kd, kh, kw, Cin, Cout] -> grouped-conv weight [V*Cout, Cin, ...]
@@ -338,17 +379,25 @@ class Conv(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
 
-    def _pads(self, spatial):
+    def _pads(self, sizes):
         if self.padding == "SAME":
             return [same_padding(n, k, s, d) for n, k, s, d in zip(
-                spatial, self.kernel_size, self.strides, self.dilation)]
+                sizes, self.kernel_size, self.strides, self.dilation)]
         return [tuple(p) for p in self.padding]
 
     def forward(self, x):
         nd, dt = len(self.kernel_size), self.dtype
         xc = x.to(dt).movedim(-1, 1)
-        pad = [p for lo_hi in reversed(self._pads(x.shape[1:-1]))
-               for p in lo_hi]
+        pads = self._pads(x.shape[1:-1])
+        if spatial.active() is not None and nd >= 2:
+            # H, the second-to-last spatial dim, takes the neighbours'
+            # rows
+            h = nd - 2
+            check_h_conv((self.kernel_size[h] - 1) * self.dilation[h] + 1,
+                         self.strides[h], *pads[h], "Conv")
+            xc = spatial.halo_pad_h(xc, 2 + h, *pads[h])
+            pads[h] = (0, 0)
+        pad = [p for lo_hi in reversed(pads) for p in lo_hi]
         if any(pad):
             xc = F.pad(xc, pad)
         b = self.bias.to(dt) if self.bias is not None else None

@@ -11,6 +11,12 @@ kernel of kernels/selective_scan.py; a larger d_state goes through its
 linear-scan kernel. ``dtype`` is the compute dtype of the projections, the
 conv and the norms (nn/layers.py); the scan takes float32 inputs whatever
 it is, as in the JAX package.
+
+Under the ``space`` axis (parallel/spatial.py) a block holds the rank's H
+rows, which start on a window row: the window geometry is the global
+grid's, the last rank alone pads H to a window multiple, the cyclic
+shift of H is a ring exchange (``roll_h``), and the scan runs over the
+rank's windows.
 """
 # ------------------------------------------------------------------
 
@@ -28,9 +34,11 @@ from idee_tpu_torch.nn.cnn3d import (GroupedProjHead, pack_variables,
                                      unpack_variables)
 from idee_tpu_torch.nn.layers import (GroupedDense, GroupedLayerNorm3d, Init,
                                       checkpointed, drop_path, dropout,
-                                      lecun_normal_init, reference_init)
-from idee_tpu_torch.nn.swin3d import (PackedPatchEmbed3D, get_window_size,
-                                      window_partition, window_reverse)
+                                      rank_rows, lecun_normal_init,
+                                      reference_init)
+from idee_tpu_torch.nn.swin3d import (PackedPatchEmbed3D, cyclic_shift,
+                                      window_geometry, window_partition,
+                                      window_reverse)
 
 
 def selective_scan(u, delta, A, B, C, D, z):
@@ -185,31 +193,30 @@ class PackedMambaBlock(nn.Module):
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         B, D, H, W, _ = x.shape
-        ws, ss = get_window_size((D, H, W), self.window_size,
-                                 self.shift_size)
+        ws, ss, pad, Hp_global = window_geometry(
+            (D, H, W), self.window_size, self.shift_size)
 
         shortcut = x
         y = self.norm1(x)
-        pad = [(ws[i] - s % ws[i]) % ws[i] for i, s in enumerate((D, H, W))]
         if any(pad):
             y = F.pad(y, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
         _, Dp, Hp, Wp, _ = y.shape
 
         shifted = any(s > 0 for s in ss)
         if shifted:
-            y = torch.roll(y, shifts=(-ss[0], -ss[1], -ss[2]), dims=(1, 2, 3))
+            y = cyclic_shift(y, [-s for s in ss], Hp_global)
         windows = self.ssm(window_partition(y, ws))
         y = window_reverse(windows, ws, B, Dp, Hp, Wp)
         if shifted:
-            y = torch.roll(y, shifts=ss, dims=(1, 2, 3))
+            y = cyclic_shift(y, ss, Hp_global)
         if any(pad):
             y = y[:, :D, :H, :W, :]
 
         x = shortcut + drop_path(y, self.drop_path, train, generator)
 
         z = F.gelu(self.mlp_fc1(self.norm2(x)))
-        z = dropout(z, self.drop, train, generator)
-        z = dropout(self.mlp_fc2(z), self.drop, train, generator)
+        z = dropout(z, self.drop, train, generator, rank_rows(2))
+        z = dropout(self.mlp_fc2(z), self.drop, train, generator, rank_rows(2))
         return x + drop_path(z, self.drop_path, train, generator)
 
 

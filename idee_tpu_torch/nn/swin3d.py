@@ -20,6 +20,14 @@ and Swin_3D take that input geometry ``input_size`` (D, H, W) when they
 are built and make the table at the shrunk window; without one they
 build at the configured window. A forward whose shrunk window differs
 from the built one raises, as JAX's apply would on the parameter shapes.
+
+Under the ``space`` axis (parallel/spatial.py) a block holds the rank's H
+rows, which start on a window row (``window_geometry``): the window, the
+shift and the shifted-window mask are the global grid's (the mask's
+window index cut to the rank's window rows), the last rank alone pads H,
+the cyclic shift of H is a ring exchange (``cyclic_shift``), the
+attention kernels run on the rank's windows, and dropout in the window
+layout draws the global windows' mask and keeps the rank's.
 """
 # ------------------------------------------------------------------
 
@@ -38,7 +46,9 @@ from idee_tpu_torch.nn.cnn3d import (GroupedProjHead, pack_variables,
 from idee_tpu_torch.nn.layers import (Conv, GroupedConv3d, GroupedDense,
                                       GroupedLayerNorm3d, Init, LayerNorm,
                                       checkpointed, drop_path, dropout,
-                                      reference_init, trunc_normal_init)
+                                      rank_rows, reference_init,
+                                      trunc_normal_init)
+from idee_tpu_torch.parallel import spatial
 
 
 def get_window_size(x_size, window_size, shift_size=None):
@@ -54,6 +64,40 @@ def get_window_size(x_size, window_size, shift_size=None):
     if shift_size is None:
         return tuple(use_ws)
     return tuple(use_ws), tuple(use_ss)
+
+
+def window_geometry(size, window_size, shift_size):
+    """(ws, ss, pad, Hp) of a windowed block's input of (D, H, W) ``size``:
+    the window and shift shrunk to the input (``get_window_size``), the
+    end padding of D, H and W to window multiples, and the padded H. Under
+    the space axis ``size`` holds the rank's rows: the window, shift and
+    ``Hp`` are the global grid's, only the last rank pads H, and raises
+    (on every rank) unless every rank's rows start on a window row."""
+    D, H, W = size
+    ctx = spatial.active()
+    Hg = H if ctx is None else ctx.H
+    ws, ss = get_window_size((D, Hg, W), window_size, shift_size)
+    pad = [(ws[i] - s % ws[i]) % ws[i] for i, s in enumerate((D, Hg, W))]
+    Hp = Hg + pad[1]
+    if ctx is not None:
+        if H != ctx.rows or any(lo % ws[1] for lo, _ in ctx.splits):
+            raise ValueError(
+                f"the rank's rows [{ctx.lo}, {ctx.hi}) of H {Hg} ({H} in "
+                f"the input) do not start on a row of windows {ws} "
+                f"(H over {ctx.S} ranks of the space axis: "
+                f"{list(ctx.splits)})")
+        if not ctx.last:
+            pad[1] = 0
+    return ws, ss, pad, Hp
+
+
+def cyclic_shift(x, shifts, Hp: int):
+    """``torch.roll`` of [B, D, H, W, C] by ``shifts`` over (D, H, W); H,
+    of ``Hp`` rows in all, by a ring exchange under the space axis."""
+    if spatial.active() is None:
+        return torch.roll(x, shifts=tuple(shifts), dims=(1, 2, 3))
+    x = torch.roll(x, shifts=(shifts[0], shifts[2]), dims=(1, 3))
+    return spatial.roll_h(x, 2, shifts[1], Hp)
 
 
 def window_partition(x, ws):
@@ -113,12 +157,16 @@ def compute_shift_mask(Dp: int, Hp: int, Wp: int, ws, ss
     x = img.reshape(B, D // ws[0], ws[0], H // ws[1], ws[1], W // ws[2],
                     ws[2], C)
     x = x.transpose(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, math.prod(ws))
-    mask = x[:, None, :] - x[:, :, None]
+    # the windows' label rows deduplicated first: n labels a window, not
+    # its n x n mask (at 512x832 the dense masks are 436 MB)
+    labels, of_window = np.unique(x, axis=0, return_inverse=True)
+    mask = labels[:, None, :] - labels[:, :, None]
     mask = np.where(mask != 0, -100.0, 0.0).astype(np.float32)
     n = mask.shape[-1]
-    bank, idx = np.unique(mask.reshape(mask.shape[0], -1), axis=0,
-                          return_inverse=True)
-    return bank.reshape(-1, n, n), idx.astype(np.int32).reshape(-1)
+    bank, of_label = np.unique(mask.reshape(mask.shape[0], -1), axis=0,
+                               return_inverse=True)
+    idx = of_label.reshape(-1)[of_window.reshape(-1)]
+    return bank.reshape(-1, n, n), idx.astype(np.int32)
 
 
 def mask_bank_to_full(mask):
@@ -131,15 +179,23 @@ def mask_bank_to_full(mask):
 
 
 @functools.lru_cache(maxsize=None)
-def shift_mask_on(Dp: int, Hp: int, Wp: int, ws, ss, device: str):
+def shift_mask_on(Dp: int, Hp: int, Wp: int, ws, ss, device: str,
+                  rows: Optional[Tuple[int, int]] = None):
     """compute_shift_mask's (bank, idx) as tensors on ``device``, made and
     copied to it once per geometry (outside inference mode, so a first call
-    under evaluation leaves tensors that training can save for backward)."""
+    under evaluation leaves tensors that training can save for backward).
+    ``rows`` (a, b): idx of the window rows [a, b) only (a rank's windows
+    under the space axis; ``Hp`` the global grid's)."""
     parts = compute_shift_mask(Dp, Hp, Wp, ws, ss)
     if parts is None:
         return None
+    bank, idx = parts
+    if rows is not None:
+        idx = idx.reshape(Dp // ws[0], Hp // ws[1], Wp // ws[2])[
+            :, rows[0]:rows[1]].reshape(-1)
     with torch.inference_mode(False):
-        return tuple(torch.from_numpy(a).to(device) for a in parts)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (bank, idx))
 
 
 @functools.lru_cache(maxsize=None)
@@ -292,8 +348,20 @@ class PackedWindowAttention3D(nn.Module):
         self.proj = GroupedDense(V, C, C, kernel_init=kernel_init,
                                  generator=generator, dtype=dtype)
 
+    @staticmethod
+    def _dropout(t, rate, train, generator, grid):
+        """dropout of [B_, ...] windows; ``grid`` (B, nD, nH, nW, a):
+        the rank's windows are rows [a, a + their count) of the ``nH``
+        window rows of the global grid (space axis)."""
+        if grid is None:
+            return dropout(t, rate, train, generator)
+        B, nD, nH, nW, a = grid
+        v = t.reshape(B, nD, -1, nW, *t.shape[1:])
+        return dropout(v, rate, train, generator,
+                       (2, nH, a)).reshape(t.shape)
+
     def forward(self, x, mask=None, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, grid=None):
         B_, n, VC = x.shape
         V, h = self.n_groups, self.num_heads
         hd = VC // V // h
@@ -316,15 +384,15 @@ class PackedWindowAttention3D(nn.Module):
                 nW = full.shape[0]
                 attn = (attn.reshape(B_ // nW, nW, V * h, n, n)
                         + full[None, :, None]).reshape(B_, V * h, n, n)
-            attn = dropout(torch.softmax(attn, dim=-1), self.attn_drop,
-                           train, generator)
+            attn = self._dropout(torch.softmax(attn, dim=-1),
+                                 self.attn_drop, train, generator, grid)
             out = torch.einsum("bgnm,bmgd->bngd", attn, v)
         else:
             # q, k, v in the compute dtype, the bias float32 (gathered from
             # the float32 table): the kernels of that dtype
             out = window_attention(q, k, v, bias, mask, self.scale)
         out = self.proj(out.reshape(B_, n, VC))
-        return dropout(out, self.proj_drop, train, generator)
+        return self._dropout(out, self.proj_drop, train, generator, grid)
 
 
 class PackedSwinBlock3D(nn.Module):
@@ -365,39 +433,50 @@ class PackedSwinBlock3D(nn.Module):
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         B, D, H, W, _ = x.shape
-        ws, ss = get_window_size((D, H, W), self.window_size,
-                                 self.shift_size)
+        ws, ss, pad, Hp_global = window_geometry(
+            (D, H, W), self.window_size, self.shift_size)
         if ws != self.attn.window_size:
+            ctx = spatial.active()
+            size = (D, H if ctx is None else ctx.H, W)
             raise ValueError(
-                f"input {(D, H, W)} shrinks the window {self.window_size} "
+                f"input {size} shrinks the window {self.window_size} "
                 f"to {ws}, but the block was built for "
                 f"{self.attn.window_size}: build it with input_size="
-                f"{(D, H, W)}")
+                f"{size}")
 
         shortcut = x
         y = self.norm1(x)
-        pad = [(ws[i] - s % ws[i]) % ws[i] for i, s in enumerate((D, H, W))]
         if any(pad):
             y = F.pad(y, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
         _, Dp, Hp, Wp, _ = y.shape
 
+        ctx = spatial.active()
+        # under the space axis: the rank's window rows [a, a + Hp / wh)
+        # of the global grid's Hp_global / wh
+        grid = None if ctx is None else (
+            B, Dp // ws[0], Hp_global // ws[1], Wp // ws[2],
+            ctx.lo // ws[1])
         shifted = any(s > 0 for s in ss)
         mask = None
         if shifted:
-            y = torch.roll(y, shifts=(-ss[0], -ss[1], -ss[2]), dims=(1, 2, 3))
-            mask = shift_mask_on(Dp, Hp, Wp, ws, ss, str(y.device))
-        windows = self.attn(window_partition(y, ws), mask, train, generator)
+            y = cyclic_shift(y, [-s for s in ss], Hp_global)
+            rows = None if ctx is None else (grid[4],
+                                             grid[4] + Hp // ws[1])
+            mask = shift_mask_on(Dp, Hp_global, Wp, ws, ss, str(y.device),
+                                 rows)
+        windows = self.attn(window_partition(y, ws), mask, train, generator,
+                            grid)
         y = window_reverse(windows, ws, B, Dp, Hp, Wp)
         if shifted:
-            y = torch.roll(y, shifts=ss, dims=(1, 2, 3))
+            y = cyclic_shift(y, ss, Hp_global)
         if any(pad):
             y = y[:, :D, :H, :W, :]
 
         x = shortcut + drop_path(y, self.drop_path, train, generator)
 
         z = F.gelu(self.mlp_fc1(self.norm2(x)))
-        z = dropout(z, self.drop, train, generator)
-        z = dropout(self.mlp_fc2(z), self.drop, train, generator)
+        z = dropout(z, self.drop, train, generator, rank_rows(2))
+        z = dropout(self.mlp_fc2(z), self.drop, train, generator, rank_rows(2))
         return x + drop_path(z, self.drop_path, train, generator)
 
 

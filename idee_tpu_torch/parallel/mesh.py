@@ -1,6 +1,7 @@
 # ------------------------------------------------------------------
-"""Data parallelism over several GPUs (counterpart of
-idee_tpu/parallel/mesh.py:19-38, the ``data`` axis).
+"""Data and spatial parallelism over several GPUs (counterpart of
+idee_tpu/parallel/mesh.py: the ``data`` axis, :19-38, and the ``space``
+axis, :46-76).
 
 JAX shards the global batch over the mesh's ``data`` axis and lets GSPMD
 insert the collectives, so its sharded step computes the update of the
@@ -46,16 +47,30 @@ in a CUDA graph and gloo cannot (``check_fused_epochs``). None of the
 helpers reads a value back to the host or sizes a tensor from one, so a
 replay repeats exactly the collectives of its capture.
 
+The ``space`` axis: ``mesh_shape [D, S]`` over ``mesh_axes ["data",
+"space"]`` (rank ``d * S + s``, the row-major order of JAX's make_mesh)
+splits each sample's H over the S ranks of its data index ``d``
+(``Mesh.h_rows``), as JAX's ``spatial_sharding`` does. Where JAX's
+spatial partitioner inserts the halo exchanges, the port's modules call
+parallel/spatial.py's explicit ones over the rank's space group. A rank
+holds its data rows' batch rows and its H rows of every leaf, so the
+shares of the ranks are unequal where H does not split evenly: every
+batch mean is then the global sum over the global count (``batch_mean``,
+``grad_batch_mean``). The S ranks of one data index draw the same
+dropout and drop-path values: their generators start from the data
+coordinate (``seed``) and each draws at the global shape, keeping its
+rows (nn/layers.py).
+
 Without a mesh nothing here runs: every module-level helper returns its
 input, so the single-device path starts no process group and makes no
-collective call. The ``space`` axis (spatial sharding) is not ported.
+collective call.
 """
 # ------------------------------------------------------------------
 
 import math
 import os
 from dataclasses import dataclass
-from typing import Iterable, Optional, Sequence
+from typing import Any, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,36 +84,78 @@ _ACTIVE: Optional["Mesh"] = None
 
 @dataclass
 class Mesh:
-    """This process's place on the ``data`` axis: its rank, the world
-    size and its device."""
+    """This process's place on the mesh: its rank, the world size, its
+    device, and with a ``space`` axis of ``space`` ranks the process group
+    of its space row (the ranks of its data index)."""
 
     rank: int
     world: int
     device: torch.device
     started: bool = False  # make_mesh started the process group
     backend: str = "gloo"
+    space: int = 1
+    space_group: Any = None  # None at space 1
 
     @property
     def is_main(self) -> bool:
         """Rank 0, the one rank that writes files."""
         return self.rank == 0
 
+    @property
+    def data(self) -> int:
+        """The ``data`` axis's size."""
+        return self.world // self.space
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.space
+
+    @property
+    def space_rank(self) -> int:
+        return self.rank % self.space
+
+    @property
+    def space_ranks(self) -> Tuple[int, ...]:
+        """The global ranks of this rank's space row, in space order."""
+        first = self.data_rank * self.space
+        return tuple(range(first, first + self.space))
+
     def rows(self, n: int) -> slice:
-        """The rank's rows of a global batch of ``n``."""
-        if n % self.world:
+        """The rank's rows of a global batch of ``n`` (its data index's)."""
+        if n % self.data:
             raise ValueError(f"a global batch of {n} does not split over "
-                             f"{self.world} ranks")
-        b = n // self.world
-        return slice(self.rank * b, (self.rank + 1) * b)
+                             f"{self.data} ranks of the data axis")
+        b = n // self.data
+        return slice(self.data_rank * b, (self.data_rank + 1) * b)
+
+    def h_rows(self, H: int, align: int = 1) -> Tuple[int, int]:
+        """The rank's global rows [lo, hi) of an H of ``H`` on the space
+        axis: split on multiples of ``align`` (the model's window height,
+        ``spatial.model_row_align``), as evenly as ``align`` allows, the first
+        ranks taking the extra blocks (200 rows at S=4, align 4: 52, 52,
+        48, 48); the last rank ends at H (a partial block, which the
+        windowed blocks pad). Raises when H has fewer blocks than
+        ranks."""
+        S, s = self.space, self.space_rank
+        blocks = -(-H // align)
+        if blocks < S:
+            raise ValueError(
+                f"H {H} holds {blocks} rows of {align} (the window height) "
+                f"and cannot split over {S} ranks of the space axis")
+        base, extra = divmod(blocks, S)
+        lo = s * base + min(s, extra)
+        hi = lo + base + (s < extra)
+        return lo * align, min(hi * align, H)
 
     def seed(self, seed: int, step: int = 0) -> int:
-        """The seed of the rank's generator: ``seed`` itself on rank 0 at
-        step 0, else a draw of numpy's SeedSequence over (seed, rank,
-        step)."""
-        if self.rank == 0 and step == 0:
+        """The seed of the rank's generator: ``seed`` itself on data index
+        0 at step 0, else a draw of numpy's SeedSequence over (seed, data
+        index, step). The S ranks of a data index share it."""
+        d = self.data_rank
+        if d == 0 and step == 0:
             return seed
         return int(np.random.SeedSequence(
-            [seed, self.rank, step]).generate_state(1)[0])
+            [seed, d, step]).generate_state(1)[0])
 
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks, in place (no gradient)."""
@@ -120,6 +177,16 @@ class Mesh:
         """``t`` replaced by rank ``src``'s, in place."""
         dist.broadcast(t, src)
         return t
+
+    def sync_generator(self, generator: torch.Generator) -> None:
+        """Every rank of the space row takes the state of its first rank's
+        ``generator`` (the identity at space 1)."""
+        if self.space == 1:
+            return
+        state = generator.get_state()
+        t = state.to(self.device) if self.backend == "nccl" else state
+        dist.broadcast(t, self.space_ranks[0], group=self.space_group)
+        generator.set_state(t.cpu())
 
     def broadcast_module(self, module: torch.nn.Module) -> None:
         """Every parameter and buffer of ``module`` from rank 0."""
@@ -183,23 +250,22 @@ def _env_int(name: str, default: int) -> int:
 def make_mesh(mesh_shape: Sequence[int], mesh_axes: Sequence[str] = ("data",),
               device=None, backend: Optional[str] = None,
               init_method: str = "env://") -> Mesh:
-    """The data-parallel mesh of this process, from the torchrun
-    environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; a process
-    started without torchrun is rank 0 of 1). Starts the process group
-    once (a started one is kept): ``backend`` ``nccl`` on a card, ``gloo``
-    on the CPU, unless named. ``device``: ``cuda:LOCAL_RANK`` unless given
-    (a bare ``cuda`` also takes the local rank's card). Raises when
-    ``mesh_axes`` holds ``space`` or when ``mesh_shape`` is not the world
-    size."""
+    """The mesh of this process, from the torchrun environment (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``; a process started without torchrun is
+    rank 0 of 1): ``mesh_shape [D]`` over ``["data"]``, or ``[D, S]`` over
+    ``["data", "space"]`` (rank ``d * S + s``; one process group per space
+    row for the halo exchanges). Starts the process group once (a started
+    one is kept): ``backend`` ``nccl`` on a card, ``gloo`` on the CPU,
+    unless named (two ranks on one card need gloo). ``device``:
+    ``cuda:LOCAL_RANK`` unless given (a bare ``cuda`` also takes the local
+    rank's card). Raises on other axes or when ``mesh_shape`` is not the
+    world size."""
     global _ACTIVE
     axes = list(mesh_axes)
-    if "space" in axes:
-        raise NotImplementedError(
-            "mesh_axes 'space': spatial sharding is not ported to the "
-            "PyTorch port (ROADMAP.md, queue 1); the 'data' axis is")
-    if axes != ["data"] or len(mesh_shape) != 1:
+    if axes not in (["data"], ["data", "space"]) or \
+            len(mesh_shape) != len(axes):
         raise ValueError(f"mesh_shape {list(mesh_shape)} over axes {axes}: "
-                         "the port shards one 'data' axis")
+                         "the port shards ['data'] or ['data', 'space']")
     rank = _env_int("RANK", 0)
     world = _env_int("WORLD_SIZE", 1)
     local = _env_int("LOCAL_RANK", rank)
@@ -219,7 +285,16 @@ def make_mesh(mesh_shape: Sequence[int], mesh_axes: Sequence[str] = ("data",),
     if started:
         dist.init_process_group(backend, init_method=init_method,
                                 rank=rank, world_size=world)
-    _ACTIVE = Mesh(rank, world, dev, started, str(dist.get_backend()))
+    S = int(mesh_shape[1]) if len(axes) == 2 else 1
+    group = None
+    if S > 1:
+        # every rank makes every group, in the same order
+        for d in range(world // S):
+            g = dist.new_group(list(range(d * S, (d + 1) * S)))
+            if d == rank // S:
+                group = g
+    _ACTIVE = Mesh(rank, world, dev, started, str(dist.get_backend()), S,
+                   group)
     return _ACTIVE
 
 
@@ -261,6 +336,44 @@ def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
     return _ACTIVE.mean_(t.detach().clone())
 
 
+def _space() -> bool:
+    """A mesh with a space axis is active: the ranks' shares of a batch
+    may differ in size."""
+    return _ACTIVE is not None and _ACTIVE.space > 1
+
+
+def _global_count(n: int, device) -> torch.Tensor:
+    """The sum over the ranks of each rank's ``n`` (float32, no host
+    read)."""
+    return sum_over_ranks(torch.tensor(float(n), device=device))
+
+
+def batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t``'s entries over the global batch, as the rank's
+    share of it scaled by the world size (a loss term). Without a space
+    axis every rank holds as many entries: the local mean. Under one, the
+    rank's sum over the world's mean count."""
+    if not _space():
+        return t.mean()
+    return t.sum() / (_global_count(t.numel(), t.device) / _ACTIVE.world)
+
+
+def grad_batch_mean(*ts: torch.Tensor, dim=None) -> torch.Tensor:
+    """[len(ts)]: each ``t``'s mean over ``dim`` (None: all its entries)
+    across the global batch, the same on every rank and differentiable (the
+    backward sums the ranks' gradients): a batch statistic of a term that
+    is not linear in it (the codebook entropy). Without a space axis the
+    ranks' means averaged (equal shares); under one, the global sums over
+    the global count."""
+    if not _space():
+        return grad_mean_over_ranks(torch.stack([t.mean(dim) for t in ts]))
+    from torch.distributed.nn.functional import all_reduce
+
+    n = ts[0].numel() if dim is None else ts[0].shape[dim]
+    return all_reduce(torch.stack([t.sum(dim) for t in ts])) / \
+        _global_count(n, ts[0].device)
+
+
 def grad_mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
     """``t`` averaged over the ranks, differentiably (the backward sums
     the ranks' gradients): a batch mean of the global batch from the
@@ -282,10 +395,11 @@ def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
     return _ACTIVE.broadcast_(t.clone(), src)
 
 
-def rank_offset(n_local: int) -> int:
-    """The global index of the rank's first row when each rank holds
-    ``n_local`` rows in rank order."""
-    return 0 if _ACTIVE is None else _ACTIVE.rank * n_local
+def data_rows(n_local: int) -> slice:
+    """The global batch rows of the rank's ``n_local`` (its data index's
+    share)."""
+    d = 0 if _ACTIVE is None else _ACTIVE.data_rank
+    return slice(d * n_local, (d + 1) * n_local)
 
 
 def average_gradients(params: Iterable[torch.nn.Parameter]) -> None:

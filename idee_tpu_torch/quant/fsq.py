@@ -9,7 +9,7 @@ common return carries aux_loss = 0. The quantizer runs in float32.
 """
 # ------------------------------------------------------------------
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,7 +98,8 @@ class FSQ(nn.Module):
         return codes
 
     def forward(self, x, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> LFQReturn:
+                generator: Optional[torch.Generator] = None,
+                grid: Optional[Tuple[int, int]] = None) -> LFQReturn:
         x = x.float()
         if x.shape[-1] != self.out_dim:
             raise ValueError(f"expected dim {self.out_dim}, got "

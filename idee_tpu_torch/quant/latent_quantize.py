@@ -15,13 +15,14 @@ semantics once the values move), not the reference's truncation.
 """
 # ------------------------------------------------------------------
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from idee_tpu_torch.nn.layers import reference_init
+from idee_tpu_torch.parallel.mesh import batch_mean
 from idee_tpu_torch.quant.fsq import mixed_radix_basis
 from idee_tpu_torch.quant.lfq import LFQReturn, zero_loss, projection
 
@@ -125,7 +126,8 @@ class LatentQuantize(nn.Module):
         return codes
 
     def forward(self, x, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> LFQReturn:
+                generator: Optional[torch.Generator] = None,
+                grid: Optional[Tuple[int, int]] = None) -> LFQReturn:
         x = x.float()
         if x.shape[-1] != self.out_dim:
             raise ValueError(f"expected dim {self.out_dim}, got "
@@ -144,8 +146,8 @@ class LatentQuantize(nn.Module):
             indices = indices[..., 0]
         if train:
             # both against the original input (LatentQuantize.py:286-293)
-            commit = torch.mean((original.detach() - out) ** 2)
-            quant = torch.mean((original - out.detach()) ** 2)
+            commit = batch_mean((original.detach() - out) ** 2)
+            quant = batch_mean((original - out.detach()) ** 2)
             loss = (self.commitment_loss_weight * commit
                     + self.quantization_loss_weight * quant)
         else:

@@ -7,8 +7,9 @@ straight-through estimator; the bit-packed sign pattern (MSB first) is the
 code index. With the default codebook_size=2 the 16-dim feature of each
 (variable, time, pixel) is projected to one scalar s, and sign(s) is the
 code: the index in {0, 1} is the anomaly bit. The quantizer runs in
-float32. Under data parallelism (parallel/mesh.py) the codebook
-entropy is the global batch's.
+float32. Under data and spatial parallelism (parallel/mesh.py) the
+codebook entropy is the global batch's, and every batch mean the global
+sum over the global count.
 
 Two paths: ``forward`` over tokens [B, N, dim] for any power-of-two
 codebook_size (the generic VQModel path), and ``quantize_packed``, the
@@ -22,13 +23,13 @@ exactly where the JAX package stops its gradient: in ``out_proj_params``.
 # ------------------------------------------------------------------
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from idee_tpu_torch.nn.layers import Init, flax_default_init
-from idee_tpu_torch.parallel.mesh import grad_mean_over_ranks
+from idee_tpu_torch.parallel.mesh import batch_mean, grad_batch_mean
 
 
 class LFQReturn(NamedTuple):
@@ -139,11 +140,13 @@ class LFQ(nn.Module):
         return codes
 
     def forward(self, x, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> LFQReturn:
+                generator: Optional[torch.Generator] = None,
+                grid: Optional[Tuple[int, int]] = None) -> LFQReturn:
         """x [B, N, dim] -> (quantized [B, N, dim], indices [B, N] (or [B,
         N, num_codebooks]), aux_loss); any codebook_size
-        (idee_tpu/quant/lfq.py::LFQ.__call__). No randomness: ``generator``
-        is accepted for the quantizers' common signature."""
+        (idee_tpu/quant/lfq.py::LFQ.__call__). No randomness and no rows
+        read: ``generator`` and ``grid`` are accepted for the quantizers'
+        common signature."""
         x = x.float()
         if x.shape[-1] != self.dim:
             raise ValueError(f"expected dim {self.dim}, got {x.shape[-1]}")
@@ -164,11 +167,11 @@ class LFQ(nn.Module):
                                         self._codebook())
             prob = torch.softmax(logits * self.inv_temperature, dim=-1)
             flat = prob.reshape(-1, c, self.codebook_size)
-            per_sample_entropy = _entropy(flat).mean()
-            # the batch mean over the global batch under data parallelism
-            codebook_entropy = _entropy(grad_mean_over_ranks(
-                flat.mean(0))).mean()
-            commit = torch.mean((original - quantized.detach()) ** 2)
+            per_sample_entropy = batch_mean(_entropy(flat))
+            # the batch mean over the global batch under a mesh
+            codebook_entropy = _entropy(grad_batch_mean(flat, dim=0)[0]
+                                        ).mean()
+            commit = batch_mean((original - quantized.detach()) ** 2)
             aux = (commit * self.commitment_loss_weight
                    + self.entropy_loss_weight * per_sample_entropy
                    - self.diversity_gamma * codebook_entropy)
@@ -222,14 +225,13 @@ class LFQ(nn.Module):
             # logit difference
             p1 = torch.sigmoid(4.0 * scale * self.inv_temperature * s)
             p0 = 1.0 - p1
-            per_sample_entropy = torch.mean(-p0 * _log(p0) - p1 * _log(p1))
-            # the global batch's means under data parallelism
-            q0, q1 = grad_mean_over_ranks(
-                torch.stack([p0.mean(), p1.mean()])).unbind()
+            per_sample_entropy = batch_mean(-p0 * _log(p0) - p1 * _log(p1))
+            # the global batch's means under a mesh
+            q0, q1 = grad_batch_mean(p0, p1).unbind()
             codebook_entropy = -q0 * _log(q0) - q1 * _log(q1)
             entropy_aux = (self.entropy_loss_weight * per_sample_entropy
                            - self.diversity_gamma * codebook_entropy)
-            commit = torch.mean((s - q.detach()) ** 2)
+            commit = batch_mean((s - q.detach()) ** 2)
             aux = commit * self.commitment_loss_weight + entropy_aux
         else:
             aux = zero_loss(s.device)

@@ -9,7 +9,7 @@ its LayerNorm outside ``setup`` and raises in flax, so it is left out.
 """
 # ------------------------------------------------------------------
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -43,10 +43,13 @@ class Random_VQ(nn.Module):
         return self.vq.indices_to_codes(indices, project_out=project_out)
 
     def forward(self, x, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> LFQReturn:
+                generator: Optional[torch.Generator] = None,
+                grid: Optional[Tuple[int, int]] = None) -> LFQReturn:
+        """``grid``: the tokens' layout around H, as VQ takes it."""
         x = x.float()
         # [B, N, D] x [H, D, E] -> [B, N, H*E] (reference: Random_VQ.py:67)
         z = torch.einsum("bnd,hde->bnhe", x, self.rand_projs)
         z = z.reshape(x.shape[0], x.shape[1], -1)
-        out, indices, _ = self.vq(z, train=train, generator=generator)
+        out, indices, _ = self.vq(z, train=train, generator=generator,
+                                  grid=grid)
         return LFQReturn(out.detach(), indices, zero_loss(x.device))

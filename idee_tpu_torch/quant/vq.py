@@ -39,21 +39,25 @@ mask over the ranks, and rows sampled from the batch (the k-means seeds,
 the dead-code replacements) are drawn by rank 0 over the global batch's
 tokens, broadcast, and gathered from the rank that holds each
 (``_sample_rows``): every rank ends the step with the world-1 codebook
-state. Without a mesh the sum is the identity.
+state. Under the space axis a rank holds its H rows of its data rows'
+tokens: the caller passes the tokens' ``grid`` around H, from which a
+global token index finds its rank (parallel/spatial.py::token_rows).
+Without a mesh the sum is the identity.
 
 Not carried over, as in the JAX package: the cross-entropy-on-passed-
 indices path (VQ.py:994-1013) and in-place codebook optimizers.
 """
 # ------------------------------------------------------------------
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from idee_tpu_torch.nn.layers import reference_init
-from idee_tpu_torch.parallel.mesh import (broadcast, rank_offset,
+from idee_tpu_torch.parallel import spatial
+from idee_tpu_torch.parallel.mesh import (batch_mean, broadcast, data_rows,
                                           sum_over_ranks, world_size)
 from idee_tpu_torch.quant.lfq import LFQReturn, zero_loss, projection
 
@@ -186,16 +190,18 @@ class VQ(nn.Module):
         device."""
         return sum_over_ranks(t)
 
-    def _sample_rows(self, z, idx):
+    def _sample_rows(self, z, idx, rows=None):
         """z[h, idx[h, k]] of the global batch's tokens, ``idx`` [H, K]
-        global token indices (each rank holds z [H, M, D], its M tokens in
-        rank order): the rank that holds a row gives it, the others 0."""
+        global token indices; each rank holds z [H, M, D], the tokens of
+        its ``rows`` (B, outer, h, inner): its B batch rows' tokens laid
+        out [outer, h, inner], h its rows of H (all of them without the
+        space axis). The rank that holds a row gives it, the others 0."""
         if world_size() == 1:
             return gather_rows(z, idx)
-        M = z.shape[1]
-        local = idx - rank_offset(M)
-        own = (local >= 0) & (local < M)
-        rows = gather_rows(z, local.clamp(0, M - 1)) * own[..., None]
+        B, outer, h, inner = rows
+        local, own = spatial.token_rows(idx, outer, h, inner, B,
+                                        data_rows(B).start)
+        rows = gather_rows(z, local) * own[..., None]
         return sum_over_ranks(rows)
 
     def draw(self, generator: Optional[torch.Generator], M: int,
@@ -233,12 +239,12 @@ class VQ(nn.Module):
         return cdist(z, means).argmin(-1)
 
     @torch.no_grad()
-    def kmeans(self, z, idx):
+    def kmeans(self, z, idx, rows=None):
         """Lloyd's k-means with ``kmeans_iters`` fixed iterations from the
         seed rows z[h, idx[h]]: z [H, M, D], idx [H, K] -> (means [H, K, D],
         bins [H, K]) (reference: VQ.py:213-253)."""
         K = self.codebook_size
-        means = self._sample_rows(z, idx)
+        means = self._sample_rows(z, idx, rows)
         for _ in range(self.kmeans_iters):
             onehot = F.one_hot(self._assign(z, means), K).float()
             bins = self._all_reduce(onehot.sum(1))                   # [H, K]
@@ -261,11 +267,14 @@ class VQ(nn.Module):
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[Dict[str, torch.Tensor]] = None
-                ) -> LFQReturn:
+                draws: Optional[Dict[str, torch.Tensor]] = None,
+                grid: Optional[Tuple[int, int]] = None) -> LFQReturn:
         """x [B, N, dim]; with ``train`` the codebook state moves (EMA,
         k-means init, expiry) and the loss is returned. ``draws`` replaces
-        ``draw(generator, ...)``'s values."""
+        ``draw(generator, ...)``'s values. ``grid`` (outer, inner): each
+        sample's N tokens laid out [outer, H, inner] (needed under the
+        space axis, where x holds the rank's H rows; without it the N
+        tokens are one row)."""
         x = x.float()
         if x.shape[-1] != self.dim:
             raise ValueError(f"expected dim {self.dim}, got {x.shape[-1]}")
@@ -279,9 +288,20 @@ class VQ(nn.Module):
             z = v.reshape(1, B * N * self.heads, D)
         M = z.shape[1]
         zd = z.detach()
+        ctx = spatial.active()
+        if grid is None:
+            if ctx is not None:
+                raise ValueError("VQ under the space axis needs the tokens'"
+                                 " grid around H (grid=)")
+            grid = (1, N)  # one row of N tokens
+        heads = 1 if self.separate_codebook_per_head else self.heads
+        h = N // (grid[0] * grid[1])  # the rank's rows of H
+        rows = (B, grid[0], h, grid[1] * heads)
+        M_global = (M // h * (h if ctx is None else ctx.H)
+                    * (world_size() // (1 if ctx is None else ctx.S)))
         if draws is None:
-            draws = self.draw(generator, M * world_size(), (H, M, K),
-                              z.device, train)
+            draws = self.draw(generator, M_global, (H, M, K), z.device,
+                              train)
             # rank 0's rows of the global batch (parallel/mesh.py)
             draws.update({k: broadcast(draws[k]) for k in ("kmeans",
                                                             "expire")
@@ -295,7 +315,7 @@ class VQ(nn.Module):
         # (possibly just initialised) codebook at every training step
         if self.kmeans_init and train:
             if not self._initted:
-                embed, cluster_size = self.kmeans(zd, draws["kmeans"])
+                embed, cluster_size = self.kmeans(zd, draws["kmeans"], rows)
             state = {"embed": embed, "cluster_size": cluster_size,
                      "embed_avg": embed * cluster_size[..., None],
                      "initted": torch.ones_like(self.initted)}
@@ -336,7 +356,7 @@ class VQ(nn.Module):
                 # dead-code expiry (reference: VQ.py:451-475)
                 if self.threshold_ema_dead_code > 0:
                     expired = new_cs < self.threshold_ema_dead_code  # [H, K]
-                    samples = self._sample_rows(zd, draws["expire"])
+                    samples = self._sample_rows(zd, draws["expire"], rows)
                     reset = self.reset_cluster_size
                     new_embed = torch.where(expired[..., None], samples,
                                             new_embed)
@@ -349,7 +369,7 @@ class VQ(nn.Module):
         # losses (reference: VQ.py:978-1058)
         if train:
             target = quantize if trainable else quantize.detach()
-            loss = self.commitment_weight * torch.mean((target - zq_in) ** 2)
+            loss = self.commitment_weight * batch_mean((target - zq_in) ** 2)
             if self.orthogonal_reg_weight > 0:
                 mask = ((self._all_reduce(onehot.sum(1)) > 0).float()
                         if self.orthogonal_reg_active_codes_only else None)

@@ -31,8 +31,14 @@ alone writes the log, config snapshot, checkpoints, history.json and
 TensorBoard, and every rank reads ``latest`` on resume. The fused epochs
 under a mesh capture the step's collectives in the CUDA graph, which
 needs the NCCL backend on a card (parallel/mesh.py::check_fused_epochs:
-a gloo mesh on a card raises). Not ported (ROADMAP.md): the ``space``
-axis.
+a gloo mesh on a card raises).
+
+The ``space`` axis (``mesh_shape=[D, S]``, ``mesh_axes=["data",
+"space"]`` under ``torchrun --nproc_per_node D*S``): the driver makes
+the spatial context of the dataset's H (parallel/spatial.py), each rank
+trains on its H rows of its data rows with the host loader (the device
+loaders raise), the S ranks of a data index draw the same dropout bits,
+and the image panels gather the rows of their forward to every rank.
 """
 # ------------------------------------------------------------------
 
@@ -51,6 +57,7 @@ from idee_tpu_torch.data.device import DeviceLoader
 from idee_tpu_torch.data.loader import DataLoader
 from idee_tpu_torch.data.synthetic import SyntheticCube, SyntheticDataset
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
+from idee_tpu_torch.parallel import spatial
 from idee_tpu_torch.parallel.mesh import check_fused_epochs, make_mesh
 from idee_tpu_torch.train.checkpoint import (CheckpointManager,
                                              load_pretrained_weights)
@@ -141,14 +148,26 @@ def rank_output(mesh):
 
 def join_ranks(mesh, state: TrainState, cfg: Config) -> None:
     """Under a mesh, after any restore: every rank takes rank 0's
-    parameters and buffers, and the ranks other than 0 reseed their
-    generators from (cfg.seed, rank, step) (parallel/mesh.py::Mesh.seed),
-    so no two draw the same dropout bits."""
+    parameters and buffers, the first rank of every data index but 0
+    reseeds its generator from (cfg.seed, data index, step)
+    (parallel/mesh.py::Mesh.seed), so no two data indices draw the same
+    dropout bits, and the other ranks of its space row take its
+    generator's state, so they draw the same ones."""
     if mesh is None:
         return
     mesh.broadcast_module(state.model)
-    if not mesh.is_main:
+    if mesh.space_rank == 0 and not mesh.is_main:
         state.generator.manual_seed(mesh.seed(cfg.seed, state.step))
+    mesh.sync_generator(state.generator)
+
+
+def activate_space(scope: contextlib.ExitStack, mesh, dataset,
+                   cfg: Config) -> None:
+    """Under a space axis, the spatial context of ``dataset``'s H for the
+    rest of ``scope`` (parallel/spatial.py), split on the encoder's window
+    rows: made before the loaders, which keep the rank's rows."""
+    scope.enter_context(spatial.activate(
+        mesh, dataset.input_size[1], spatial.model_row_align(cfg)))
 
 
 def epoch_metrics(mesh, metrics):
@@ -185,6 +204,10 @@ def _panels(writer, eval_step_preds, batch, metrics, variables, step: int):
     driver panel (prediction | ground truth) per variable of ``batch``
     (JAX idee_tpu/train/driver.py:315-333)."""
     _, preds = eval_step_preds(metrics, batch)
+    # under the space axis the whole H of every rank's forward
+    preds = {k: spatial.gather_h(v) for k, v in preds.items()}
+    batch = {k: spatial.gather_h(batch[k]) for k in ("mask_extreme",
+                                                     "mask_anomaly")}
     pred = preds["pred"][:, 0].float().cpu().numpy()
     pred_c = preds["pred_c"][:, 0].float().cpu().numpy()
     im_p, im_c, im_t = generate_images_synthetic(
@@ -210,14 +233,15 @@ def train_synthetic(cfg: Config,
     given = mesh
     mesh, dev = data_parallel(cfg, device, mesh)
     try:
-        with rank_output(mesh):
-            return _train_synthetic(cfg, train_cube, val_cube, dev, mesh)
+        with rank_output(mesh), contextlib.ExitStack() as scope:
+            return _train_synthetic(cfg, train_cube, val_cube, dev, mesh,
+                                    scope)
     finally:
         if mesh is not None and given is None and mesh.started:
             mesh.close()  # the process group this driver started
 
 
-def _train_synthetic(cfg, train_cube, val_cube, dev, mesh) -> Dict:
+def _train_synthetic(cfg, train_cube, val_cube, dev, mesh, scope) -> Dict:
     main = mesh is None or mesh.is_main
     logger = get_logger(cfg) if main else None
     if main:
@@ -232,6 +256,7 @@ def _train_synthetic(cfg, train_cube, val_cube, dev, mesh) -> Dict:
     # advances the augmentation RNG; drawing it here too keeps both drivers
     # on the same augmentations
     train_ds[0]
+    activate_space(scope, mesh, train_ds, cfg)
     # x in the compute dtype (the JAX driver's cast)
     if cfg.device_data:
         # the cube lives on the card; a step sends the host nothing

@@ -19,10 +19,13 @@ are train/driver.py's; the val loaders carry the sea and no-vegetation
 masks for the panels. Data parallelism (``mesh_shape`` under torchrun)
 is train/driver.py's, with any of the three loops: each rank on its rows
 of every global batch, the masked losses normalised over the global
-batch, rank 0 writing.
+batch, rank 0 writing; so is the ``space`` axis (the host loader only):
+each rank on its H rows, the valid pixels counted over the global
+batch.
 """
 # ------------------------------------------------------------------
 
+import contextlib
 import os
 import time
 from typing import Dict, Mapping, Optional
@@ -38,9 +41,11 @@ from idee_tpu_torch.data.reanalysis import (ReanalysisDataset, cerra_spec,
                                             era5_land_spec)
 from idee_tpu_torch.models.vq_model import build_model, compute_dtype
 from idee_tpu_torch.train.checkpoint import CheckpointManager
-from idee_tpu_torch.train.driver import (_check_supported, data_parallel,
-                                         epoch_metrics, join_ranks,
-                                         rank_output, traced, use_fused)
+from idee_tpu_torch.parallel import spatial
+from idee_tpu_torch.train.driver import (_check_supported, activate_space,
+                                         data_parallel, epoch_metrics,
+                                         join_ranks, rank_output, traced,
+                                         use_fused)
 from idee_tpu_torch.train.evaluate import load_weights
 from idee_tpu_torch.train.history import flush_history, seed_history
 from idee_tpu_torch.train.metrics import Evaluator
@@ -103,7 +108,9 @@ def _panels_real(writer, eval_step_preds, batch, metrics, variables,
     ``batch`` (JAX idee_tpu/train/driver_real.py:264-291; reference
     train_CERRA.py:283-310)."""
     _, preds = eval_step_preds(metrics, batch)
-    host = {k: batch[k].float().cpu().numpy() for k in (
+    # under the space axis the whole H of every rank's forward
+    preds = {k: spatial.gather_h(v) for k, v in preds.items()}
+    host = {k: spatial.gather_h(batch[k]).float().cpu().numpy() for k in (
         "mask_extreme", "mask_cold_surface", "mask_sea",
         "mask_no_vegetation")}
     mask_valid = np.clip(1.0 - host["mask_cold_surface"], 0.0, None)
@@ -132,14 +139,15 @@ def train_real(cfg: Config, family: str,
     given = mesh
     mesh, dev = data_parallel(cfg, device, mesh)
     try:
-        with rank_output(mesh):
-            return _train_real(cfg, family, train_ds, val_ds, dev, mesh)
+        with rank_output(mesh), contextlib.ExitStack() as scope:
+            return _train_real(cfg, family, train_ds, val_ds, dev, mesh,
+                               scope)
     finally:
         if mesh is not None and given is None and mesh.started:
             mesh.close()  # the process group this driver started
 
 
-def _train_real(cfg, family, train_ds, val_ds, dev, mesh) -> Dict:
+def _train_real(cfg, family, train_ds, val_ds, dev, mesh, scope) -> Dict:
     main = mesh is None or mesh.is_main
     logger = get_logger(cfg) if main else None
     if main:
@@ -158,6 +166,7 @@ def _train_real(cfg, family, train_ds, val_ds, dev, mesh) -> Dict:
     # advances the augmentation RNG; drawing it here too keeps both drivers
     # on the same augmentations
     train_ds[0]
+    activate_space(scope, mesh, train_ds, cfg)
     # x in the compute dtype (idee_tpu/train/driver_real.py:115-130)
     if cfg.device_data:
         # one normalised slab and mask triple per unique week on the card

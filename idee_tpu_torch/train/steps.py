@@ -21,6 +21,7 @@ import torch
 
 from idee_tpu_torch import losses
 from idee_tpu_torch.config import Config
+from idee_tpu_torch.parallel import spatial
 from idee_tpu_torch.parallel.mesh import average_gradients
 from idee_tpu_torch.kernels import selective_scan, window_attention
 
@@ -71,16 +72,24 @@ def _scatter_votes(vote_sum, vote_cnt, anomaly, t_index, delta_t: int):
     """Add each sample's time-reversed [V, dt, H, W] anomaly bits onto the
     absolute timeline at [t_index - dt + 1, t_index], in place
     (anomaly_collector.__call__ semantics, utils/utils_train.py:547-554).
-    anomaly [N, V, dt, H, W]; t_index [N] int64 on the device."""
+    anomaly [N, V, dt, H, W]; t_index [N] int64 on the device. Under the
+    space axis ``anomaly`` holds the rank's H rows, which go to their rows
+    of the global buffer, and the first rank of the space row alone
+    counts the coverage (the ranks' buffers are summed)."""
     if delta_t > 255:
         raise ValueError("uint8 vote_sum would overflow; widen the dtype")
     N, V, dt, H, W = anomaly.shape
     chrono = anomaly.flip(2).to(vote_sum.dtype)  # chronological order
     idx = ((t_index - (delta_t - 1))[:, None]
            + torch.arange(delta_t, device=t_index.device)).reshape(-1)
+    ctx = spatial.active()
+    if ctx is not None:
+        vote_sum = vote_sum.narrow(2, ctx.lo, ctx.rows)
     vote_sum.index_add_(1, idx, chrono.transpose(0, 1).reshape(
         V, N * dt, H, W))
-    vote_cnt.index_add_(0, idx, torch.ones_like(idx, dtype=vote_cnt.dtype))
+    if ctx is None or ctx.s == 0:
+        vote_cnt.index_add_(0, idx,
+                            torch.ones_like(idx, dtype=vote_cnt.dtype))
 
 
 def _accumulate(metrics, comps, out, batch, t0: float, delta_t: int,

@@ -5,14 +5,15 @@ against the plain op's, at fixed and at trained weights, on one CUDA card,
 for this checkout and, with ``--other``, a second checkout of the port.
 
     python3 mil_gradient_drift.py [--other DIR] [--runs 3] \
-        [--out build/mil_gradient_drift.json]
+        [--weeks 40,24] [--out build/mil_gradient_drift.json]
 
 Each checkout runs in a process of its own (``--worker``), importing its
 own ``idee_tpu_torch`` and ``chip_smoke.py``, with cuDNN's deterministic
 algorithms and torch's deterministic mode on for the whole process. Both
 read one batch, written by this checkout's loader (the fourth of the
 shuffled bench-width training set, as chip_smoke.py's phase
-train_deepmil_swin draws it) to ``--work`` (default
+train_deepmil_swin draws it; ``--weeks N,T``: a cube of N weeks trained
+on weeks 1-T, by default chip_smoke.py's 40 and 24) to ``--work`` (default
 build/mil_gradient_drift, where the workers leave their tensors). A
 worker:
 
@@ -86,7 +87,16 @@ def float64_run(model, torch):
             m.dtype = dt
 
 
-def worker(tree: str, batch_path: str, runs: int, out: str):
+def cube_weeks(spec: str, c):
+    """(cube length, train weeks, val weeks) of ``--weeks N,T``, or
+    chip_smoke.py's without it."""
+    if not spec:
+        return c.N_WEEKS, c.TRAIN_WEEKS, c.VAL_WEEKS
+    n, t = (int(v) for v in spec.split(","))
+    return n, (1, t), (t + 1, n)
+
+
+def worker(tree: str, batch_path: str, runs: int, out: str, weeks: str):
     os.chdir(tree)
     sys.path.insert(0, tree)
     import torch
@@ -144,13 +154,14 @@ def worker(tree: str, batch_path: str, runs: int, out: str):
     grads, loss = step(seeded, "kernels", [])
     result["fixed"] = {"scores": scores, "grads": grads, "loss": loss}
 
-    cube = make_fake_cube(n_vars=6, n_time=c.N_WEEKS, height=200,
+    n_weeks, train_weeks, val_weeks = cube_weeks(weeks, c)
+    cube = make_fake_cube(n_vars=6, n_time=n_weeks, height=200,
                           width=200, seed=0)
     train, _, _ = c.baseline_drivers("mil", "deepmil")
     result["trained"] = []
     for r in range(runs):
-        hist = train(cfg, cube.time_slice(*c.TRAIN_WEEKS),
-                     cube.time_slice(*c.VAL_WEEKS))
+        hist = train(cfg, cube.time_slice(*train_weeks),
+                     cube.time_slice(*val_weeks))
         params = {k: v.detach().clone() for k, v in
                   hist["state"].model.state_dict().items()}
         del hist
@@ -191,6 +202,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", default=None)
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--weeks", default="",
+                    help="N,T: a cube of N weeks, trained on weeks 1-T")
     ap.add_argument("--out", default="build/mil_gradient_drift.json")
     # the batch and each worker's tensors (tens of MB)
     ap.add_argument("--work", default="build/mil_gradient_drift")
@@ -199,7 +212,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.worker:
         worker(args.worker[0], args.worker[1], int(args.worker[2]),
-               args.worker[3])
+               args.worker[3], args.weeks)
         return 0
 
     import torch
@@ -217,10 +230,11 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     cfg = c.baseline_config("mil", "drift", encoder="Swin_3D")
-    cube = make_fake_cube(n_vars=6, n_time=c.N_WEEKS, height=200, width=200,
+    n_weeks, train_weeks, val_weeks = cube_weeks(args.weeks, c)
+    cube = make_fake_cube(n_vars=6, n_time=n_weeks, height=200, width=200,
                           seed=0)
-    train_ds, _ = common.make_datasets(cfg, cube.time_slice(*c.TRAIN_WEEKS),
-                                       cube.time_slice(*c.VAL_WEEKS), False)
+    train_ds, _ = common.make_datasets(cfg, cube.time_slice(*train_weeks),
+                                       cube.time_slice(*val_weeks), False)
     loader = iter(DataLoader(train_ds, 1, device="cpu",
                              keys=["x", "mask_extreme_loss", "timestep"],
                              shuffle=True, seed=cfg.seed))
@@ -235,7 +249,8 @@ def main(argv=None) -> int:
     for name, tree in trees.items():
         path = os.path.join(out_dir, f"mil_gradient_drift_{name}.pt")
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--worker", tree, batch_path, str(args.runs), path],
+                        "--worker", tree, batch_path, str(args.runs), path,
+                        "--weeks", args.weeks],
                        check=True, env=_env())
         results[name] = torch.load(path, weights_only=False)
 
@@ -243,6 +258,7 @@ def main(argv=None) -> int:
             if k.startswith("agent.")
             and k.endswith("relative_position_bias_table")]
     report = {"card": results["this"]["card"], "trees": trees,
+              "cube_weeks": cube_weeks(args.weeks, c),
               "limit": c.STEP_GRAD_REL, "leaf": LEAF, "zero": zero}
     for name, res in results.items():
         runs = []

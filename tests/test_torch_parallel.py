@@ -33,8 +33,9 @@ batch. Checked, with dropout at 0 as there:
   * train_synthetic under mesh_shape [2]: rank 0 alone writes the
     checkpoints, history and config, a second run resumes on both ranks,
     and the losses equal the world-1 driver's;
-  * a mesh_shape that is not the world size raises; the loaders' rows of
-    the ranks together are the world-1 batch.
+  * a mesh_shape that is not the world size raises (over ["data"] and
+    over ["data", "space"]); the loaders' rows of the ranks together are
+    the world-1 batch.
 """
 # ------------------------------------------------------------------
 
@@ -328,8 +329,9 @@ def test_mesh_shape_must_be_the_world_size(monkeypatch):
     monkeypatch.setenv("RANK", "0")
     with pytest.raises(ValueError, match="WORLD_SIZE 2"):
         make_mesh([3], ["data"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh([1, 2], ["data", "space"], device="cpu")
+    # a data x space mesh counts both axes' ranks
+    with pytest.raises(ValueError, match="WORLD_SIZE 2"):
+        make_mesh([1, 3], ["data", "space"], device="cpu")
     assert not torch.distributed.is_initialized()
 
 

@@ -328,11 +328,11 @@ def test_real_entry_points_need_a_card_or_explicit_cpu(monkeypatch, tree,
                           cfg.dir_log])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_real(cfg.replace(device_data=True), "CERRA")
-    # data parallelism is ported; the space axis is not, and a mesh of 2
-    # needs 2 processes (torchrun)
+    # data parallelism and the space axis are ported; a mesh of 2 needs 2
+    # processes (torchrun)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_real(cfg.replace(mesh_shape=[1, 1],
+    with pytest.raises(ValueError, match="WORLD_SIZE 1"):
+        train_real(cfg.replace(mesh_shape=[1, 2],
                                mesh_axes=["data", "space"]), "CERRA",
                    device="cpu")
     with pytest.raises(ValueError, match="WORLD_SIZE 1"):

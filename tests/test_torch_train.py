@@ -572,11 +572,13 @@ def test_train_cli_reads_npz_cube(cube, tmp_path):
 
 
 def test_driver_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    # data parallelism is ported (tests/test_torch_parallel.py); the space
-    # axis is not, and a mesh of 2 needs 2 processes (torchrun)
+    # data parallelism and the space axis are ported
+    # (tests/test_torch_parallel.py, tests/test_torch_spatial*.py; the
+    # device loaders refuse a space axis there); a mesh of 2 needs 2
+    # processes (torchrun)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_synthetic(_driver_config(tmp_path, mesh_shape=[1, 1],
+    with pytest.raises(ValueError, match="WORLD_SIZE 1"):
+        train_synthetic(_driver_config(tmp_path, mesh_shape=[1, 2],
                                        mesh_axes=["data", "space"]),
                         device="cpu")
     with pytest.raises(ValueError, match="WORLD_SIZE 1"):
