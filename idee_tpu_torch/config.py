@@ -172,8 +172,8 @@ class Config:
     # --- additions of the JAX package (not in the reference) ---
     # Their meaning is documented in idee_tpu/config.py. The port takes a
     # mesh of the "data" axis, or "data" x "space" (mesh_shape [N] or
-    # [D, S] under torchrun, parallel/mesh.py; the space axis with the
-    # host loader only) and leaves fused_chunk unread: JAX
+    # [D, S] under torchrun, parallel/mesh.py; the space axis with either
+    # loader and the fused epochs) and leaves fused_chunk unread: JAX
     # cuts a fused epoch into dispatches of fused_chunk steps for the TPU
     # worker's watchdog, which has no counterpart here (a fused epoch is
     # one replay of its CUDA graph per step, train/steps.py::FusedEpoch).

@@ -24,6 +24,12 @@ datasets' terms (``draw_aug``), rotate = r0 and flip axis -1 with
 r1 & r2, -2 with r1 & ~r2. Epochs take full batches only (drop_last).
 Under data parallelism (``mesh``, parallel/mesh.py) every rank draws the
 global order and flip bits and its batches hold the rank's rows of each.
+Under a ``space`` axis (the spatial context active when the loader is
+made, parallel/spatial.py) every rank holds the whole data, as JAX's one
+unsharded cube (idee_tpu/data/device.py:92), and gathers only its H rows
+[lo, hi) of each sample: for a sample whose bits flip H, the rows H-1-lo
+down to H-hi. Its leaves are those of ``spatial.shard_rows`` of the
+single-device batch, bit for bit; no whole-H batch is built.
 """
 # ------------------------------------------------------------------
 
@@ -35,25 +41,53 @@ import torch
 
 from idee_tpu_torch import resolve_device
 from idee_tpu_torch.data.synthetic import _window_mean
+from idee_tpu_torch.parallel import spatial
 
 
-def _flip2(t: torch.Tensor, fh: torch.Tensor, fw: torch.Tensor):
-    """t [B, ...] flipped along H (-2) where fh [B] and then along W (-1)
-    where fw, branch-free."""
-    shape = (t.shape[0],) + (1,) * (t.dim() - 1)
-    t = torch.where(fh.view(shape), t.flip(-2), t)
-    return torch.where(fw.view(shape), t.flip(-1), t)
-
-
-def _augment(out: Dict[str, torch.Tensor], flips: Optional[torch.Tensor]):
-    """Each entry flipped by the samples' bits flips [B, 3] (bool), or made
-    contiguous without them."""
+def _flip_bits(flips: Optional[torch.Tensor]):
+    """(flip H, flip W) [B] bool of the samples' bits flips [B, 3], or
+    (None, None) without them."""
     if flips is None:
-        return {k: v.contiguous() for k, v in out.items()}
+        return None, None
     r0, r1, r2 = flips.unbind(-1)
-    fh = r0 ^ (r1 & ~r2)
-    fw = r0 ^ (r1 & r2)
+    return r0 ^ (r1 & ~r2), r0 ^ (r1 & r2)
+
+
+def _flip2(t: torch.Tensor, fh: Optional[torch.Tensor],
+           fw: Optional[torch.Tensor]):
+    """t [B, ...] flipped along H (-2) where fh [B] and then along W (-1)
+    where fw (None: no flip along that axis), branch-free."""
+    shape = (t.shape[0],) + (1,) * (t.dim() - 1)
+    if fh is not None:
+        t = torch.where(fh.view(shape), t.flip(-2), t)
+    if fw is not None:
+        t = torch.where(fw.view(shape), t.flip(-1), t)
+    return t
+
+
+def _augment(out: Dict[str, torch.Tensor], fh: Optional[torch.Tensor],
+             fw: Optional[torch.Tensor]):
+    """Each entry flipped where the samples' bits say (``_flip2``), or made
+    contiguous without any."""
+    if fh is None and fw is None:
+        return {k: v.contiguous() for k, v in out.items()}
     return {k: _flip2(v, fh, fw) for k, v in out.items()}
+
+
+def _take(t: torch.Tensor, dim: int, index: torch.Tensor,
+          rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """t's slices at ``index`` [B, k] (int64) along ``dim``, dims (B, k)
+    in its place; with ``rows`` [B, h] (int64), of H (t's dim -2) only
+    those rows of each sample's slices, in that order."""
+    B, k = index.shape
+    if rows is None:
+        return t.index_select(dim, index.reshape(-1)).unflatten(dim, (B, k))
+    h_dim = t.dim() - 2
+    at = [slice(None)] * t.dim()
+    at[dim], at[h_dim] = index[:, :, None], rows[:, None, :]
+    out = t[tuple(at)]
+    # indices apart (slices between them): torch puts their [B, k, h] first
+    return out if dim + 1 == h_dim else out.movedim(2, -2)
 
 
 class _EpochLoader:
@@ -63,14 +97,16 @@ class _EpochLoader:
     def __init__(self, n: int, batch_size: int, seed: int, is_aug: bool,
                  device, mesh=None):
         self.mesh = mesh
+        self.space = spatial.active()
         if mesh is not None:
             mesh.rows(batch_size)  # raises unless the ranks split it
-            if mesh.space > 1:
+            if mesh.space > 1 and self.space is None:
                 raise ValueError(
-                    f"device_data under a space axis of {mesh.space} ranks "
-                    "is not ported (ROADMAP.md, queue 1): each rank would "
-                    "hold the whole cube; set device_data=False for the "
-                    "host loader")
+                    f"device_data under a space axis of {mesh.space} ranks: "
+                    "a rank gathers its H rows of the spatial context "
+                    "active when its loader is made, and none is "
+                    "(parallel/spatial.py::activate)")
+        self._h = None  # the rank's H rows (``_space_rows``)
         self.n = n
         self.batch_size = batch_size
         self.seed = seed
@@ -101,6 +137,30 @@ class _EpochLoader:
         rng = np.random.default_rng((self.seed, epoch))
         return rng.integers(0, 2, (len(self), self.batch_size, 3)) \
             .astype(bool)
+
+    def _space_rows(self, H: int) -> None:
+        """Under a space context, the rank's rows [lo, hi) of the data's
+        ``H`` rows on the device (raises unless the context is of ``H``
+        rows)."""
+        sc = self.space
+        if sc is None:
+            return
+        if sc.H != H:
+            raise ValueError(f"the spatial context splits {sc.H} rows, the "
+                             f"loader's data has {H}")
+        self._h = torch.arange(sc.lo, sc.hi, device=self.device)
+
+    def _rows(self, B: int, fh: Optional[torch.Tensor]):
+        """[B, h]: the global H rows of each sample that the rank's batch
+        holds, in order: under a space context its rows [lo, hi), reversed
+        from H-1-lo for the samples that flip H (``fh`` [B]); None (all of
+        H) without one."""
+        if self._h is None:
+            return None
+        if fh is None:
+            return self._h.expand(B, -1)
+        return torch.where(fh[:, None], (self.space.H - 1) - self._h,
+                           self._h)
 
     def batch(self, idx: torch.Tensor, flips: Optional[torch.Tensor] = None):
         raise NotImplementedError
@@ -156,24 +216,27 @@ class DeviceLoader(_EpochLoader):
         # time order
         self._back = torch.arange(self.dt - 1, -1, -1, device=dev)
         self._fwd = torch.arange(self.dt, device=dev)
+        self._space_rows(self.dynamic.shape[2])
 
     def batch(self, idx: torch.Tensor, flips: Optional[torch.Tensor] = None):
         """The batch of samples ``idx`` [B] (int64, on the device), flipped
-        by ``flips`` [B, 3] (bool) when given."""
+        by ``flips`` [B, 3] (bool) when given; under a space context the
+        rank's H rows of it."""
         B, dt = idx.shape[0], self.dt
-        V, _, H, W = self.dynamic.shape
-        back = (idx[:, None] + self._back).reshape(-1)
-        x = self.dynamic.index_select(1, back).view(V, B, dt, H, W)
-        ew = self.extreme.index_select(
-            0, (idx[:, None] + self._fwd).reshape(-1)).view(B, dt, H, W)
+        fh, fw = _flip_bits(flips)
+        rows = self._rows(B, fh)
+        back = idx[:, None] + self._back
+        x = _take(self.dynamic, 1, back, rows)              # [V, B, dt, h, W]
+        ew = _take(self.extreme, 0, idx[:, None] + self._fwd, rows)
         me = ew[:, -1]
         out = {"x": x.transpose(0, 1).unsqueeze(2),
                "mask_extreme": torch.where(me > 1.0, 0.0, me),
                "mask_extreme_loss": ew.sum(1).clamp(0.0, 1.0)}
         if self.anomaly is not None:
-            a = self.anomaly.index_select(1, back).view(V, B, dt, H, W)
-            out["mask_anomaly"] = a.transpose(0, 1)
-        out = _augment(out, flips)
+            out["mask_anomaly"] = _take(self.anomaly, 1, back,
+                                        rows).transpose(0, 1)
+        # the rows already hold the H flips
+        out = _augment(out, fh if rows is None else None, fw)
         out["timestep"] = (idx.float() + (dt - 1) + self.t0)[:, None]
         return out
 
@@ -241,6 +304,7 @@ class RealDeviceLoader(_EpochLoader):
                      (ds.mask_water, ds.mask_no_vegetation))
             self.eval_masks = tuple(put(np.asarray(m, np.float32))
                                     for m in masks)
+        self._space_rows(H)
 
     def _normalized_week(self, path: str) -> np.ndarray:
         """One week's normalised [V, 2, H, W] slab: the week's restriction
@@ -270,25 +334,26 @@ class RealDeviceLoader(_EpochLoader):
 
     def batch(self, idx: torch.Tensor, flips: Optional[torch.Tensor] = None):
         """The batch of samples ``idx`` [B] (int64, on the device), flipped
-        by ``flips`` [B, 3] (bool) when given."""
+        by ``flips`` [B, 3] (bool) when given; under a space context the
+        rank's H rows of it."""
         B = idx.shape[0]
-        _, V, _, H, W = self.xw.shape
+        fh, fw = _flip_bits(flips)
+        rows = self._rows(B, fh)
         mi = self.main_idx.index_select(0, idx)              # [B, dt]
         ni = self.noaa_idx.index_select(0, idx)
-        dt = mi.shape[1]
-        x = self.xw.index_select(0, mi.reshape(-1)).view(B, dt, V, 2, H, W)
-        flat = ni.reshape(-1)
-        d35 = self.d35.index_select(0, flat).view(B, dt, H, W).float()
-        cw = self.cold.index_select(0, flat).view(B, dt, H, W).float()
+        x = _take(self.xw, 0, mi, rows)                  # [B, dt, V, 2, h, W]
+        d35 = _take(self.d35, 0, ni, rows).float()           # [B, dt, h, W]
+        cw = _take(self.cold, 0, ni, rows).float()
         out = {"x": x.permute(0, 2, 3, 1, 4, 5),
-               "mask_extreme": self.dthr.index_select(0, ni[:, 0]).float(),
+               "mask_extreme": _take(self.dthr, 0, ni[:, :1],
+                                     rows)[:, 0].float(),
                "mask_extreme_loss": d35.sum(1).clamp(0.0, 1.0),
                "mask_cold_surface": cw[:, 0],
                # the cold-surface loss union leaves out the target week
                # (CERRA_dataset.py:594-595)
                "mask_cold_surface_loss": cw[:, 1:].sum(1).clamp(0.0, 1.0)}
         if self.eval_masks is not None:
-            sea, noveg = self.eval_masks
-            out["mask_sea"] = sea.expand(B, H, W)
-            out["mask_no_vegetation"] = noveg.expand(B, H, W)
-        return _augment(out, flips)
+            for k, m in zip(("mask_sea", "mask_no_vegetation"),
+                            self.eval_masks):
+                out[k] = m.expand(B, -1, -1) if rows is None else m[rows]
+        return _augment(out, fh if rows is None else None, fw)

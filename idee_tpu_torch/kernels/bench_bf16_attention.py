@@ -10,14 +10,17 @@ The earlier source must export the same bf16 C entry points
 (``idee_window_attention_{fwd,bwd}_bf16``; where it also has the float32
 ``idee_window_attention_{fwd,bwd}``, those are checked too); it is built with the flags of
 ``kernels/build.py`` into ``kernels/build/`` and used nowhere else. At each
-stage shape of the Swin_3D bench width (as chip_smoke.py's kernel phase)
-the script times the forward and the backward kernel launches alone
-(CUDA events; old, new, new, old; the backward without the dbias sum),
-beside their bounds (chip_smoke.py's kernel phase times SDPA beside
-them); holds both designs against the plain bf16 versions (one bf16
-ulp + 1e-5; dbias at rtol 1e-4, atol 1e-5 x max |dbias|); and checks that
-the float32 kernels of both sources, where the earlier one has them, give
-the same bits. It prints
+shape chip_smoke.py drives the bf16 kernels at (the Swin_3D bench width's
+three stage shapes, those of delta_t 4, and those of a rank of a [1, 2]
+space mesh, on the same seeded inputs as chip_smoke.py's checks) the
+script times the forward and the backward kernel launches alone (CUDA
+events; old, new, new, old; the backward without the dbias sum), beside
+their bounds (chip_smoke.py's kernel phase times SDPA beside them); holds
+the new design against the plain bf16 versions (one bf16 ulp + 1e-5;
+dbias at rtol 1e-4, atol 1e-5 x max |dbias|) and counts the old design's
+entries beyond that bound (the hi + lo design misses it at a rank's
+stage-1 shape); and checks that the float32 kernels of both sources, where the
+earlier one has them, give the same bits. It prints
 ``nvcc -Xptxas -v``'s registers and spills of the new source and one JSON
 line, and exits 1 without a card.
 """
@@ -37,9 +40,22 @@ from idee_tpu_torch.kernels import bounds, build
 from idee_tpu_torch.kernels import window_attention as wa
 
 G, HD = 12, 8
-SHAPES = {"stage0": (10_000, 32, None),
-          "stage0_shifted": (10_000, 32, (8, 200, 200, (2, 4, 4), (1, 2, 2))),
-          "stage1": (40_000, 8, None)}
+# chip_smoke.py's ATTN_SHAPES, ATTN_SHAPES_DT4 and SPACE_ATTN_SHAPES: (BW,
+# n, the shift mask's (D, H, W, window, shift[, the window rows kept]))
+SHAPES = {
+    "main": {"stage0": (10_000, 32, None),
+             "stage0_shifted": (10_000, 32,
+                                (8, 200, 200, (2, 4, 4), (1, 2, 2))),
+             "stage1": (40_000, 8, None)},
+    "delta_t_4": {"stage0": (5_000, 32, None),
+                  "stage0_shifted": (5_000, 32,
+                                     (4, 200, 200, (2, 4, 4), (1, 2, 2))),
+                  "stage1": (40_000, 4, None)},
+    "space_rank": {"stage0": (5_000, 32, None),
+                   "stage0_shifted": (5_000, 32,
+                                      (8, 200, 200, (2, 4, 4), (1, 2, 2),
+                                       (25, 50))),
+                   "stage1": (20_000, 8, None)}}
 ATOL, DBIAS_REL, GRAD_RTOL = 1e-5, 1e-5, 1e-4
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -95,20 +111,19 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def within_ulp(got, want, what):
-    """|got - want| <= one bf16 ulp of want + ATOL, entry by entry; the
-    largest |got - want|."""
+def beyond_ulp(got, want):
+    """(the largest |got - want|, the entries beyond one bf16 ulp of want
+    + ATOL)."""
     m, e = torch.frexp(want.float().abs())
     ulp = torch.where(m == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
     err = (got.float() - want.float()).abs()
-    if not bool((err <= ulp + ATOL).all()):
-        raise SystemExit(f"{what}: {int((err > ulp + ATOL).sum())} entries "
-                         "beyond one bf16 ulp + 1e-5")
-    return err.max().item()
+    return err.max().item(), int((err > ulp + ATOL).sum())
 
 
 def inputs(BW, n, geom, seed):
-    from idee_tpu_torch.nn.swin3d import compute_shift_mask
+    """chip_smoke.py's attention_inputs: q, k, v, go, bias and the mask's
+    bank and idx (or None)."""
+    from idee_tpu_torch.nn.swin3d import shift_mask_on
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, go = (torch.randn(BW, n, G, HD, device="cuda", generator=g)
@@ -116,8 +131,9 @@ def inputs(BW, n, geom, seed):
     bias = 0.5 * torch.randn(G, n, n, device="cuda", generator=g)
     bank = idx = None
     if geom is not None:
-        b, i = compute_shift_mask(*geom)
-        bank, idx = torch.from_numpy(b).cuda(), torch.from_numpy(i).cuda()
+        bank, idx = shift_mask_on(*geom[:5], "cuda", *geom[5:])
+        if idx.shape[0] != BW:
+            raise SystemExit(f"mask of {geom}: {idx.shape[0]} windows")
     return q, k, v, go, bias, bank, idx
 
 
@@ -150,94 +166,104 @@ def main(argv=None) -> int:
            for d, lib in (("old", old), ("new", new_f32))
            if hasattr(old, "idee_window_attention_fwd")}
     result = {"card": card, "old_source": str(args.old_source), "shapes": {}}
-    scale = HD ** -0.5
-    for i, (stage, (BW, n, geom)) in enumerate(SHAPES.items()):
-        q, k, v, go, bias, bank, idx = inputs(BW, n, geom, seed=60 + i)
-        nW = idx.shape[0] if idx is not None else 1
-        nb = wa.bwd_blocks(BW, n, G)
-        mask = (bank, idx) if bank is not None else None
-        row = {"BW": BW, "n": n, "G": G, "hd": HD}
-
-        # float32: both sources' kernels, the same bits
-        if f32:
-            o32 = {d: torch.empty_like(q) for d in fns}
-            g32 = {d: [torch.empty_like(q) for _ in range(3)]
-                   + [torch.empty(nb, G, n, n, device="cuda")] for d in fns}
-            for d, (fwd, bwd) in f32.items():
-                call(fwd, q, k, v, bias, bank, idx, o32[d], BW, n, G, HD, nW,
-                     scale)
-                call(bwd, q, k, v, bias, bank, idx, o32["old"], go, *g32[d],
-                     BW, n, G, HD, nW, nb, scale)
-            torch.cuda.synchronize()
-            row["float32_bit_equal"] = bool(
-                torch.equal(o32["old"], o32["new"])
-                and all(torch.equal(a, b) for a, b in zip(g32["old"],
-                                                          g32["new"])))
-            if not row["float32_bit_equal"]:
-                raise SystemExit(f"{stage}: the float32 kernels' bits moved")
-            del o32, g32
-
-        q, k, v, go = (t.to(torch.bfloat16) for t in (q, k, v, go))
-        o_p = wa.window_attention_fwd_plain(q, k, v, bias, mask, scale)
-        want = wa.window_attention_bwd_plain(q, k, v, bias, mask, scale, o_p,
-                                             go)
-        outs = {}
-        for d, (fwd, bwd) in fns.items():
-            o = torch.empty_like(q)
-            grads = [torch.empty_like(q) for _ in range(3)]
-            part = torch.empty(nb, G, n, n, device="cuda")
-            call(fwd, q, k, v, bias, bank, idx, o, BW, n, G, HD, nW, scale)
-            call(bwd, q, k, v, bias, bank, idx, go, *grads, part, BW, n, G,
-                 HD, nW, nb, scale)
-            torch.cuda.synchronize()
-            err = max([within_ulp(o, o_p, f"{stage} {d} o")]
-                      + [within_ulp(a, b, f"{stage} {d} {name}")
-                         for name, a, b in zip(("dq", "dk", "dv"), grads,
-                                               want)])
-            dbias = wa.dbias_sum_plain(part)
-            torch.testing.assert_close(
-                dbias, want[3], rtol=GRAD_RTOL,
-                atol=DBIAS_REL * want[3].abs().max().item())
-            outs[d] = (o, grads, part)
-            row[d] = {"max_abs_err": err,
-                      "dbias_max_abs_err":
-                          (dbias - want[3]).abs().max().item()}
-
-        def timer(d, which):
-            fwd, bwd = fns[d]
-            o, grads, part = outs[d]
-            if which == "forward":
-                return lambda: call(fwd, q, k, v, bias, bank, idx, o, BW, n,
-                                    G, HD, nW, scale)
-            return lambda: call(bwd, q, k, v, bias, bank, idx, go, *grads,
-                                part, BW, n, G, HD, nW, nb, scale)
-
-        for which, iters in (("forward", 50), ("backward", 20)):
-            times = {"old": [], "new": []}
-            for d in ("old", "new", "new", "old"):
-                times[d].append(cuda_ms(timer(d, which), iters))
-            bound, by = (bounds.window_attention_fwd if which == "forward"
-                         else bounds.window_attention_bwd)(
-                BW, n, G, HD, "bfloat16")
-            occupancy = (wa.fwd_occupancy if which == "forward"
-                         else wa.bwd_occupancy)(n, HD, geom is not None,
-                                                torch.bfloat16)
-            regs = wa.bf16_registers(n, HD)[which == "backward"]
-            row[which] = {"old_ms": times["old"], "new_ms": times["new"],
-                          "bound_ms": bound, "bound_by": by,
-                          "share_of_bound": bound / min(times["new"]),
-                          "smem_bytes_per_block": occupancy[0],
-                          "blocks_per_sm": occupancy[1], "registers": regs}
-        result["shapes"][stage] = row
-        print(json.dumps({stage: row}), flush=True)
-        del q, k, v, go, outs, o_p, want
-        torch.cuda.empty_cache()
+    for group, shapes in SHAPES.items():
+        result["shapes"][group] = {}
+        for i, (stage, shape) in enumerate(shapes.items()):
+            row = measure(fns, f32, *shape, seed=60 + i)
+            result["shapes"][group][stage] = row
+            print(json.dumps({group: {stage: row}}), flush=True)
+            torch.cuda.empty_cache()
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
     print(card)
     print(json.dumps(result))
     return 0
+
+
+def measure(fns, f32, BW, n, geom, seed):
+    """One shape's row: both designs' errors against the plain bf16
+    versions (the old design's entries beyond one ulp + 1e-5 counted, the
+    new design's refused), their times and the new design's occupancy."""
+    scale = HD ** -0.5
+    q, k, v, go, bias, bank, idx = inputs(BW, n, geom, seed)
+    nW = idx.shape[0] if idx is not None else 1
+    nb = wa.bwd_blocks(BW, n, G)
+    mask = (bank, idx) if bank is not None else None
+    row = {"BW": BW, "n": n, "G": G, "hd": HD, "seed": seed}
+
+    # float32: both sources' kernels, the same bits
+    if f32:
+        o32 = {d: torch.empty_like(q) for d in fns}
+        g32 = {d: [torch.empty_like(q) for _ in range(3)]
+               + [torch.empty(nb, G, n, n, device="cuda")] for d in fns}
+        for d, (fwd, bwd) in f32.items():
+            call(fwd, q, k, v, bias, bank, idx, o32[d], BW, n, G, HD, nW,
+                 scale)
+            call(bwd, q, k, v, bias, bank, idx, o32["old"], go, *g32[d],
+                 BW, n, G, HD, nW, nb, scale)
+        torch.cuda.synchronize()
+        row["float32_bit_equal"] = bool(
+            torch.equal(o32["old"], o32["new"])
+            and all(torch.equal(a, b) for a, b in zip(g32["old"],
+                                                      g32["new"])))
+        if not row["float32_bit_equal"]:
+            raise SystemExit(f"{row}: the float32 kernels' bits moved")
+        del o32, g32
+
+    q, k, v, go = (t.to(torch.bfloat16) for t in (q, k, v, go))
+    o_p = wa.window_attention_fwd_plain(q, k, v, bias, mask, scale)
+    want = (o_p,) + wa.window_attention_bwd_plain(q, k, v, bias, mask, scale,
+                                                  o_p, go)
+    outs = {}
+    for d, (fwd, bwd) in fns.items():
+        o = torch.empty_like(q)
+        grads = [torch.empty_like(q) for _ in range(3)]
+        part = torch.empty(nb, G, n, n, device="cuda")
+        call(fwd, q, k, v, bias, bank, idx, o, BW, n, G, HD, nW, scale)
+        call(bwd, q, k, v, bias, bank, idx, go, *grads, part, BW, n, G,
+             HD, nW, nb, scale)
+        torch.cuda.synchronize()
+        errs = {name: beyond_ulp(a, b) for name, a, b in zip(
+            ("o", "dq", "dk", "dv"), [o] + grads, want)}
+        dbias = wa.dbias_sum_plain(part)
+        torch.testing.assert_close(
+            dbias, want[4], rtol=GRAD_RTOL,
+            atol=DBIAS_REL * want[4].abs().max().item())
+        outs[d] = (o, grads, part)
+        row[d] = {"max_abs_err": max(e for e, _ in errs.values()),
+                  "beyond_1_ulp": {k_: c for k_, (_, c) in errs.items()},
+                  "dbias_max_abs_err": (dbias - want[4]).abs().max().item()}
+        if d == "new" and any(c for _, c in errs.values()):
+            raise SystemExit(f"{row}: the new design beyond one bf16 ulp + "
+                             f"{ATOL}")
+
+    def timer(d, which):
+        fwd, bwd = fns[d]
+        o, grads, part = outs[d]
+        if which == "forward":
+            return lambda: call(fwd, q, k, v, bias, bank, idx, o, BW, n,
+                                G, HD, nW, scale)
+        return lambda: call(bwd, q, k, v, bias, bank, idx, go, *grads,
+                            part, BW, n, G, HD, nW, nb, scale)
+
+    for which, iters in (("forward", 50), ("backward", 20)):
+        times = {"old": [], "new": []}
+        for d in ("old", "new", "new", "old"):
+            times[d].append(cuda_ms(timer(d, which), iters))
+        bound, by = (bounds.window_attention_fwd if which == "forward"
+                     else bounds.window_attention_bwd)(
+            BW, n, G, HD, "bfloat16")
+        occupancy = (wa.fwd_occupancy if which == "forward"
+                     else wa.bwd_occupancy)(n, HD, geom is not None,
+                                            torch.bfloat16)
+        regs = wa.bf16_registers(n, HD)[which == "backward"]
+        row[which] = {"old_ms": times["old"], "new_ms": times["new"],
+                      "bound_ms": bound, "bound_by": by,
+                      "share_of_bound": bound / min(times["new"]),
+                      "smem_bytes_per_block": occupancy[0],
+                      "blocks_per_sm": occupancy[1], "registers": regs}
+    return row
 
 
 if __name__ == "__main__":

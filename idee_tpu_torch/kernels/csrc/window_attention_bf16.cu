@@ -33,12 +33,16 @@
 //     ds k, ds^T q, p^T go. One warp takes a
 //     16-row tile of one window-head against all its keys. Operands come
 //     from shared memory by ldmatrix (.trans for v, k, q and go where they
-//     are the B operand over tokens, and for p^T and ds^T).
+//     are the B operand over tokens); p^T and ds^T as float32 pairs.
 //   * Numerics. q, k, v, go enter as they are, so each product is exact and
-//     each sum float32, as the TPU kernel's. The float32 intermediates p and
-//     ds enter as a pair of bf16, hi = bf16(x) and lo = bf16(x - hi): two
-//     mma each, about 16 significant bits (a single bf16 p would be 2^-9
-//     off, outside the one-ulp check against the float32 products).
+//     each sum float32, as the TPU kernel's. The float32 intermediates
+//     enter as sums of bf16 parts, each the rounding of what the parts
+//     before leave (a single bf16 p would be 2^-9 off, outside the one-ulp
+//     check against the float32 products). The forward's e: hi + lo, two
+//     mma, about 16 significant bits. The backward's p and ds: hi + mid +
+//     lo, three mma, all 24 bits of the float32 values the TPU kernel sums;
+//     with hi + lo (the earlier design) a dq or dv that is a cancelling sum
+//     missed one ulp + 1e-5 (1 entry in 15.36 M at 20,000 windows of 8).
 //   * The softmax stays in registers, in base 2: the m16n8 score
 //     accumulators take scale log2(e) and the additive term (bias[g] plus
 //     the window's mask row, times log2(e), -inf past the window's keys),
@@ -72,23 +76,25 @@
 //   * The backward keeps the head-fastest grid of the float32 kernel:
 //     block b takes head b % G and window groups b / G, b / G + n_blocks,
 //     ... of W = 8 / ceil(n / 16) windows. A warp owns a 16-row tile of one
-//     window slot: the scores, p (hi and lo into shared memory), D, ds (hi
-//     and lo into shared memory) and dq = ds k from registers. After a
+//     window slot: the scores, p (float32 into shared memory, transposed:
+//     [key][row]), D, ds (the same) and dq = ds k from registers. After a
 //     barrier the same warp owns a 16-key tile of that slot and reads p^T
-//     and ds^T back with ldmatrix.trans for dk and dv. Each warp adds its
+//     and ds^T back as 8-byte pairs of rows for dk and dv, splitting each
+//     into its three parts in registers. Each warp adds its
 //     tile's ds into float32 registers over the block's windows in order;
 //     at the end the block adds its warps' sums in slot order into its
 //     [G, n, n] partial of dbias: deterministic, no float atomics.
 //   * Occupancy (H100): the forward 3 blocks of 8 warps per SM (79
-//     registers at n = 32, 58 at n = 8); the backward 3 at n <= 16 and 2 at
-//     n <= 64 (125 registers at n = 32: at 3 blocks' 85 it spills and ran
-//     slower), the launch bounds of each instantiation.
+//     registers at n = 32, 58 at n = 8); the backward 3 at n <= 16 (80
+//     registers) and 2 at n <= 64 (128 at n = 32, 8 bytes spilled at HD =
+//     8; held to 3 blocks' 85 registers an earlier design spilled more and
+//     ran slower), the launch bounds of each instantiation.
 //   * Shared memory (fwd_smem_bytes, bwd_smem_bytes): the forward two
 //     stages of q, k, v, 3 x 4 heads x 193 rows x 16 B each at both stage
 //     shapes, 74,112 B; the backward two stages of q, k, v, go, p and ds as
-//     hi and lo [W][16 m][16 m + 8] bf16 (m = ceil(n / 16); the 8 keep
-//     ldmatrix free of bank conflicts) and dq, dk, dv: 63,616 B at stage 0,
-//     35,968 at stage 1, 184,576 at n = 128, HD = 16.
+//     float32 [W][16 m keys][16 m + 8] (m = ceil(n / 16); the 8 keep the
+//     8-byte reads free of bank conflicts) and dq, dk, dv: 63,616 B at
+//     stage 0, 35,968 at stage 1, 184,576 at n = 128, HD = 16.
 // ------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -148,11 +154,11 @@ struct BwdLayout {
     R = 16 * m_tiles(n);
     RS = R + 8;
     stage_bytes = 4 * kc * ct * kChunk;
-    pds_bytes = W * R * RS * 2;
+    pds_bytes = W * R * RS * 4;
     out_bytes = kc * W * n * kChunk;
   }
   __host__ __device__ int total() const {
-    return 2 * stage_bytes + 4 * pds_bytes + 3 * out_bytes;
+    return 2 * stage_bytes + 2 * pds_bytes + 3 * out_bytes;
   }
 };
 
@@ -252,7 +258,9 @@ __device__ __forceinline__ unsigned bits(__nv_bfloat162 v) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// (x, y) as a bf16x2 pair rounded once, and as hi + lo pairs
+// (x, y) as a bf16x2 pair rounded once, and as hi + lo pairs (about 16
+// significant bits): lo the bf16 rounding of x - hi, which is exact in
+// float32 (pv_step3 takes a third part the same way: all 24 bits)
 __device__ __forceinline__ unsigned pack(float x, float y) {
   return bits(__floats2bfloat162_rn(x, y));
 }
@@ -317,6 +325,31 @@ __device__ __forceinline__ void a_pair(const float (&x)[NT][4], int kk,
   split(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
   split(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
   split(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// acc[c] += x b_c for an A fragment x of float32 pairs {a0, a1, a2, a3}
+// (m16n8k16 layout), split into hi, mid and lo bf16, each the rounding of
+// what the parts before leave (x becomes that remainder): three mma each,
+// hi first. Each part is made just before its mma, so only one part and
+// the remainder are live.
+template <int KC>
+__device__ __forceinline__ void pv_step3(float (&acc)[KC][4], float2 (&x)[4],
+                                         const unsigned (&b)[2 * KC]) {
+#pragma unroll
+  for (int part = 0; part < 3; ++part) {
+    unsigned a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[i].x, x[i].y);
+      a[i] = bits(h);
+      if (part < 2) {
+        const float2 hf = __bfloat1622float2(h);
+        x[i].x -= hf.x;
+        x[i].y -= hf.y;
+      }
+    }
+    pv_step<KC>(acc, a, b);
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -696,9 +729,9 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // offset) and of window slot `slot`'s p and ds tiles, and of the outputs;
 // made where they are used, so the loop keeps none of them in registers
 struct BwdTiles {
-  int q, k, v, go;               // [KC][W n + 1][16 B] each
-  int p_hi, p_lo, ds_hi, ds_lo;  // [R][RS] bf16 each
-  int dq, dk, dv;                // [KC][W n][16 B] each
+  int q, k, v, go;  // [KC][W n + 1][16 B] each
+  int p, ds;        // [R keys][RS] float32 each, transposed
+  int dq, dk, dv;   // [KC][W n][16 B] each
   __device__ __forceinline__ BwdTiles(const BwdLayout& L, int kc, int st,
                                       int slot) {
     const int tensor = kc * L.ct * kChunk, pds = 2 * L.stage_bytes;
@@ -706,39 +739,51 @@ struct BwdTiles {
     k = st + tensor;
     v = st + 2 * tensor;
     go = st + 3 * tensor;
-    p_hi = pds + slot * L.R * L.RS * 2;
-    p_lo = p_hi + L.pds_bytes;
-    ds_hi = p_hi + 2 * L.pds_bytes;
-    ds_lo = p_hi + 3 * L.pds_bytes;
-    dq = pds + 4 * L.pds_bytes;
+    p = pds + slot * L.R * L.RS * 4;
+    ds = p + L.pds_bytes;
+    dq = pds + 2 * L.pds_bytes;
     dk = dq + L.out_bytes;
     dv = dq + 2 * L.out_bytes;
   }
 };
 
-// key tiles j < tiles of accumulators S (m16n8 layout) as hi and lo bf16
-// pairs into two [R][RS] tiles, at this lane's byte offsets at0 (row
-// lane / 4, key 2 (lane % 4)) and at1 (8 rows below)
+// key tiles j < tiles of accumulators S (m16n8 layout: rows r and r + 8, r
+// = r0 + lane / 4, keys 8 j + 2 (lane % 4) and + 1) as float32 into the
+// transposed [R keys][RS] tile at byte offset `t`, entry (key, row) at
+// (key RS + row) 4
 template <int NT>
-__device__ __forceinline__ void put_pairs(const float (&S)[NT][4], int tiles,
-                                          int hi_t, int lo_t, int at0,
-                                          int at1) {
+__device__ __forceinline__ void put_transposed(const float (&S)[NT][4],
+                                               int tiles, int t, int RS,
+                                               int r, int lane) {
+  float* x = reinterpret_cast<float*>(smem_buf + t);
+  const int c = 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < NT; ++j)
-    if (j < tiles) {
-      unsigned hi, lo;
-      split(S[j][0], S[j][1], hi, lo);
-      *reinterpret_cast<unsigned*>(smem_buf + hi_t + at0 + 16 * j) = hi;
-      *reinterpret_cast<unsigned*>(smem_buf + lo_t + at0 + 16 * j) = lo;
-      split(S[j][2], S[j][3], hi, lo);
-      *reinterpret_cast<unsigned*>(smem_buf + hi_t + at1 + 16 * j) = hi;
-      *reinterpret_cast<unsigned*>(smem_buf + lo_t + at1 + 16 * j) = lo;
-    }
+    if (j < tiles)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[(8 * j + c + (e & 1)) * RS + r + 8 * (e >> 1)] = S[j][e];
+}
+
+// The A fragment {a0, a1, a2, a3} of keys k0 .. k0 + 15 x rows r0 .. r0 +
+// 15 of a transposed [R keys][RS] float32 tile: each a float2 of two rows
+// of one key (8-byte loads, RS = 8 mod 16 keeps each half-warp's free of
+// bank conflicts)
+__device__ __forceinline__ void load_transposed(float2 (&a)[4], int t,
+                                                int RS, int k0, int r0,
+                                                int lane) {
+  const float* x = reinterpret_cast<const float*>(smem_buf + t);
+  const int key = k0 + (lane >> 2), row = r0 + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = *reinterpret_cast<const float2*>(
+        x + (key + 8 * (i & 1)) * RS + row + 8 * (i >> 1));
 }
 
 // Row phase of one warp: rows r0 .. r0 + 15 of window slot s. p and ds of
-// these rows go to shared memory as hi and lo bf16 (rows past n as 0), ds
-// into DB (this warp's float32 sum over its windows), dq into its tile.
+// these rows go to shared memory as float32, transposed (rows past n as
+// 0), ds into DB (this warp's float32 sum over its windows), dq into its
+// tile.
 template <int MTB, int KC>
 __device__ __forceinline__ void bwd_rows(const BwdLayout& L, int st, int slot,
                                          int r0, int n, int mt,
@@ -747,7 +792,7 @@ __device__ __forceinline__ void bwd_rows(const BwdLayout& L, int st, int slot,
                                          int lane) {
   constexpr int NT = 2 * MTB;
   const BwdTiles t(L, KC, st, slot);
-  const int gq = lane >> 2, tq = lane & 3, base = slot * n;
+  const int gq = lane >> 2, base = slot * n;
   unsigned aq[2 * KC], ag[2 * KC];
   ldsm_rows<KC, false>(aq, sh_addr(t.q), L.ct, base, r0, n, lane);
   ldsm_rows<KC, false>(ag, sh_addr(t.go), L.ct, base, r0, n, lane);
@@ -773,10 +818,7 @@ __device__ __forceinline__ void bwd_rows(const BwdLayout& L, int st, int slot,
 #pragma unroll
     for (int e = 0; e < 4; ++e) S[j][e] *= il[e >> 1];
 
-  // this lane's two rows of a [R][RS] bf16 tile, at key 2 (lane % 4)
-  const int at0 = ((r0 + gq) * L.RS + 2 * tq) * 2;
-  const int at1 = at0 + 8 * L.RS * 2;
-  put_pairs<NT>(S, 2 * mt, t.p_hi, t.p_lo, at0, at1);
+  put_transposed<NT>(S, 2 * mt, t.p, L.RS, r0 + gq, lane);
 
   // D = rowsum(p dp), then ds = p (dp - D), dp recomputed (the same mma on
   // the same operands gives the same bits)
@@ -813,7 +855,7 @@ __device__ __forceinline__ void bwd_rows(const BwdLayout& L, int st, int slot,
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) DB[j][e] += S[j][e];
-  put_pairs<NT>(S, 2 * mt, t.ds_hi, t.ds_lo, at0, at1);
+  put_transposed<NT>(S, 2 * mt, t.ds, L.RS, r0 + gq, lane);
 
   float acc[KC][4];
 #pragma unroll
@@ -823,17 +865,21 @@ __device__ __forceinline__ void bwd_rows(const BwdLayout& L, int st, int slot,
 #pragma unroll
   for (int kk = 0; kk < MTB; ++kk)
     if (kk < mt) {
-      unsigned hi[4], lo[4], b[2 * KC];
-      a_pair<NT>(S, kk, hi, lo);
+      // ds of key tiles 2 kk, 2 kk + 1 as the A fragment {a0 .. a3}
+      float2 x[4] = {{S[2 * kk][0], S[2 * kk][1]},
+                           {S[2 * kk][2], S[2 * kk][3]},
+                           {S[2 * kk + 1][0], S[2 * kk + 1][1]},
+                           {S[2 * kk + 1][2], S[2 * kk + 1][3]}};
+      unsigned b[2 * KC];
       ldsm_rows<KC, true>(b, sh_addr(t.k), L.ct, base, 16 * kk, n, lane);
-      pv_step<KC>(acc, hi, b);
-      pv_step<KC>(acc, lo, b);
+      pv_step3<KC>(acc, x, b);
     }
   store_rows<KC>(t.dq, L.W * n, base, r0, n, acc, scale, lane);
 }
 
 // Column phase of one warp: keys k0 .. k0 + 15 of window slot s, with p^T
-// and ds^T read back by ldmatrix.trans: dk = scale ds^T q, dv = p^T go.
+// and ds^T read back from their transposed float32 tiles: dk = scale ds^T
+// q, dv = p^T go, each A split into hi + mid + lo bf16.
 template <int MTB, int KC>
 __device__ __forceinline__ void bwd_cols(const BwdLayout& L, int st, int slot,
                                          int k0, int n, int mt, float scale,
@@ -848,25 +894,17 @@ __device__ __forceinline__ void bwd_cols(const BwdLayout& L, int st, int slot,
       dk[c][e] = 0.0f;
       dv[c][e] = 0.0f;
     }
-  // lanes 0-7, 8-15, 16-23, 24-31 address (rows 0-7, keys 0-7), (rows 0-7,
-  // keys 8-15), (rows 8-15, keys 0-7), (rows 8-15, keys 8-15): transposed,
-  // the A fragment {a0, a1, a2, a3} of the 16 keys x 16 rows
-  const int lrow = (lane & 7) + ((lane >> 4) << 3), lcol = k0 + (lane & 8);
 #pragma unroll
   for (int rt = 0; rt < MTB; ++rt)
     if (rt < mt) {
-      const int at = ((16 * rt + lrow) * L.RS + lcol) * 2;
-      unsigned ph[4], pl[4], dh[4], dl[4], bq[2 * KC], bg[2 * KC];
-      ldsm<4, true>(ph, sh_addr(t.p_hi + at));
-      ldsm<4, true>(pl, sh_addr(t.p_lo + at));
-      ldsm<4, true>(dh, sh_addr(t.ds_hi + at));
-      ldsm<4, true>(dl, sh_addr(t.ds_lo + at));
-      ldsm_rows<KC, true>(bq, sh_addr(t.q), L.ct, base, 16 * rt, n, lane);
-      ldsm_rows<KC, true>(bg, sh_addr(t.go), L.ct, base, 16 * rt, n, lane);
-      pv_step<KC>(dk, dh, bq);
-      pv_step<KC>(dk, dl, bq);
-      pv_step<KC>(dv, ph, bg);
-      pv_step<KC>(dv, pl, bg);
+      float2 x[4];
+      unsigned b[2 * KC];
+      load_transposed(x, t.p, L.RS, k0, 16 * rt, lane);
+      ldsm_rows<KC, true>(b, sh_addr(t.go), L.ct, base, 16 * rt, n, lane);
+      pv_step3<KC>(dv, x, b);
+      load_transposed(x, t.ds, L.RS, k0, 16 * rt, lane);
+      ldsm_rows<KC, true>(b, sh_addr(t.q), L.ct, base, 16 * rt, n, lane);
+      pv_step3<KC>(dk, x, b);
     }
   store_rows<KC>(t.dk, L.W * n, base, k0, n, dk, scale, lane);
   store_rows<KC>(t.dv, L.W * n, base, k0, n, dv, 1.0f, lane);
@@ -893,7 +931,7 @@ attn_bwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool has_slot = warp < W * mt;
   const unsigned base_u32 = sh_addr(0);
   const int tensor_bytes = KC * L.ct * kChunk;
-  const int pds = 2 * L.stage_bytes, outs = pds + 4 * L.pds_bytes;
+  const int pds = 2 * L.stage_bytes, outs = pds + 2 * L.pds_bytes;
   const bool half = hd == 4;
 
   // q, k, v, go of head g for windows w0 .. w0 + nw - 1 into stage buf:

@@ -17,8 +17,9 @@ kernels built by ``kernels/build.py``: for float32 q, k, v in
 and for bfloat16 q, k, v (the compute dtype "bfloat16") a forward and a
 backward on the tensor cores in ``csrc/window_attention_bf16.cu``
 (``window_attention_fwd_bf16``, ``window_attention_bwd_bf16``: mma.sync of
-bf16 operands with float32 sums, p and ds as hi + lo bf16 pairs), whose
-dbias partials go through the same float32 sum.
+bf16 operands with float32 sums; the forward's p as hi + lo bf16 pairs,
+the backward's p and ds as hi + mid + lo, all 24 bits of their float32
+values), whose dbias partials go through the same float32 sum.
 
 ``window_attention`` is a ``torch.autograd.Function``: its forward saves q,
 k, v, bias and the output, its backward is the backward kernels; bias gets

@@ -343,9 +343,10 @@ def _space() -> bool:
 
 
 def _global_count(n: int, device) -> torch.Tensor:
-    """The sum over the ranks of each rank's ``n`` (float32, no host
-    read)."""
-    return sum_over_ranks(torch.tensor(float(n), device=device))
+    """The sum over the ranks of each rank's ``n`` (float32, no host read;
+    filled on the device, so a CUDA graph can capture it)."""
+    return sum_over_ranks(torch.full((), float(n), dtype=torch.float32,
+                                     device=device))
 
 
 def batch_mean(t: torch.Tensor) -> torch.Tensor:

@@ -35,10 +35,13 @@ a gloo mesh on a card raises).
 
 The ``space`` axis (``mesh_shape=[D, S]``, ``mesh_axes=["data",
 "space"]`` under ``torchrun --nproc_per_node D*S``): the driver makes
-the spatial context of the dataset's H (parallel/spatial.py), each rank
-trains on its H rows of its data rows with the host loader (the device
-loaders raise), the S ranks of a data index draw the same dropout bits,
-and the image panels gather the rows of their forward to every rank.
+the spatial context of the dataset's H (parallel/spatial.py) before the
+loaders, each rank trains on its H rows of its data rows with any of the
+three loops (with ``device_data`` every rank holds the whole cube and
+gathers its rows on the card; the fused epochs' step runs the halo and
+shift exchanges, on a card captured with them under NCCL), the S ranks
+of a data index draw the same dropout bits, and the image panels gather
+the rows of their forward to every rank.
 """
 # ------------------------------------------------------------------
 

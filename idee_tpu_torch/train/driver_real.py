@@ -19,9 +19,10 @@ are train/driver.py's; the val loaders carry the sea and no-vegetation
 masks for the panels. Data parallelism (``mesh_shape`` under torchrun)
 is train/driver.py's, with any of the three loops: each rank on its rows
 of every global batch, the masked losses normalised over the global
-batch, rank 0 writing; so is the ``space`` axis (the host loader only):
-each rank on its H rows, the valid pixels counted over the global
-batch.
+batch, rank 0 writing; so is the ``space`` axis, with any of the three
+loops: each rank on its H rows (with ``device_data`` gathered on the card
+from the whole week slabs and masks every rank holds), the valid pixels
+counted over the global batch.
 """
 # ------------------------------------------------------------------
 

@@ -278,7 +278,12 @@ class FusedEpoch:
     (the losses' normalisers, the codebooks' statistics, the gradient
     average) are captured with it and run at every replay, on every rank
     in the same sequence. The warm-up steps run each of them first, so
-    NCCL's communicator exists before the capture.
+    NCCL's communicator exists before the capture. Under a space axis the
+    loader gathers the rank's H rows of those rows (data/device.py) and
+    the body's forward and backward run the halo and shift exchanges
+    (parallel/spatial.py) of the spatial context active around the epoch,
+    captured as the other collectives are; the epoch metrics hold the
+    rank's rows until the driver reduces them after the epoch.
 
     On the CPU the same body runs eagerly, step after step.
     """

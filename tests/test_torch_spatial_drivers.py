@@ -20,7 +20,9 @@ in tests/test_torch_parallel.py:
     0 up to rounding, which Adam turns into steps of +-lr over a driver's
     epoch, so its parameters are held over 2 steps above): rank 0 alone
     writes, the run resumes, the history equals the world-1 driver's;
-  * the device-resident loaders refuse a space axis.
+  * the device-resident loaders refuse a space axis without the spatial
+    context of their H (under one they gather the rank's rows:
+    tests/test_torch_spatial_device.py).
 """
 # ------------------------------------------------------------------
 
@@ -34,6 +36,7 @@ from idee_tpu_torch.data.device import DeviceLoader
 from idee_tpu_torch.data.fake import (make_fake_cube, write_cube_npz,
                                       write_fake_reanalysis)
 from idee_tpu_torch.models.vq_model import build_model
+from idee_tpu_torch.parallel import spatial
 from idee_tpu_torch.parallel.mesh import Mesh
 from idee_tpu_torch.train.driver import train_synthetic
 from idee_tpu_torch.train.driver_real import train_real
@@ -186,12 +189,21 @@ def test_train_real_matches_world_1(runs):
 
 
 def test_device_loaders_refuse_the_space_axis():
+    """A device loader under a space axis needs the spatial context of
+    its data's H when it is made (the rows it gathers); it refuses a mesh
+    with a space axis and no context, or a context of another H."""
     cube = make_fake_cube(n_vars=3, n_time=20, height=16, width=16, seed=1)
     from idee_tpu_torch.data.synthetic import SyntheticDataset
 
     ds = SyntheticDataset(cube=cube, variables=["var_01", "var_02",
                                                 "var_03"],
                           x_max=16, y_max=16)
+    mesh = Mesh(1, 2, torch.device("cpu"), space=2)
     with pytest.raises(ValueError, match="space axis of 2 ranks"):
-        DeviceLoader(ds, 2, device="cpu",
-                     mesh=Mesh(0, 2, torch.device("cpu"), space=2))
+        DeviceLoader(ds, 2, device="cpu", mesh=mesh)
+    with spatial.activate(mesh, 32), pytest.raises(ValueError,
+                                                   match="splits 32 rows"):
+        DeviceLoader(ds, 2, device="cpu", mesh=mesh)
+    with spatial.activate(mesh, 16, 4):
+        batch = next(iter(DeviceLoader(ds, 2, device="cpu", mesh=mesh)))
+    assert batch["x"].shape[-2:] == (8, 16)

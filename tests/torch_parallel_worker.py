@@ -27,6 +27,11 @@ is a dict:
   ``family``'s tree (with ``items`` (n_train, n_val) its training and
   validation sets cut to their first weeks, after the shuffle); returns
   the history;
+* ``device_batches``: the device loaders (data/device.py) of
+  ``cfg``'s training and validation sets (synthetic, or with ``family``
+  the real-world tree's), made as the drivers make them, inside the
+  spatial context of their H; returns the rank's rows [lo, hi) and the
+  batches of one epoch of each loader, on the CPU;
 * ``ops``: the space axis's exchanges (parallel/spatial.py) on the rank's
   rows of ``x`` (a global numpy array, H along ``dim``; the context's H
   ``H``, default all of x's, split on ``align``): for each of ``ops``
@@ -59,6 +64,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 from idee_tpu_torch.config import Config  # noqa: E402
+from idee_tpu_torch.data.device import (DeviceLoader,  # noqa: E402
+                                        RealDeviceLoader)
 from idee_tpu_torch.kernels import selective_scan, window_attention  # noqa
 from idee_tpu_torch.models.vq_model import build_model  # noqa: E402
 from idee_tpu_torch.parallel import spatial  # noqa: E402
@@ -192,6 +199,30 @@ def _measured(mesh, run):
     return out
 
 
+def run_device_batches(job, mesh):
+    cfg = Config.from_dict(job["cfg"])
+    family = job.get("family")
+    if family:
+        train_ds = driver_real.make_reanalysis_dataset(
+            cfg, family, cfg.years_train, cfg.is_aug)
+        val_ds = driver_real.make_reanalysis_dataset(cfg, family,
+                                                     cfg.years_val, False)
+        make = RealDeviceLoader
+        extra = {"with_eval_masks": True}
+    else:
+        train_ds, val_ds = driver._make_datasets(cfg)
+        make, extra = DeviceLoader, {"with_anomaly": True}
+    kw = dict(seed=cfg.seed, device=mesh.device, mesh=mesh)
+    with spatial.activate(mesh, train_ds.input_size[1],
+                          spatial.model_row_align(cfg)) as ctx:
+        loaders = (make(train_ds, cfg.batch_size, **kw),
+                   make(val_ds, cfg.batch_size, **extra, **kw))
+        epochs = [[{k: v.cpu() for k, v in b.items()} for b in loader]
+                  for loader in loaders]
+    return {"rows": (ctx.lo, ctx.hi), "train": epochs[0],
+            "val": epochs[1]}
+
+
 def run_ops(job, mesh):
     dim, x = job["dim"], torch.from_numpy(job["x"])
     out = []
@@ -216,7 +247,8 @@ def run_ops(job, mesh):
 
 
 RUNS = {"steps": run_steps, "driver": run_driver,
-        "train_real": run_train_real, "ops": run_ops}
+        "train_real": run_train_real, "device_batches": run_device_batches,
+        "ops": run_ops}
 
 
 def main(argv):
