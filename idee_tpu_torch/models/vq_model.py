@@ -45,6 +45,7 @@ from idee_tpu_torch.nn.mamba import Mamba
 from idee_tpu_torch.nn.swin3d import Swin_3D
 from idee_tpu_torch.quant import get_quantizer
 from idee_tpu_torch.quant.lfq import LFQ
+from idee_tpu_torch.utils import spans
 
 
 # cfg.dtype -> the compute dtype
@@ -217,10 +218,16 @@ class VQModel(nn.Module):
         """The anomaly L1 leaves the pixels of mask_extreme_loss, and of
         mask_exclude (the real-world cold surface) when given,
         unconstrained. ``generator`` draws dropout and drop-path masks and
-        the codebook's random draws."""
+        the codebook's random draws. The ``encoder``, ``quantizer``,
+        ``classifier`` and ``loss`` spans (utils/spans.py); where the
+        encoder's output takes a gradient, ``encoder_backward`` begins
+        when the backward reaches it."""
         V = self.config.in_channels_dynamic
-        zp = self.encoder(x_d.to(self.dtype), train=train, packed_out=True,
-                          generator=generator)
+        dev = x_d.device
+        with spans.span("encoder", dev):
+            zp = self.encoder(x_d.to(self.dtype), train=train,
+                              packed_out=True, generator=generator)
+        spans.begin_on_grad(zp, "encoder_backward")
         if self._scalar_lfq():
             return self._forward_packed(zp, V, train, mask_extreme_loss,
                                         mask_exclude, generator)
@@ -229,28 +236,32 @@ class VQModel(nn.Module):
         # (V, T, H, W) order (build.py:149-150)
         N, T, H, W, VC = zp.shape
         C = VC // V
-        tokens = zp.reshape(N, T, H, W, V, C).permute(0, 4, 1, 2, 3, 5) \
-            .reshape(N, V * T * H * W, C)
-        # VQ samples rows of the global batch: the tokens' layout around H
-        # (the other codebooks read no rows)
-        z_q, indices, loss_z_q = self.vq(tokens, train=train,
-                                         generator=generator, grid=(V * T, W))
-        z_q = z_q.reshape(N, V, T, H, W, C).permute(0, 1, 5, 2, 3, 4)
-        anomaly = indices.reshape(N, V, T, H, W)
+        with spans.span("quantizer", dev):
+            tokens = zp.reshape(N, T, H, W, V, C) \
+                .permute(0, 4, 1, 2, 3, 5).reshape(N, V * T * H * W, C)
+            # VQ samples rows of the global batch: the tokens' layout
+            # around H (the other codebooks read no rows)
+            z_q, indices, loss_z_q = self.vq(tokens, train=train,
+                                             generator=generator,
+                                             grid=(V * T, W))
+            z_q = z_q.reshape(N, V, T, H, W, C).permute(0, 1, 5, 2, 3, 4)
+            anomaly = indices.reshape(N, V, T, H, W)
+            vq0 = self.normal_code(z_q.device).detach()
         # classify on the quantized codes only (build.py:157)
-        zc, y = self.cls(z_q.to(self.dtype), train=train,
-                         generator=generator)
-        vq0 = self.normal_code(z_q.device).detach()
+        with spans.span("classifier", dev):
+            zc, y = self.cls(z_q.to(self.dtype), train=train,
+                             generator=generator)
+            zc, y = zc.float(), y.float()
         loss_anomaly = None
         if mask_extreme_loss is not None:
-            if mask_exclude is not None:
-                loss_anomaly = losses.anomaly_l1_loss(
-                    z_q, mask_extreme_loss, mask_exclude, vq0)
-            else:
-                loss_anomaly = losses.anomaly_l1_loss_synthetic(
-                    z_q, mask_extreme_loss, vq0)
-        return VQOutput(zc.float(), y.float(), anomaly, z_q, loss_z_q, vq0,
-                        loss_anomaly)
+            with spans.span("loss", dev):
+                if mask_exclude is not None:
+                    loss_anomaly = losses.anomaly_l1_loss(
+                        z_q, mask_extreme_loss, mask_exclude, vq0)
+                else:
+                    loss_anomaly = losses.anomaly_l1_loss_synthetic(
+                        z_q, mask_extreme_loss, vq0)
+        return VQOutput(zc, y, anomaly, z_q, loss_z_q, vq0, loss_anomaly)
 
     def _forward_packed(self, zp, V: int, train: bool, mask_extreme_loss,
                         mask_exclude, generator) -> VQOutput:
@@ -259,29 +270,36 @@ class VQModel(nn.Module):
         L1 is the collapsed losses.anomaly_l1_lfq."""
         N, T, H, W, VC = zp.shape
         C = VC // V
+        dev = zp.device
 
-        parts = self.vq.quantize_packed(zp, V, train=train)
-        s_q = parts.s_q                                    # [N,T,H,W,V]
-        anomaly = parts.indices.permute(0, 4, 1, 2, 3)     # [N,V,T,H,W]
+        with spans.span("quantizer", dev):
+            parts = self.vq.quantize_packed(zp, V, train=train)
+            s_q = parts.s_q                                # [N,T,H,W,V]
+            anomaly = parts.indices.permute(0, 4, 1, 2, 3)  # [N,V,T,H,W]
 
-        w_out, b_out = self.vq.out_proj_params()
-        # zq[.., v*C + c] = s_q[.., v] * w_out[c] + b_out[c]
-        zq_packed = (s_q[..., None] * w_out + b_out).reshape(N, T, H, W, VC)
-        zc, y = self.cls(zq_packed.to(self.dtype), train=train, packed=True,
-                         generator=generator)
+            w_out, b_out = self.vq.out_proj_params()
+            # zq[.., v*C + c] = s_q[.., v] * w_out[c] + b_out[c]
+            zq_packed = (s_q[..., None] * w_out + b_out) \
+                .reshape(N, T, H, W, VC)
+            vq0 = (b_out - w_out).detach()  # project_out(-1)
+        with spans.span("classifier", dev):
+            zc, y = self.cls(zq_packed.to(self.dtype), train=train,
+                             packed=True, generator=generator)
+            zc, y = zc.float(), y.float()
 
-        vq0 = (b_out - w_out).detach()  # project_out(-1)
         loss_anomaly = None
         if mask_extreme_loss is not None:
-            w_pix = mask_extreme_loss.float()
-            if mask_exclude is not None:
-                w_pix = w_pix + mask_exclude.float()
-            w_pix = 1.0 - torch.clamp(w_pix, 0.0, 1.0)
-            loss_anomaly = losses.anomaly_l1_lfq(s_q, w_pix, w_out, b_out)
+            with spans.span("loss", dev):
+                w_pix = mask_extreme_loss.float()
+                if mask_exclude is not None:
+                    w_pix = w_pix + mask_exclude.float()
+                w_pix = 1.0 - torch.clamp(w_pix, 0.0, 1.0)
+                loss_anomaly = losses.anomaly_l1_lfq(s_q, w_pix, w_out,
+                                                     b_out)
 
         z_q = zq_packed.reshape(N, T, H, W, V, C).permute(0, 4, 5, 1, 2, 3)
-        return VQOutput(zc.float(), y.float(), anomaly, z_q, parts.aux_loss,
-                        vq0, loss_anomaly)
+        return VQOutput(zc, y, anomaly, z_q, parts.aux_loss, vq0,
+                        loss_anomaly)
 
 
 def build_model(config: Config,

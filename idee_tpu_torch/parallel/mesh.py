@@ -319,6 +319,11 @@ def world_size() -> int:
     return 1 if _ACTIVE is None else _ACTIVE.world
 
 
+def is_active() -> bool:
+    """True between make_mesh and the mesh's close."""
+    return _ACTIVE is not None
+
+
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the ranks, without gradient (a copy)."""
     if _ACTIVE is None:

@@ -16,8 +16,10 @@ graph replay per step, train/steps.py::FusedEpoch) or, with
 epoch is timed from its start to one synchronise at its end (JAX's
 ``nb / wall``).
 
-``profile_dir`` traces steps 2-7 of the first epoch with torch.profiler
-(utils/logging.py::StepTrace) and so selects the per-step loop, as in JAX.
+``profile_dir`` traces the first train epoch with torch.profiler
+(utils/spans.py::StepTrace): steps 2-7 of a per-step loop, as in JAX, or
+a fused epoch whole (its warm-up steps, capture and replays, whose spans
+the device marks show).
 Each epoch the TensorBoard image panels (utils/vis.py) are made from the
 last val batch, which the val loaders carry with its anomaly bits, through
 an eval step that returns the predictions, outside any captured graph.
@@ -73,9 +75,9 @@ from idee_tpu_torch.train.state import (TrainState, count_parameters,
 from idee_tpu_torch.train.steps import (init_epoch_metrics, make_eval_epoch,
                                         make_eval_step, make_train_epoch,
                                         make_train_step, metrics_to_host)
-from idee_tpu_torch.utils.logging import (StepTimer, StepTrace,
-                                          SummaryWriter, fix_seed,
-                                          get_logger, log_string)
+from idee_tpu_torch.utils.logging import (StepTimer, SummaryWriter,
+                                          fix_seed, get_logger, log_string)
+from idee_tpu_torch.utils.spans import StepTrace
 from idee_tpu_torch.utils.vis import (generate_anomaly,
                                       generate_images_synthetic)
 
@@ -117,10 +119,9 @@ def _check_supported(cfg: Config):
 
 
 def use_fused(cfg: Config) -> bool:
-    """The fused epochs run with ``device_data`` and ``fused_epoch``, unless
-    ``profile_dir`` asks for the per-step loop's step boundaries (JAX
-    idee_tpu/train/driver.py:176-177)."""
-    return bool(cfg.device_data and cfg.fused_epoch and not cfg.profile_dir)
+    """The fused epochs run with ``device_data`` and ``fused_epoch``; the
+    ``profile_dir`` hook traces them as they run."""
+    return bool(cfg.device_data and cfg.fused_epoch)
 
 
 def data_parallel(cfg: Config, device, mesh):
@@ -180,16 +181,29 @@ def epoch_metrics(mesh, metrics):
                            else mesh.reduce_metrics(metrics))
 
 
+def _hook(cfg: Config, epoch: int, start_epoch: int, device,
+          logger) -> Optional[StepTrace]:
+    """The ``profile_dir`` hook in the first epoch, else None; under a
+    mesh on rank 0 only (the caller passes logger None on the others)."""
+    if not cfg.profile_dir or epoch != start_epoch or logger is None:
+        return None
+    return StepTrace(cfg.profile_dir, f"{cfg.name}_train", device, logger)
+
+
 def traced(loader, cfg: Config, epoch: int, start_epoch: int, device,
            logger):
     """``loader``'s batches; in the first epoch with ``profile_dir`` the
-    ``profile_dir`` hook traces steps 2-7 (utils/logging.py::StepTrace);
-    under a mesh on rank 0 only (the caller passes logger None on the
-    others)."""
-    if not cfg.profile_dir or epoch != start_epoch or logger is None:
-        return loader
-    return StepTrace(cfg.profile_dir, f"{cfg.name}_train", device,
-                     logger).steps(loader)
+    hook traces steps 2-7 of the per-step loop."""
+    hook = _hook(cfg, epoch, start_epoch, device, logger)
+    return loader if hook is None else hook.steps(loader)
+
+
+def traced_epoch(cfg: Config, epoch: int, start_epoch: int, device,
+                 logger):
+    """A context; in the first epoch with ``profile_dir`` the hook traces
+    the fused epoch run inside it whole."""
+    hook = _hook(cfg, epoch, start_epoch, device, logger)
+    return contextlib.nullcontext() if hook is None else hook.whole()
 
 
 def _epoch_results(m, evaluator, eval_anom, gt_anomaly) -> float:
@@ -337,10 +351,11 @@ def _train_synthetic(cfg, train_cube, val_cube, dev, mesh, scope) -> Dict:
 
             # -- train epoch: device-resident accumulation --
             if use_fused(cfg):
-                t_ep = time.perf_counter()
-                # the epoch's one device sync ends its time
-                m = epoch_metrics(mesh, train_epoch(state))
-                sps = len(train_loader) / (time.perf_counter() - t_ep)
+                with traced_epoch(cfg, epoch, start_epoch, dev, logger):
+                    t_ep = time.perf_counter()
+                    # the epoch's one device sync ends its time
+                    m = epoch_metrics(mesh, train_epoch(state))
+                    sps = len(train_loader) / (time.perf_counter() - t_ep)
             else:
                 metrics = init_epoch_metrics(train_ds.anomaly.shape, dev)
                 for batch in traced(train_loader, cfg, epoch, start_epoch,

@@ -46,7 +46,7 @@ from idee_tpu_torch.parallel import spatial
 from idee_tpu_torch.train.driver import (_check_supported, activate_space,
                                          data_parallel, epoch_metrics,
                                          join_ranks, rank_output, traced,
-                                         use_fused)
+                                         traced_epoch, use_fused)
 from idee_tpu_torch.train.evaluate import load_weights
 from idee_tpu_torch.train.history import flush_history, seed_history
 from idee_tpu_torch.train.metrics import Evaluator
@@ -227,10 +227,11 @@ def _train_real(cfg, family, train_ds, val_ds, dev, mesh, scope) -> Dict:
             timer = StepTimer()
 
             if use_fused(cfg):
-                t_ep = time.perf_counter()
-                # the epoch's one device sync ends its time
-                m = epoch_metrics(mesh, train_epoch(state))
-                sps = len(train_loader) / (time.perf_counter() - t_ep)
+                with traced_epoch(cfg, epoch, start_epoch, dev, logger):
+                    t_ep = time.perf_counter()
+                    # the epoch's one device sync ends its time
+                    m = epoch_metrics(mesh, train_epoch(state))
+                    sps = len(train_loader) / (time.perf_counter() - t_ep)
             else:
                 metrics = init_epoch_metrics_real(dev)
                 for batch in traced(train_loader, cfg, epoch, start_epoch,

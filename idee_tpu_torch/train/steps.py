@@ -13,6 +13,7 @@ card works; ``metrics_to_host`` is the one sync per epoch.
 # ------------------------------------------------------------------
 
 import contextlib
+import gc
 import time
 from typing import Any, Dict, Tuple
 
@@ -22,8 +23,9 @@ import torch
 from idee_tpu_torch import losses
 from idee_tpu_torch.config import Config
 from idee_tpu_torch.parallel import spatial
-from idee_tpu_torch.parallel.mesh import average_gradients
+from idee_tpu_torch.parallel.mesh import average_gradients, is_active
 from idee_tpu_torch.kernels import selective_scan, window_attention
+from idee_tpu_torch.utils import spans
 
 _LOSS_KEYS = ("loss", "loss_bce", "loss_anomaly", "loss_var", "loss_z_q")
 _COUNT_KEYS = ("correct", "seen", "iou_de", "predicted", "seen_all")
@@ -95,18 +97,20 @@ def _scatter_votes(vote_sum, vote_cnt, anomaly, t_index, delta_t: int):
 def _accumulate(metrics, comps, out, batch, t0: float, delta_t: int,
                 threshold: float = 0.5):
     """Fold one step's outputs into the epoch metrics, in place; returns
-    the extreme probability sigmoid(z) and its prediction, [N, 1, H, W]."""
-    pred = torch.sigmoid(out.z)
-    pred_c = (pred > threshold).float()
-    counts = extreme_counts(pred_c, batch["mask_extreme"][:, None])
-    for k in _COUNT_KEYS:
-        metrics["counts"][k] += counts[k]
-    for k in _LOSS_KEYS:
-        metrics["loss_sums"][k] += comps[k]
-    metrics["n_steps"] += 1
-    t_index = (batch["timestep"][:, 0] - t0).long()
-    _scatter_votes(metrics["vote_sum"], metrics["vote_cnt"], out.anomaly,
-                   t_index, delta_t)
+    the extreme probability sigmoid(z) and its prediction, [N, 1, H, W]
+    (the ``accumulate`` span)."""
+    with spans.span("accumulate", out.z.device):
+        pred = torch.sigmoid(out.z)
+        pred_c = (pred > threshold).float()
+        counts = extreme_counts(pred_c, batch["mask_extreme"][:, None])
+        for k in _COUNT_KEYS:
+            metrics["counts"][k] += counts[k]
+        for k in _LOSS_KEYS:
+            metrics["loss_sums"][k] += comps[k]
+        metrics["n_steps"] += 1
+        t_index = (batch["timestep"][:, 0] - t0).long()
+        _scatter_votes(metrics["vote_sum"], metrics["vote_cnt"],
+                       out.anomaly, t_index, delta_t)
     return pred, pred_c
 
 
@@ -123,6 +127,21 @@ def _lambda_schedule(cfg: Config, steps_per_epoch: int):
                                                      0.0), 1.0)
 
 
+def backward_and_update(model, state, loss, device) -> None:
+    """zero_grad and the backward of ``loss``, under a data-parallel mesh
+    the gradients averaged over the ranks (parallel/mesh.py), then
+    ``state.update()`` (the optimizer step at the lr already set): the
+    ``backward``, ``grad_sync`` and ``optimizer`` spans."""
+    with spans.backward(device):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    if is_active():
+        with spans.span("grad_sync", device):
+            average_gradients(model.parameters())
+    with spans.span("optimizer", device):
+        state.update()
+
+
 def _train_body(model, cfg: Config, t0: float):
     """body(state, metrics, batch, lam): forward with train=True and the
     mask, total_loss_synthetic at lambda_anomaly ``lam`` (a float or a
@@ -137,16 +156,15 @@ def _train_body(model, cfg: Config, t0: float):
     def body(state, metrics, batch, lam):
         # no module reads .training (train= is explicit); set for clarity
         model.train()
+        dev = batch["x"].device
         out = model(batch["x"], train=True,
                     mask_extreme_loss=batch["mask_extreme_loss"],
                     generator=state.generator)
-        loss, comps = losses.total_loss_synthetic(
-            out, batch["mask_extreme"], batch["mask_extreme_loss"], lam,
-            **bce)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        average_gradients(model.parameters())  # under a mesh
-        state.update()
+        with spans.span("loss", dev):
+            loss, comps = losses.total_loss_synthetic(
+                out, batch["mask_extreme"], batch["mask_extreme_loss"], lam,
+                **bce)
+        backward_and_update(model, state, loss, dev)
         with torch.no_grad():
             _accumulate(metrics, {k: v.detach() for k, v in comps.items()},
                         out, batch, t0, cfg.delta_t)
@@ -175,7 +193,8 @@ def make_train_step(model, cfg: Config, t0: float = 0.0,
     def step(state, metrics, batch):
         lam = cfg.lambda_anomaly if lam_at is None else lam_at(state.step)
         state.set_lr(state.schedule(state.step))
-        body(state, metrics, batch, lam)
+        with spans.span("step", batch["x"].device):
+            body(state, metrics, batch, lam)
         state.step += 1
         return state, metrics
 
@@ -192,9 +211,10 @@ def _eval_body(model, cfg: Config, t0: float):
         model.eval()
         out = model(batch["x"], train=False,
                     mask_extreme_loss=batch["mask_extreme_loss"])
-        _, comps = losses.total_loss_synthetic(
-            out, batch["mask_extreme"], batch["mask_extreme_loss"],
-            cfg.lambda_anomaly, **bce)
+        with spans.span("loss", batch["x"].device):
+            _, comps = losses.total_loss_synthetic(
+                out, batch["mask_extreme"], batch["mask_extreme_loss"],
+                cfg.lambda_anomaly, **bce)
         pred, pred_c = _accumulate(metrics, comps, out, batch, t0,
                                    cfg.delta_t)
         return pred, pred_c, out
@@ -214,7 +234,8 @@ def make_eval_step(model, cfg: Config, t0: float = 0.0,
 
     @torch.inference_mode()
     def step(metrics, batch):
-        pred, pred_c, out = body(metrics, batch)
+        with spans.span("step", batch["x"].device):
+            pred, pred_c, out = body(metrics, batch)
         if return_preds:
             return metrics, {"pred": pred, "pred_c": pred_c,
                              "anomaly": out.anomaly}
@@ -248,6 +269,23 @@ def zero_metrics(metrics) -> None:
             zero_metrics(v)
         else:
             v.zero_()
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector paused. An earlier epoch's graph
+    that only a reference cycle keeps (a FusedEpoch and its step's
+    closure) is freed when the collector next runs; CUDA permits no graph
+    destruction while a stream captures, so a collection inside a capture
+    would make the capture fail."""
+    if not gc.isenabled():
+        yield
+        return
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
 
 
 class FusedEpoch:
@@ -285,6 +323,11 @@ class FusedEpoch:
     captured as the other collectives are; the epoch metrics hold the
     rank's rows until the driver reduces them after the epoch.
 
+    Each step is the ``step`` span and its batch the ``data`` span
+    (utils/spans.py): on a card their device marks are captured with the
+    step, so every replay emits them. The epoch's host work runs in the
+    host ranges ``order``, ``upload``, ``zero`` and ``replays``.
+
     On the CPU the same body runs eagerly, step after step.
     """
 
@@ -314,11 +357,12 @@ class FusedEpoch:
 
     def batch(self) -> Dict[str, torch.Tensor]:
         """The rank's rows of the batch at the device position (no host
-        read)."""
-        idx = self.order.index_select(0, self.pos)[0]
-        flips = (None if self.flips is None
-                 else self.flips.index_select(0, self.pos)[0][self.rows])
-        return self.loader.batch(idx[self.rows], flips)
+        read; the ``data`` span)."""
+        with spans.span("data", self.device):
+            idx = self.order.index_select(0, self.pos)[0]
+            flips = (None if self.flips is None
+                     else self.flips.index_select(0, self.pos)[0][self.rows])
+            return self.loader.batch(idx[self.rows], flips)
 
     def batch_at(self, b: int) -> Dict[str, torch.Tensor]:
         """The rank's rows of the last epoch's batch ``b`` (-1: its last),
@@ -331,8 +375,9 @@ class FusedEpoch:
         return self.values.index_select(0, self.pos)[0]
 
     def _step(self):
-        with (torch.inference_mode() if self.inference
-              else contextlib.nullcontext()):
+        mode = (torch.inference_mode() if self.inference
+                else contextlib.nullcontext())
+        with mode, spans.span("step", self.device):
             self.body()
             self.pos += 1
 
@@ -343,7 +388,7 @@ class FusedEpoch:
                 self.state.generator.device.type == "cuda":
             graph.register_generator_state(self.state.generator)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=stream):
+        with _collector_paused(), torch.cuda.graph(graph, stream=stream):
             self._step()
         self.capture_s = time.perf_counter() - t0
         after = _snapshot()
@@ -360,23 +405,29 @@ class FusedEpoch:
         ``state``: the lr is set once for the epoch (the schedule is
         constant within one) and ``state.step`` advances by the epoch's
         steps."""
-        order, epoch = self.loader.epoch_order()
+        with spans.host_range("order"):
+            order, epoch = self.loader.epoch_order()
+            flips = (None if self.flips is None
+                     else self.loader.epoch_flips(epoch))
         nb = order.shape[0]
-        if state is not None:
-            self.state = state
-            lr = state.schedule(state.step)
-            if state.schedule(state.step + nb - 1) != lr:
-                raise ValueError("the lr schedule changes inside an epoch: "
-                                 "the fused epoch sets it once per epoch")
-            state.set_lr(lr)
-            if self.values is not None:
-                self.values.copy_(torch.tensor(
-                    [self.per_step(state.step + b) for b in range(nb)]))
-        self.order.copy_(torch.from_numpy(order))
-        if self.flips is not None:
-            self.flips.copy_(torch.from_numpy(self.loader.epoch_flips(epoch)))
-        self.pos.zero_()
-        zero_metrics(self.metrics)
+        with spans.host_range("upload"):
+            if state is not None:
+                self.state = state
+                lr = state.schedule(state.step)
+                if state.schedule(state.step + nb - 1) != lr:
+                    raise ValueError("the lr schedule changes inside an "
+                                     "epoch: the fused epoch sets it once "
+                                     "per epoch")
+                state.set_lr(lr)
+                if self.values is not None:
+                    self.values.copy_(torch.tensor(
+                        [self.per_step(state.step + b) for b in range(nb)]))
+            self.order.copy_(torch.from_numpy(order))
+            if flips is not None:
+                self.flips.copy_(torch.from_numpy(flips))
+            self.pos.zero_()
+        with spans.host_range("zero"):
+            zero_metrics(self.metrics)
         self._run(nb)
         if state is not None:
             state.step += nb
@@ -400,11 +451,12 @@ class FusedEpoch:
             if done == nb:
                 return  # captured in the next epoch
             self._capture(stream)
-        for _ in range(nb - done):
-            self.graph.replay()
-            for c, d in zip(_COUNTERS, self.per_replay):
-                for k, n in d.items():
-                    c[k] += n
+        with spans.host_range("replays"):
+            for _ in range(nb - done):
+                self.graph.replay()
+                for c, d in zip(_COUNTERS, self.per_replay):
+                    for k, n in d.items():
+                        c[k] += n
 
 
 def make_train_epoch(model, cfg: Config, loader, anomaly_shape,
@@ -443,7 +495,12 @@ def make_eval_epoch(model, cfg: Config, loader, anomaly_shape,
 
 def metrics_to_host(metrics) -> Dict[str, Any]:
     """The epoch metrics as numpy (the one device sync per epoch)."""
+    with spans.host_range("metrics_to_host"):
+        return _to_numpy(metrics)
+
+
+def _to_numpy(metrics):
     if isinstance(metrics, dict):
-        return {k: metrics_to_host(v) for k, v in metrics.items()}
+        return {k: _to_numpy(v) for k, v in metrics.items()}
     return metrics.cpu().numpy() if isinstance(metrics, torch.Tensor) \
         else np.asarray(metrics)

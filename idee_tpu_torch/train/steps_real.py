@@ -24,8 +24,9 @@ import torch
 
 from idee_tpu_torch import losses
 from idee_tpu_torch.config import Config
-from idee_tpu_torch.parallel.mesh import average_gradients
-from idee_tpu_torch.train.steps import _LOSS_KEYS, FusedEpoch
+from idee_tpu_torch.train.steps import (_LOSS_KEYS, FusedEpoch,
+                                        backward_and_update)
+from idee_tpu_torch.utils import spans
 
 THRESHOLD = 0.35  # train_CERRA.py:212-213
 _COUNT_KEYS = ("correct", "seen", "iou_de", "predicted")
@@ -93,15 +94,17 @@ def _forward(model, batch, train: bool, generator=None):
 
 def _accumulate_real(metrics, comps, out, batch, mask_valid):
     """Fold one step into the epoch metrics, in place; returns the drought
-    probability and the thresholded prediction [N, H, W]."""
-    pred = torch.sigmoid(out.z[:, 0])
-    pred_c = (pred > THRESHOLD).float()
-    counts = drought_counts(pred_c, batch["mask_extreme"], mask_valid)
-    for k, v in counts.items():
-        metrics["counts"][k] += v
-    for k in _LOSS_KEYS:
-        metrics["loss_sums"][k] += comps[k]
-    metrics["n_steps"] += 1
+    probability and the thresholded prediction [N, H, W] (the
+    ``accumulate`` span)."""
+    with spans.span("accumulate", out.z.device):
+        pred = torch.sigmoid(out.z[:, 0])
+        pred_c = (pred > THRESHOLD).float()
+        counts = drought_counts(pred_c, batch["mask_extreme"], mask_valid)
+        for k, v in counts.items():
+            metrics["counts"][k] += v
+        for k in _LOSS_KEYS:
+            metrics["loss_sums"][k] += comps[k]
+        metrics["n_steps"] += 1
     return pred, pred_c
 
 
@@ -114,13 +117,12 @@ def _train_body_real(model, cfg: Config):
 
     def body(state, metrics, batch):
         model.train()
+        dev = batch["x"].device
         out = _forward(model, batch, True, state.generator)
-        loss, comps, mask_valid = total_loss_real(out, batch,
-                                                  cfg.lambda_anomaly)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        average_gradients(model.parameters())  # under a mesh
-        state.update()
+        with spans.span("loss", dev):
+            loss, comps, mask_valid = total_loss_real(out, batch,
+                                                      cfg.lambda_anomaly)
+        backward_and_update(model, state, loss, dev)
         with torch.no_grad():
             _accumulate_real(metrics, {k: v.detach()
                                        for k, v in comps.items()},
@@ -138,7 +140,8 @@ def make_train_step_real(model, cfg: Config):
 
     def step(state, metrics, batch):
         state.set_lr(state.schedule(state.step))
-        body(state, metrics, batch)
+        with spans.span("step", batch["x"].device):
+            body(state, metrics, batch)
         state.step += 1
         return state, metrics
 
@@ -149,8 +152,9 @@ def _eval_body_real(model, cfg: Config):
     def body(metrics, batch):
         model.eval()
         out = _forward(model, batch, False)
-        _, comps, mask_valid = total_loss_real(out, batch,
-                                               cfg.lambda_anomaly)
+        with spans.span("loss", batch["x"].device):
+            _, comps, mask_valid = total_loss_real(out, batch,
+                                                   cfg.lambda_anomaly)
         _accumulate_real(metrics, comps, out, batch, mask_valid)
 
     return body

@@ -113,59 +113,3 @@ class StepTimer:
         if self._t0 is None or self.count <= self.warmup:
             return float("nan")
         return (self.count - self.warmup) / (self._now() - self._t0)
-
-
-
-class StepTrace:
-    """The ``profile_dir`` hook of the trainers (JAX's jax.profiler trace
-    of steps 2-7 of the first epoch, idee_tpu/train/driver.py:214-246):
-    torch.profiler over the steps FIRST to LAST of a loop (the first two
-    build and warm up), with CUDA activity on a card and CPU activity
-    otherwise, written as a Chrome trace ``<directory>/<name>.trace.json``.
-    ``steps(batches)`` yields the batches and traces their steps; a
-    shorter epoch's end closes the trace."""
-
-    FIRST, LAST = 2, 7
-
-    def __init__(self, directory: str, name: str, device: torch.device,
-                 logger=None):
-        from torch.profiler import ProfilerActivity, profile
-
-        self.path = os.path.join(directory, f"{name}.trace.json")
-        self.directory = directory
-        self.device = device
-        self.logger = logger
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        self._prof = profile(activities=activities)
-        self._active = False
-
-    def steps(self, batches):
-        """``batches``, step i's trace starting when batch FIRST is handed
-        out and ending when the step after batch LAST asks for the next."""
-        try:
-            for i, batch in enumerate(batches):
-                if i == self.FIRST:
-                    self._sync()
-                    self._prof.start()
-                    self._active = True
-                yield batch
-                if i == self.LAST:
-                    self.close()
-        finally:
-            self.close()
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def close(self):
-        if not self._active:
-            return
-        self._sync()
-        self._prof.stop()
-        self._active = False
-        os.makedirs(self.directory, exist_ok=True)
-        self._prof.export_chrome_trace(self.path)
-        log_string(self.logger, f"profiler trace -> {self.directory}")

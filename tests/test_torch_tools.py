@@ -7,16 +7,19 @@ visualize_data.
 CPU, small sizes (3 variables, 16x16, CNN_3D or Mamba with depths [1, 1]):
   * the panels equal idee_tpu.utils.vis's (max abs <= 1e-7; the cividis
     table is carried without matplotlib), NaN probabilities included;
-  * ``profile_dir`` writes a Chrome trace of steps 2-7 (a shorter epoch
-    closes it at its end), selects the per-step loop under device_data and
-    fused_epoch, and leaves the history equal to a run without it; the
+  * ``profile_dir`` writes a Chrome trace of steps 2-7 of a per-step loop
+    (a shorter epoch closes it at its end) or of a fused first epoch
+    whole, its step spans in it, and leaves the history equal to a run
+    without it; the
     panels are made each epoch from the last val batch (shapes as JAX's,
     values in [0, 1]), for train_synthetic and train_real, host and device
     loaders; RealDeviceLoader's eval masks equal JAX's;
   * memory_fit and profile_step run their CPU path (no memory and no
-    device time measured there); visualize_data writes a PNG.
+    device time measured there: profile_step reads the spans' host
+    ranges); visualize_data writes a PNG.
 Card (``gpu`` marker): a memory_fit probe and a profile_step run on the
-card, and the profile hook's trace naming the scan kernels.
+card (the spans from their device marks), and the profile hook's trace
+naming the scan kernels and the span marks.
 """
 # ------------------------------------------------------------------
 
@@ -150,9 +153,9 @@ def _trace_events(path):
 def test_profile_dir_traces_and_keeps_the_synthetic_history(
         cube, tmp_path, monkeypatch, loop):
     """10 train steps per epoch: the trace covers steps 2-7 of the first
-    epoch; with device_data and fused_epoch the hook runs the per-step
-    loop, whose history equals the fused run's (tests/
-    test_torch_device_data.py holds the two loops equal)."""
+    epoch of the host loop, and the whole first epoch of the fused
+    epochs (device_data and fused_epoch), which the hook leaves selected;
+    the history equals the run's without the hook."""
     monkeypatch.setattr(driver, "SummaryWriter", Recorder)
     Recorder.runs = []
     kw = dict(device_data=loop != "host", encoder="Mamba")
@@ -170,6 +173,13 @@ def test_profile_dir_traces_and_keeps_the_synthetic_history(
     steps = [e for e in events if e.get("name", "").startswith(
         "aten::native_layer_norm") or e.get("name") == "aten::conv3d"]
     assert steps  # the model's operators ran under the profiler
+    traced_steps = [e for e in events if e.get("name") == "idee.step"]
+    assert len(traced_steps) == (6 if loop == "host" else 10)
+    # the fused epoch's host work around its steps
+    epoch_ranges = {e["name"] for e in events
+                    if e.get("name") in ("idee.order", "idee.upload")}
+    assert epoch_ranges == (set() if loop == "host"
+                            else {"idee.order", "idee.upload"})
     with open(tmp_path / "traced" / "tools" / "log_file.txt") as fh:
         assert f"profiler trace -> {prof}" in fh.read()
 
@@ -263,13 +273,21 @@ def test_profile_step_runs_its_cpu_path(tmp_path):
     summary = profile_step.main(["--device", "cpu", "--encoder", "Mamba",
                                  "--hw", "16", "--iters", "2", "--out",
                                  str(out)])
-    rows = summary["segments"]
-    assert len(rows) == 8 and all("cpu_ms" in r and "ms" not in r
-                                  and "mfu" not in r for r in rows)
-    assert all(math.isfinite(r["cpu_ms"]) for r in rows)
-    # the train step counts the forward's products and their gradients
-    assert rows[0]["gflop"] > 2 * rows[1]["gflop"] > 0
-    assert json.loads(out.read_text())["step_cpu_ms"] == rows[0]["cpu_ms"]
+    rows = {r["span"]: r for r in summary["spans"]}
+    assert list(rows) == ["step", "data", "encoder", "quantizer",
+                          "classifier", "loss", "backward",
+                          "encoder_backward", "optimizer", "accumulate"]
+    assert all("cpu_ms" in r and "ms" not in r and "mfu" not in r
+               and math.isfinite(r["cpu_ms"]) for r in rows.values())
+    assert all(r["n"] == 2 for k, r in rows.items() if k != "loss")
+    assert rows["loss"]["n"] == 4
+    # the children lie inside the step, the encoder's backward inside
+    # the backward
+    assert 0.5 < summary["children_cover"] <= 1
+    assert rows["encoder_backward"]["cpu_ms"] < rows["backward"]["cpu_ms"]
+    assert json.loads(out.read_text())["step_cpu_ms"] == \
+        rows["step"]["cpu_ms"]
+    assert "step_mfu" not in summary and "busy_cover" not in summary
 
 
 def test_visualize_data_writes_pngs(cube, cerra, tmp_path):
@@ -306,8 +324,13 @@ def test_memory_fit_on_card(cuda):
 @pytest.mark.gpu
 def test_profile_step_on_card(cuda):
     summary = profile_step.profile("Mamba", hw=32, iters=3, device="cuda")
-    assert all(r["ms"] > 0 and 0 <= r["mfu"] < 1
-               for r in summary["segments"])
+    rows = {r["span"]: r for r in summary["spans"]}
+    assert all(r["ms"] > 0 and r["n"] == (6 if k == "loss" else 3)
+               for k, r in rows.items())
+    assert "encoder_backward" in rows and "mfu" not in rows["step"]
+    assert 0.97 <= summary["children_cover"] <= 1
+    assert 0.97 <= summary["busy_cover"] <= 1
+    assert summary["marks_per_step"] == 2 * (len(rows) + 1)  # 2 losses
     assert "W" in summary["card"]
 
 
@@ -321,6 +344,7 @@ def test_profile_hook_trace_names_the_scan_kernels(cube, cuda, tmp_path):
         val_cube=cube.time_slice(29, N_TIME), device="cuda")
     names = {e.get("name", "") for e in
              _trace_events(prof / "tools_train.trace.json")}
-    for kernel in ("fused_scan_n1_fwd_kernel", "fused_scan_n1_bwd_kernel"):
+    for kernel in ("fused_scan_n1_fwd_kernel", "fused_scan_n1_bwd_kernel",
+                   "idee_span_encoder_backward_begin"):
         assert any(kernel in n for n in names), kernel
     assert os.path.getsize(prof / "tools_train.trace.json") > 0

@@ -584,14 +584,14 @@ def test_driver_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="WORLD_SIZE 1"):
         train_synthetic(_driver_config(tmp_path, mesh_shape=[2]),
                         device="cpu")
-    # the profiler hook is ported: accepted, and it selects the per-step
-    # loop over the fused epochs (tests/test_torch_tools.py runs it)
+    # the profiler hook is ported: accepted, and it traces the fused
+    # epochs, which it leaves selected (tests/test_torch_tools.py runs it)
     from idee_tpu_torch.train.driver import _check_supported, use_fused
 
     cfg = _driver_config(tmp_path, profile_dir=str(tmp_path),
                          device_data=True)
     _check_supported(cfg)
-    assert not use_fused(cfg) and use_fused(cfg.replace(profile_dir=None))
+    assert use_fused(cfg) and use_fused(cfg.replace(profile_dir=None))
 
 
 # ---------------------------------------------------------------- card only
