@@ -27,6 +27,20 @@ Phases, each printing one JSON line:
                  profiler device time and host us per launch, beside
                  torch.sum's; the attention kernels also at Swin_3D's
                  delta_t 4 shapes (phase 15d)
+  2b. grouped_wgrad
+                 the Dense weight-gradient kernel (kernels/grouped_dense.py)
+                 at every Dense shape of the two train cells (Mamba float32,
+                 Swin_3D bf16; kernels/bench_grouped_wgrad.py): against a
+                 float64 sum, two runs bit for bit, bf16 within one bf16 ulp
+                 of cuBLAS's, timed beside cuBLAS's weight gradient and the
+                 bound, and in float32 the kernel on TF32-rounded operands
+                 beyond the float64 limit; then one train step of each at
+                 the bench width, launches exact: two for every
+                 GroupedDense layer, each layer's weight gradient nonzero.
+                 Every train path's launches count both passes for each
+                 GroupedDense layer a step; the plain side of each
+                 step-gradient check computes the weight gradients as
+                 float64 sums rounded once instead
   3. main        synthetic evaluation (train.evaluate.test_synthetic) with
                  the Mamba encoder at the bench width: 6 variables x 1
                  channel, delta_t=8, 200x200, batch 1, random weights from
@@ -475,10 +489,11 @@ def max_err(got, want, name, rtol, atol) -> float:
 
 
 def kernel_modules():
+    from idee_tpu_torch.kernels import grouped_dense as gd
     from idee_tpu_torch.kernels import selective_scan as ss
     from idee_tpu_torch.kernels import window_attention as wa
 
-    return ss, wa
+    return ss, wa, gd
 
 
 def phase_build():
@@ -930,7 +945,7 @@ def check_attention_bf16(bounds, f32_rows, shapes=ATTN_SHAPES):
 def phase_kernel():
     from idee_tpu_torch.kernels import bounds
 
-    ss, wa = kernel_modules()
+    ss, wa, _ = kernel_modules()
     fused = check_fused_forward(ss, bounds)
     scan = check_linear_scan(ss, bounds)
     backward = check_fused_backward(ss, bounds)
@@ -956,6 +971,60 @@ def phase_kernel():
             {"float32": attention_dt4, "bfloat16": attention_bf16_dt4})
 
 
+def phase_grouped_wgrad(cube):
+    """Phase grouped_wgrad (see the module docstring). Returns (the shape
+    rows and per-step sums by cell, the train steps' launches)."""
+    from idee_tpu_torch.data.loader import DataLoader
+    from idee_tpu_torch.kernels import bench_grouped_wgrad as bench
+    from idee_tpu_torch.kernels import bounds
+    from idee_tpu_torch.kernels import grouped_dense as gd
+    from idee_tpu_torch.models.vq_model import build_model, compute_dtype
+    from idee_tpu_torch.nn.layers import GroupedDense
+    from idee_tpu_torch.train.driver import _make_datasets
+
+    cells = {}
+    for cell, (layers, dtype) in bench.CELLS.items():
+        rows = {name: bench.measure(I, O, bias, dtype, bounds.DENSE_TOKENS,
+                                    seed=70 + i, iters=10)
+                for i, (name, (I, O, bias)) in enumerate(layers.items())}
+        bad = [name for name, r in rows.items() if not bench.row_ok(r)]
+        if bad:
+            raise SystemExit(f"grouped_wgrad {cell}: {bad} beyond tolerance "
+                             f"or not bit-equal: {rows}")
+        cells[cell] = {"layers": rows, "per_step": bench.per_step(rows)}
+        torch.cuda.empty_cache()
+    steps = {}
+    for encoder, dtype in (("Mamba", "float32"), ("Swin_3D", "bfloat16")):
+        cfg = train_config(encoder, dtype=dtype)
+        train_ds, _ = _make_datasets(cfg, cube.time_slice(*TRAIN_WEEKS),
+                                     cube.time_slice(*VAL_WEEKS))
+        batch = next(iter(DataLoader(
+            train_ds, 1, device="cuda", x_dtype=compute_dtype(cfg),
+            keys=["x", "mask_extreme", "mask_extreme_loss", "timestep"])))
+        model = build_model(cfg, torch.Generator().manual_seed(0))
+        dense = [name for name, m in model.named_modules()
+                 if isinstance(m, GroupedDense)]
+        if len(dense) != DENSE_LAYERS[encoder]:
+            raise SystemExit(f"grouped_wgrad {encoder}: {len(dense)} Dense "
+                             f"layers, expected {DENSE_LAYERS[encoder]}")
+        zero_launches()
+        grads = step_gradients(cfg, model.state_dict(), batch, plain=False)
+        launched = read_launches()
+        expect_launches(launched, kernel_launches_per_step(
+            encoder, train=True, dtype=dtype),
+            f"grouped_wgrad {encoder} train step")
+        silent = [n for n in dense
+                  if not grads[f"{n}.kernel"].abs().max().item() > 0]
+        if silent:
+            raise SystemExit(f"grouped_wgrad {encoder}: no weight gradient "
+                             f"for {silent}")
+        steps[f"{encoder}_{dtype}"] = {
+            "dense_layers": len(dense),
+            "launches": {k: launched[k] for k in gd.launches}}
+    emit(phase="grouped_wgrad", cells=cells, train_steps=steps)
+    return cells, steps
+
+
 def zero_launches():
     for mod in kernel_modules():
         for k in mod.launches:
@@ -976,8 +1045,12 @@ def expect_launches(got, nonzero, what):
 @contextlib.contextmanager
 def plain_ops(encoder: str):
     """The encoder's kernel op swapped for its plain PyTorch version at the
-    name the encoder module calls."""
-    ss, wa = kernel_modules()
+    name the encoder module calls, and GroupedDense's weight-gradient
+    kernel for its plain version (``grouped_dense_reference``: the
+    einsum, its weight gradient as float64 sums rounded once)."""
+    ss, wa, gd = kernel_modules()
+    import idee_tpu_torch.nn.layers as layers
+
     if encoder == "Mamba":
         import idee_tpu_torch.nn.mamba as mod
 
@@ -988,30 +1061,87 @@ def plain_ops(encoder: str):
 
         name = "window_attention"
         plain = wa.window_attention_fwd_plain
-    kernel_op = getattr(mod, name)
+    kernel_op, dense_op = getattr(mod, name), layers.grouped_dense
     setattr(mod, name, plain)
+    layers.grouped_dense = gd.grouped_dense_reference
     try:
         yield
     finally:
         setattr(mod, name, kernel_op)
+        layers.grouped_dense = dense_op
+
+
+def dense_row(cells, steps, paths):
+    """The kernels line's row of the Dense weight-gradient kernel (both
+    launches): per train step of the Mamba float32 cell (its 18 Dense
+    layers), and of the Swin_3D bf16 cell; launches of pass 1 (pass 2
+    launches as often: ``launches_sum``) on the main train path
+    (train_mamba), by path, and in phase grouped_wgrad's train steps. It
+    replaces no TPU kernel (XLA's transpose of the einsum's dot); the
+    library call is cuBLAS's weight gradient, what autograd of the einsum
+    runs."""
+    from idee_tpu_torch.kernels import grouped_dense as gd
+
+    def per_step(cell):
+        rows, step = cells[cell]["layers"], cells[cell]["per_step"]
+        return {"max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+                "ms": step["kernel_ms"], "bound_ms": step["bound_ms"],
+                "library_ms": step["cublas_ms"]}
+
+    return {
+        "name": gd.GROUPED_WGRAD, "route": "cuda",
+        "source": f"idee_tpu_torch/kernels/csrc/{gd.SOURCES[gd.GROUPED_WGRAD]}"
+                  ".cu",
+        "replaces": None,
+        "launches": paths["train_mamba"][gd.GROUPED_WGRAD],
+        "launches_sum": paths["train_mamba"][gd.GROUPED_WGRAD_SUM],
+        "launches_by_path": {
+            **{path: counts.get(gd.GROUPED_WGRAD, 0)
+               for path, counts in paths.items()},
+            **{f"grouped_wgrad_step_{k}": v["launches"][gd.GROUPED_WGRAD]
+               for k, v in steps.items()}},
+        **per_step("mamba-f32-train-200"), "plain_ms": None,
+        "bound_by": "bytes",
+        "swin_bf16": per_step("swin-bf16-train-200"),
+    }
+
+
+# GroupedDense layers of an encoder's three blocks: Mamba's in_proj,
+# x_proj, dt_proj, out_proj and MLP (2) a block, Swin_3D's qkv, proj and
+# MLP (2); and of a block of the MIL agent (RTFM, MGFN): q, proj and its
+# MLP (2) (kv's kernel goes into an einsum of its own)
+DENSE_LAYERS = {"Mamba": 18, "Swin_3D": 12}
+AGENT_DENSE_A_BLOCK = 4
+
+
+def dense_launches(n_layers: int):
+    """Launches of a train step's backward through ``n_layers``
+    GroupedDense layers: both passes of the weight-gradient kernel each."""
+    gd = kernel_modules()[2]
+    return {gd.GROUPED_WGRAD: n_layers, gd.GROUPED_WGRAD_SUM: n_layers}
 
 
 def kernel_launches_per_step(encoder: str, train: bool, d_state: int = 1,
                              dtype: str = "float32"):
     """Launches per train (or eval / val) step at the bench width: three
     blocks, one launch each of the forward kernel, and in a train step of
-    each backward kernel (at d_state > 1 the linear scan is both). At
-    bf16 the attention launches its bf16 kernels (and the float32 dbias
+    each backward kernel (at d_state > 1 the linear scan is both) and of
+    the Dense weight-gradient kernel's two passes per GroupedDense layer.
+    At bf16 the attention launches its bf16 kernels (and the float32 dbias
     sum); the scans take float32 inputs whatever the compute dtype."""
-    ss, wa = kernel_modules()
+    ss, wa, _ = kernel_modules()
+    dense = dense_launches(DENSE_LAYERS[encoder]) if (
+        train and encoder in DENSE_LAYERS) else {}
     if encoder == "Mamba" and d_state == 1:
-        return {ss.FUSED_FWD: 3, **({ss.FUSED_BWD: 3} if train else {})}
+        return {ss.FUSED_FWD: 3, **({ss.FUSED_BWD: 3} if train else {}),
+                **dense}
     if encoder == "Mamba":
-        return {ss.LINEAR_SCAN: 6 if train else 3}
+        return {ss.LINEAR_SCAN: 6 if train else 3, **dense}
     if encoder == "Swin_3D":
         fwd, bwd = ((wa.ATTN_FWD, wa.ATTN_BWD) if dtype == "float32"
                     else (wa.ATTN_FWD_BF16, wa.ATTN_BWD_BF16))
-        return {fwd: 3, **({bwd: 3, wa.DBIAS_SUM: 3} if train else {})}
+        return {fwd: 3, **({bwd: 3, wa.DBIAS_SUM: 3} if train else {}),
+                **dense}
     return {}  # CNN_3D runs no kernel
 
 
@@ -1724,7 +1854,8 @@ def codebook_train_step(cube, name: str, cfg_kw):
     no_grad = NO_GRADIENT.get(name, ())
     launches = kernel_launches_per_step("Mamba", train=True)
     if "encoder." in no_grad:  # no backward reaches the encoder
-        del launches[kernel_modules()[0].FUSED_BWD]
+        for k in (kernel_modules()[0].FUSED_BWD, *dense_launches(0)):
+            del launches[k]
     zero_launches()
     got = step_gradients(cfg, params, batch, plain=False, loss=losses)
     expect_launches(read_launches(), launches, f"{name} train step")
@@ -1853,13 +1984,20 @@ def baseline_train_step(family: str, which: str, cfg, history):
     return build_recon_model(cfg, which, (200, 200))[1](model, cfg, t0)
 
 
-def baseline_launches_per_step(family: str, encoder,
-                               dtype: str = "float32"):
+def baseline_launches_per_step(family: str, which: str, encoder,
+                               dtype: str = "float32", agent_blocks: int = 0):
     """Kernel launches per (train, eval) step: the encoder's (a MIL
-    encoder trains; SimpleNet's frozen backbone runs its forward only);
-    STEAL and UniAD run no kernel."""
+    encoder trains; SimpleNet's frozen backbone runs its forward only),
+    and in a train step of RTFM and MGFN the Dense weight gradients of
+    their agent's ``agent_blocks`` blocks; STEAL and UniAD run no
+    kernel."""
     if family == "mil":
-        return (kernel_launches_per_step(encoder, train=True, dtype=dtype),
+        trn = kernel_launches_per_step(encoder, train=True, dtype=dtype)
+        if which in ("rtfm", "mgfn"):
+            for k, n in dense_launches(
+                    AGENT_DENSE_A_BLOCK * agent_blocks).items():
+                trn[k] = trn.get(k, 0) + n
+        return (trn,
                 kernel_launches_per_step(encoder, train=False, dtype=dtype))
     if family == "oneclass":
         fwd = kernel_launches_per_step(encoder, train=False, dtype=dtype)
@@ -2030,7 +2168,9 @@ def phase_baseline(cube, phase, family, which, encoder, test: bool,
     n_train = TRAIN_WEEKS[1] - TRAIN_WEEKS[0] + 2 - cfg.delta_t
     n_val = VAL_WEEKS[1] - VAL_WEEKS[0] + 2 - cfg.delta_t
     n_test = N_WEEKS + 1 - cfg.delta_t
-    per_train, per_eval = baseline_launches_per_step(family, encoder, dtype)
+    per_train, per_eval = baseline_launches_per_step(
+        family, which, encoder, dtype,
+        sum(getattr(cfg, "agent_depths", ())))
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -2315,11 +2455,11 @@ def phase_train_ddp(cube):
     global batches of 2 rows of the cube, dropout 0, each rank on its row;
     both ranks' parameters equal, and equal to the single-device steps on
     the global batches; each rank launches the fused scan forward and
-    backward 3 + 3 times per step. (c) The same for VQ-EMA (k-means init,
+    backward 3 + 3 times per step and each pass of the Dense weight
+    gradient 18 times. (c) The same for VQ-EMA (k-means init,
     dead-code expiry; lambda_anomaly 0, as tests/test_torch_parallel.py
     explains): the codebook buffers equal on both ranks and to world 1's.
     Returns {path: launches}."""
-    import idee_tpu_torch.kernels.selective_scan as ss
     from idee_tpu_torch.data.loader import collate
     from idee_tpu_torch.models.vq_model import build_model
     from idee_tpu_torch.parallel.mesh import make_mesh
@@ -2379,7 +2519,7 @@ def phase_train_ddp(cube):
         got = [r[j] for r in ranks]
         for r, g in enumerate(got):
             expect_launches({k: g["launches"].get(k, 0)
-                             for k in ss.launches}, per_step,
+                             for k in read_launches()}, per_step,
                             f"train_ddp {name} rank {r}")
             paths[f"train_ddp_{name}_rank{r}"] = {
                 k: g["launches"].get(k, 0) for k in read_launches()}
@@ -2753,7 +2893,7 @@ def phase_train_space(root: str, meanwhile=None):
     and the per-rank memory, not the speed. Returns {path: launches}."""
     from idee_tpu_torch.train.driver import train_synthetic
 
-    ss, wa = kernel_modules()
+    ss, wa, _ = kernel_modules()
     kernels = check_space_kernels(ss, wa)
     cases = {"mamba": train_config("Mamba"), "swin": train_config("Swin_3D"),
              "cnn": train_config("CNN_3D"),
@@ -4380,7 +4520,7 @@ def main() -> int:
     import idee_tpu_torch  # noqa: F401 -- fails outside a checkout
     from idee_tpu_torch.data.fake import make_fake_cube, write_cube_npz
 
-    ss, wa = kernel_modules()
+    ss, wa, _ = kernel_modules()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # bf16 products reduce in float32 (as resolve_device sets for every
@@ -4393,6 +4533,7 @@ def main() -> int:
     fused, scan, backward, attn, attn_bf16, attn_dt4 = phase_kernel()
     cube = make_fake_cube(n_vars=6, n_time=N_WEEKS, height=200, width=200,
                           seed=0)
+    dense, dense_steps = phase_grouped_wgrad(cube)
     paths = {
         "eval_mamba": phase_eval(cube, "Mamba"),
         "train_mamba": phase_train(cube, "Mamba", "train", resume=True),
@@ -4553,6 +4694,7 @@ def main() -> int:
                  attn_bf16, attn_dt4["bfloat16"]),
         attn_row(wa.ATTN_BWD_BF16, "backward", 240, "train_swin_bf16",
                  attn_bf16, attn_dt4["bfloat16"]),
+        dense_row(dense, dense_steps, paths),
     ], card=card)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

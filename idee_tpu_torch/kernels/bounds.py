@@ -2,8 +2,9 @@
 """Least time one H100 SXM could take for each kernel's work: the larger
 of the bytes it must move (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate for their
-type: float32 outside the tensor cores, and for the bf16 attention kernels
-the dense bf16 tensor-core rate (NVIDIA's H100 SXM data sheet, 700 W).
+type: float32 outside the tensor cores, and for the bf16 attention and
+Dense weight-gradient kernels the dense bf16 tensor-core rate (NVIDIA's
+H100 SXM data sheet, 700 W).
 
     python -m idee_tpu_torch.kernels.bounds
 
@@ -88,6 +89,32 @@ def window_attention_dbias_sum(n_blocks: int, G: int, n: int):
     return bound_ms(4 * (n_blocks + 1) * G * n * n, n_blocks * G * n * n)
 
 
+def grouped_wgrad(M: int, V: int, I: int, O: int, has_bias: bool,
+                  dtype: str = "float32"):
+    """GroupedDense's weight (and bias) gradient, both launches of
+    csrc/grouped_wgrad.cu: reads x [M, V*I] and dy [M, V*O] of ``dtype``
+    once, writes dW [V, I, O] (and db [V, O]) of ``dtype``; 2 M V I O
+    operations (M V O more for the bias) at the peak of ``dtype``."""
+    size, peak = ATTN_TYPES[dtype]
+    n_bytes = size * (M * V * (I + O) + V * I * O + (V * O if has_bias
+                                                     else 0))
+    ops = 2 * M * V * I * O + (M * V * O if has_bias else 0)
+    return bound_ms(n_bytes, ops, peak)
+
+
+# the Dense layers of one encoder block at the bench width, (I, O, bias):
+# Mamba's in_proj, x_proj, dt_proj, out_proj, mlp_fc1, mlp_fc2
+# (nn/mamba.py; d_model 16, d_state 1, dt_rank 1) and Swin_3D's qkv, proj,
+# mlp_fc1, mlp_fc2 (nn/swin3d.py; C 16); three blocks a step, 320,000
+# tokens (8 x 200 x 200) each
+MAMBA_DENSE = {"in_proj": (16, 32, False), "x_proj": (16, 3, False),
+               "dt_proj": (1, 16, True), "out_proj": (16, 16, False),
+               "mlp_fc1": (16, 64, True), "mlp_fc2": (64, 16, True)}
+SWIN_DENSE = {"qkv": (16, 48, True), "proj": (16, 16, True),
+              "mlp_fc1": (16, 64, True), "mlp_fc2": (64, 16, True)}
+DENSE_TOKENS = 320_000
+
+
 # bench shapes, batch 1, 200x200, 6 variables x 16 channels:
 # stage 0 window (2,4,4): 10,000 windows of 32 tokens;
 # stage 1 window (8,1,1): 40,000 windows of 8 tokens;
@@ -129,6 +156,13 @@ BENCH = {
                                     (171, 12, 32)),
                                    ("stage1", window_attention_dbias_sum,
                                     (171, 12, 8))],
+    # one block's Dense layers (three a step): Mamba float32, Swin_3D bf16
+    "grouped_wgrad": [
+        *((f"mamba_{name}", grouped_wgrad, (DENSE_TOKENS, 6, *shape))
+          for name, shape in MAMBA_DENSE.items()),
+        *((f"swin_{name}", grouped_wgrad,
+           (DENSE_TOKENS, 6, *shape, "bfloat16"))
+          for name, shape in SWIN_DENSE.items())],
 }
 
 

@@ -40,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from idee_tpu_torch.kernels.grouped_dense import grouped_dense
 from idee_tpu_torch.parallel import spatial
 
 Init = Callable[[torch.Tensor, Optional[torch.Generator]], None]
@@ -219,7 +220,9 @@ class GroupedConv3d(nn.Module):
 
 class GroupedDense(nn.Module):
     """Per-variable (unshared) Dense on packed [..., V*in] -> [..., V*out].
-    Parameters kernel [V, in, out], bias [V, out]."""
+    Parameters kernel [V, in, out], bias [V, out]. The einsum of
+    ``kernels/grouped_dense.py``; its weight and bias gradients on a card
+    are that module's CUDA kernel."""
 
     def __init__(self, n_groups: int, in_features: int, features: int,
                  use_bias: bool = True,
@@ -241,14 +244,11 @@ class GroupedDense(nn.Module):
             self.bias = None
 
     def forward(self, x):
-        V, fin, fout = self.kernel.shape
+        V, _, fout = self.kernel.shape
         dt = self.dtype
-        lead = x.shape[:-1]
-        y = torch.einsum("...vi,vio->...vo", x.to(dt).reshape(*lead, V, fin),
-                         self.kernel.to(dt)).reshape(*lead, V * fout)
-        if self.bias is not None:
-            y = y + self.bias.reshape(V * fout).to(dt)
-        return y
+        b = (self.bias.reshape(V * fout).to(dt) if self.bias is not None
+             else None)
+        return grouped_dense(x.to(dt), self.kernel.to(dt), b)
 
 
 class GroupedLayerNorm3d(nn.Module):

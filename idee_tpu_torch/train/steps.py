@@ -24,7 +24,8 @@ from idee_tpu_torch import losses
 from idee_tpu_torch.config import Config
 from idee_tpu_torch.parallel import spatial
 from idee_tpu_torch.parallel.mesh import average_gradients, is_active
-from idee_tpu_torch.kernels import selective_scan, window_attention
+from idee_tpu_torch.kernels import (grouped_dense, selective_scan,
+                                    window_attention)
 from idee_tpu_torch.utils import spans
 
 _LOSS_KEYS = ("loss", "loss_bce", "loss_anomaly", "loss_var", "loss_z_q")
@@ -255,7 +256,8 @@ WARMUP_STEPS = 3
 
 # the kernel modules' launch counters; a captured step counts its launches
 # once per replay (FusedEpoch.run)
-_COUNTERS = (selective_scan.launches, window_attention.launches)
+_COUNTERS = (selective_scan.launches, window_attention.launches,
+             grouped_dense.launches)
 
 
 def _snapshot() -> Tuple[Dict[str, int], ...]:

@@ -66,7 +66,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from idee_tpu_torch.config import Config  # noqa: E402
 from idee_tpu_torch.data.device import (DeviceLoader,  # noqa: E402
                                         RealDeviceLoader)
-from idee_tpu_torch.kernels import selective_scan, window_attention  # noqa
+from idee_tpu_torch.kernels import (grouped_dense, selective_scan,  # noqa
+                                    window_attention)
 from idee_tpu_torch.models.vq_model import build_model  # noqa: E402
 from idee_tpu_torch.parallel import spatial  # noqa: E402
 from idee_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
@@ -81,7 +82,8 @@ T_LINE = 20  # the timeline slots of the step jobs' vote buffers
 
 
 def _launches():
-    return {**selective_scan.launches, **window_attention.launches}
+    return {**selective_scan.launches, **window_attention.launches,
+            **grouped_dense.launches}
 
 
 def run_steps(job, mesh):
